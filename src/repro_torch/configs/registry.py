@@ -1,0 +1,28 @@
+"""Registry: ``--arch <id>`` lookup for the families the port serves
+(qwen2-7b and the OPT series), with the ``-smoke`` reduced variants."""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs.opt import OPT_NAMES, opt_config
+from repro_torch.configs.qwen2_7b import CONFIG as _qwen2_7b
+from repro_torch.models.config import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {"qwen2-7b": _qwen2_7b}
+for _n in OPT_NAMES:
+    ARCHS[_n] = opt_config(_n)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name.endswith("-smoke"):
+        return get_config(name[: -len("-smoke")]).reduced()
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    cfg = ARCHS[name]
+    cfg.validate()
+    return cfg
+
+
+def list_archs() -> List[str]:
+    return sorted(ARCHS)

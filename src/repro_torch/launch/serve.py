@@ -1,0 +1,130 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
+
+Runs the continuous-batching paged-KV engine (``repro_torch.serve.engine``)
+over a mixed-length request set (reduced variant by default, ``--full``
+for the published widths) on the card, and prints tokens/s plus the
+per-token energy/carbon estimate.  A warmup request runs before the timing
+window so the kernel build and first-launch costs stay out of tokens/s.
+``--torch-device cpu`` runs the plain PyTorch versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="number of requests in the mixed-length set")
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="max prompt length (requests vary 4..prompt-len)")
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--device", default="cloud-h100",
+                    help="energy/carbon profile from core.energy.devices "
+                         "(smartphone-sd888 | laptop-m2pro | cloud-a5000 | "
+                         "cloud-h100 | tpu-v5e)")
+    ap.add_argument("--torch-device", default="cuda",
+                    help="where the model runs: cuda (default) or cpu")
+    ap.add_argument("--attn-impl", default="kernel",
+                    choices=["kernel", "gather"],
+                    help="paged decode attention: the CUDA flash-decode "
+                         "kernel or the plain dense-gather version")
+    ap.add_argument("--kv-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32", "int8"],
+                    help="paged KV pool dtype; int8 stores quantized pages "
+                         "with per-vector fp32 scales")
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="prompt tokens fed per engine step, shared across "
+                         "prefilling slots (1 = token-by-token)")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable the prefix-cache index (every request "
+                         "recomputes its full prompt)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace/Perfetto JSON timeline")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the engine metrics registry as JSONL")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.energy.devices import get_device
+    from repro_torch.device import resolve_device
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.obs import Tracer, get_tracer, set_tracer
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.paged_cache import blocks_for
+
+    dev = resolve_device(args.torch_device)
+    energy = get_device(args.device)
+    cfg = get_config(args.arch if args.full else args.arch + "-smoke")
+    if not M.paged_decode_supported(cfg):
+        raise SystemExit(f"{cfg.name}: the port serves paged attn+mlp "
+                         "decoders only")
+    print(f"[serve] {cfg.name}: {cfg.param_count()/1e6:.1f}M params on "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev} "
+          f"(energy profile: {energy.name})")
+    params = P.init_params(cfg, device=dev, seed=0)
+    if args.trace_out or args.metrics_out:
+        set_tracer(Tracer(enabled=True, process=f"serve:{cfg.name}"))
+
+    block = 16
+    slots = min(args.batch, 8)
+    per_seq = blocks_for(args.prompt_len + args.max_new, block) + 1
+    ecfg = EngineConfig(max_slots=slots, block_size=block,
+                        num_blocks=per_seq * slots + 2,
+                        max_blocks_per_seq=per_seq,
+                        attn_impl=args.attn_impl,
+                        cache_dtype=args.kv_dtype,
+                        prefill_chunk=args.prefill_chunk,
+                        prefix_sharing=not args.no_prefix_sharing)
+    engine = ServeEngine(params, cfg, ecfg, device=energy, torch_device=dev)
+    engine.warmup()
+    engine.reset_stats()
+
+    lens = [4 + (7 * i) % max(args.prompt_len - 3, 1)
+            for i in range(args.batch)]
+    reqs = [Request(uid=f"r{i}", max_new=args.max_new,
+                    prompt=list(map(int, np.random.RandomState(100 + i)
+                                    .randint(0, cfg.vocab_size, L))))
+            for i, L in enumerate(lens)]
+    engine.run(reqs)
+    s = engine.stats()
+    print(f"[serve] engine: {int(s['tokens_generated'])} tokens in "
+          f"{engine.wall_s:.2f}s ({s['tokens_per_s']:.1f} tok/s, "
+          f"{int(s['steps'])} steps, {ecfg.max_slots} slots, "
+          f"attn={ecfg.attn_impl})")
+    if "ttft_p50_s" in s:
+        print(f"[serve] TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms / "
+              f"p99 {s['ttft_p99_s']*1e3:.1f} ms")
+    print(f"[serve] paged KV: peak {s['peak_cache_bytes']/1e6:.2f} MB of "
+          f"{s['pool_bytes']/1e6:.2f} MB pool "
+          f"(peak frag {s['frag_tokens_peak']:.0f} tokens, "
+          f"peak util {100*s['utilization_peak']:.0f}%)")
+    print(f"[serve] fast path: prefix hit rate "
+          f"{100*s['prefix_hit_rate']:.0f}% "
+          f"({int(s['prefix_hit_tokens'])} tokens), "
+          f"{int(s['cow_forks_total'])} CoW forks "
+          f"(chunk={ecfg.prefill_chunk}, kv={ecfg.cache_dtype})")
+    print(f"[serve] energy ({energy.name}): {s['energy_j']:.2f} J "
+          f"({s['j_per_token']:.3f} J/token, {s['carbon_g']:.4f} gCO2e)")
+    if args.metrics_out:
+        engine.metrics.dump_jsonl(
+            args.metrics_out,
+            meta={"arch": cfg.name, "requests": args.batch,
+                  "max_new": args.max_new, "attn_impl": args.attn_impl,
+                  "torch_device": str(dev)})
+        print(f"[serve] metrics: {args.metrics_out}")
+    if args.trace_out:
+        get_tracer().save_chrome_trace(args.trace_out)
+        print(f"[serve] trace: {args.trace_out} "
+              f"({len(get_tracer().events)} events)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,176 @@
+"""Core layers for paged decode: norms, rotary embeddings, attention
+against the paged KV cache, and the MLP.
+
+Port of the decode-side functions of ``repro.models.layers``: plain
+functions on tensors over a parameter dict, with the JAX package's
+conventions kept exactly — norm statistics in fp32 with the multiply in
+the input dtype, RoPE over split halves, attention in fp32 from an fp32
+query.  Large projections are plain ``torch.matmul``, as the JAX package
+left them to XLA; the paged attention itself is the flash-decode kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.decode import (
+    flash_decode_paged, paged_attention_reference)
+from repro_torch.kernels.quant8.ops import quantize_kv
+from repro_torch.models.config import ModelConfig
+
+ATTN_IMPLS = ("kernel", "gather")
+
+
+def norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm / LayerNorm: statistics in fp32, normalize-multiply in the
+    input dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    if cfg.norm_type == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + cfg.norm_eps).to(dtype)
+        return x * inv * p["scale"].to(dtype)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    inv = torch.rsqrt(var + cfg.norm_eps).to(dtype)
+    out = (x - mean.to(dtype)) * inv
+    return out * p["scale"].to(dtype) + p["bias"].to(dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S).  Rotates
+    split halves (x[:D/2], x[D/2:]), not interleaved pairs."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, d/2)
+    angles = angles[..., None, :]                           # (..., S, 1, d/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def positional(x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    if cfg.pos_embedding == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.pos_embedding == "learned":
+        return x                     # added at the embedding layer
+    raise NotImplementedError(f"positional embedding {cfg.pos_embedding!r} "
+                              "is not ported")
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _project_qkv(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = _proj_heads(x, p["wq"])
+    k = _proj_heads(x, p["wk"])
+    v = _proj_heads(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd")."""
+    h, k, d = wo.shape
+    return out.flatten(-2) @ wo.to(out.dtype).reshape(h * k, d)
+
+
+def attn_decode_paged(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                      *, cache: Dict[str, torch.Tensor],
+                      block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                      positions: torch.Tensor, impl: str = "kernel",
+                      num_feed: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode / chunked-prefill step against a PAGED KV cache.  x: (B,C,d)
+    — C teacher-forced rows per sequence (C == 1 is plain decode).
+
+    ``cache`` holds this layer's block pools: ``k_pages``/``v_pages``
+    (P, bs, K, D), plus ``k_scale``/``v_scale`` ((P, bs, K) fp32) when the
+    pools are int8 (quantized here at append, dequantized inside the
+    attention).  The new K/V rows are written into the pools IN PLACE
+    (``index_put_``), which takes the place of JAX's buffer donation: the
+    pools are never copied.  block_tables: (B, NB) int32 page ids;
+    seq_lens: (B,) cache positions already written (row ``c`` lands at
+    ``seq_lens[b] + c``).  ``num_feed``: (B,) rows actually fed; rows past
+    it scatter into the null page 0.  ``impl`` is "kernel" (flash-decode)
+    or "gather" (the plain dense-gather version, for comparison).
+
+    Returns (y, cache) — the same pool tensors, updated.
+    """
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {impl!r}; expected one of "
+                         f"{ATTN_IMPLS}")
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
+    k_scale = cache.get("k_scale")
+    v_scale = cache.get("v_scale")
+    B, C, _ = x.shape
+    bs = k_pages.shape[1]
+    nb = block_tables.shape[1]
+    h = norm(p["norm"], x, cfg)
+    q, k, v = _project_qkv(p, h, cfg)
+    q = positional(q, positions, cfg)
+    k = positional(k, positions, cfg)
+    # row c's K/V go to position seq_len + c: block (seq_len + c) // bs,
+    # offset (seq_len + c) % bs.  Active slots own disjoint pages, so
+    # indices collide only on the null page, where any value is fine.
+    rows = torch.arange(C, device=x.device)
+    pos_idx = seq_lens.long()[:, None] + rows[None, :]
+    page_ids = torch.gather(block_tables.long(), 1,
+                            (pos_idx // bs).clamp(0, nb - 1))   # (B, C)
+    if num_feed is not None:
+        fed = rows[None, :] < num_feed.long()[:, None]
+        page_ids = torch.where(fed, page_ids, torch.zeros_like(page_ids))
+    offs = pos_idx % bs
+    if k_scale is not None:                    # int8 pools: quantize at append
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k_pages.index_put_((page_ids, offs), kq)
+        v_pages.index_put_((page_ids, offs), vq)
+        k_scale.index_put_((page_ids, offs), ks)
+        v_scale.index_put_((page_ids, offs), vs)
+    else:
+        k_pages.index_put_((page_ids, offs), k.to(k_pages.dtype))
+        v_pages.index_put_((page_ids, offs), v.to(v_pages.dtype))
+    valid = seq_lens + 1                 # incl. the first row just written
+    qf = q.float()
+    qf = qf[:, 0] if C == 1 else qf            # (B,H,D) | (B,C,H,D)
+    attn = flash_decode_paged if impl == "kernel" \
+        else paged_attention_reference
+    out = attn(qf, k_pages, v_pages, block_tables, valid,
+               window=cfg.sliding_window, k_scale=k_scale, v_scale=v_scale)
+    if C == 1:
+        out = out[:, None]
+    out = out.to(x.dtype)                      # (B, C, H, Dv)
+    return x + _out_proj(out, p["wo"]), cache
+
+
+def mlp_forward(p: Dict[str, Any], x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    h = norm(p["norm"], x, cfg)
+    wi = p["wi"].to(x.dtype)
+    if cfg.mlp_activation == "silu":
+        a = F.silu(h @ wi) * (h @ p["wg"].to(x.dtype))
+    else:
+        a = F.gelu(h @ wi, approximate="tanh")     # jax.nn.gelu's default
+    return x + a @ p["wo"].to(x.dtype)

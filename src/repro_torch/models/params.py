@@ -1,0 +1,225 @@
+"""Parameter specs, initialization and counting for the dense decoder.
+
+Port of ``repro.models.params`` for the families the paged engine serves
+(attn + mlp sublayers).  The parameter tree keeps the JAX layout exactly —
+``wq`` (d, H, hd), group keys ``g0/s0_attn/s1_mlp``, a leading ``layers``
+axis on stacked groups — so weights bridged from the JAX package
+(``repro_torch.bridge``) drop straight in.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, generator_for, resolve_device
+from repro_torch.models.config import ModelConfig
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"      # normal | zeros | ones | pos
+    fan_in_dims: Tuple[int, ...] = (0,)   # dims contracted by the matmul
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+
+def tree_map(fn: Callable, tree: PyTree) -> PyTree:
+    """Map ``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: PyTree) -> List[Any]:
+    """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    return [tree]
+
+
+# --------------------------------------------------------------------------- #
+# Sub-layer specs
+# --------------------------------------------------------------------------- #
+
+def _norm_spec(cfg: ModelConfig, dim: int, axis: str = "embed") -> Dict[str, ParamSpec]:
+    out = {"scale": ParamSpec((dim,), (axis,), "ones")}
+    if cfg.norm_type == "layernorm":
+        out["bias"] = ParamSpec((dim,), (axis,), "zeros")
+    return out
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    s: Dict[str, Any] = {"norm": _norm_spec(cfg, d)}
+    s["wq"] = ParamSpec((d, H, hd), ("embed", "heads", "head"))
+    s["wk"] = ParamSpec((d, K, hd), ("embed", "kv_heads", "head"))
+    s["wv"] = ParamSpec((d, K, hd), ("embed", "kv_heads", "head"))
+    s["wo"] = ParamSpec((H, hd, d), ("heads", "head", "embed"),
+                        fan_in_dims=(0, 1))
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((H, hd), ("heads", "head"), "zeros")
+        s["bk"] = ParamSpec((K, hd), ("kv_heads", "head"), "zeros")
+        s["bv"] = ParamSpec((K, hd), ("kv_heads", "head"), "zeros")
+    return s
+
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Any]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    s: Dict[str, Any] = {"norm": _norm_spec(cfg, d)}
+    s["wi"] = ParamSpec((d, f), ("embed", "mlp"))
+    if cfg.mlp_activation == "silu":
+        s["wg"] = ParamSpec((d, f), ("embed", "mlp"))
+    s["wo"] = ParamSpec((f, d), ("mlp", "embed"))
+    return s
+
+
+SUBLAYER_BUILDERS = {"attn": attn_specs, "mlp": mlp_specs}
+
+
+# --------------------------------------------------------------------------- #
+# Layer grouping (stacked groups)
+# --------------------------------------------------------------------------- #
+
+@dataclass(frozen=True)
+class ScanGroup:
+    """``depth`` stacked units, each applying ``sublayers`` in order."""
+
+    sublayers: Tuple[str, ...]
+    depth: int
+    first_layer: int
+
+
+def _layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, ...]:
+    if cfg.layer_kind(i) != "attn" or cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: layer {i} is not a GQA attention layer; the port "
+            "covers dense attn+mlp decoders")
+    if cfg.layer_is_moe(i):
+        return ("attn", "moe")
+    return ("attn", "mlp")
+
+
+def layer_groups(cfg: ModelConfig) -> List[ScanGroup]:
+    """The decoder stack as one stacked group of its repeating period."""
+    sigs = [_layer_signature(cfg, i) for i in range(cfg.num_layers)]
+    period = 1
+    for p in range(1, len(sigs) + 1):
+        if len(sigs) % p == 0 and all(
+                sigs[i] == sigs[i % p] for i in range(len(sigs))):
+            period = p
+            break
+    unit: List[str] = []
+    for sig in sigs[:period]:
+        unit.extend(sig)
+    return [ScanGroup(tuple(unit), len(sigs) // period, 0)]
+
+
+def decoder_groups(cfg: ModelConfig) -> List[ScanGroup]:
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  "not ported")
+    return layer_groups(cfg)
+
+
+# --------------------------------------------------------------------------- #
+# Spec tree for a whole model
+# --------------------------------------------------------------------------- #
+
+def _stack(spec_tree: PyTree, depth: int) -> PyTree:
+    return tree_map(lambda s: ParamSpec((depth,) + s.shape,
+                                        ("layers",) + s.axes, s.init,
+                                        tuple(d + 1 for d in s.fan_in_dims)),
+                    spec_tree)
+
+
+def group_spec(cfg: ModelConfig, group: ScanGroup) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for j, kind in enumerate(group.sublayers):
+        if kind not in SUBLAYER_BUILDERS:
+            raise NotImplementedError(f"sublayer {kind!r} is not ported")
+        tree[f"s{j}_{kind}"] = SUBLAYER_BUILDERS[kind](cfg)
+    return _stack(tree, group.depth) if group.depth > 1 else tree
+
+
+def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    spec: Dict[str, Any] = {}
+    spec["embed"] = {"tok": ParamSpec((cfg.padded_vocab_size, d),
+                                      ("vocab", "embed"), fan_in_dims=())}
+    if cfg.pos_embedding == "learned":
+        n_pos = cfg.max_target_positions or cfg.max_seq_len
+        spec["embed"]["pos"] = ParamSpec((n_pos, d), (None, "embed"), "pos",
+                                         fan_in_dims=())
+    spec["decoder"] = {f"g{gi}": group_spec(cfg, g)
+                       for gi, g in enumerate(decoder_groups(cfg))}
+    spec["final_norm"] = _norm_spec(cfg, d)
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ParamSpec((d, cfg.padded_vocab_size),
+                                    ("embed", "vocab"))
+    if cfg.mtp_depth > 0:
+        raise NotImplementedError(f"{cfg.name}: multi-token prediction is "
+                                  "not ported")
+    return spec
+
+
+# --------------------------------------------------------------------------- #
+# Materialization
+# --------------------------------------------------------------------------- #
+
+def _sinusoidal(n: int, d: int) -> np.ndarray:
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * i / d)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return out.astype(np.float32)
+
+
+def _init_one(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """Same distributions as ``repro.models.params._init_one``; each leaf
+    is drawn directly in the parameter dtype on the device, so a bf16
+    model never holds an fp32 copy of itself."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "pos":
+        return torch.from_numpy(_sinusoidal(*spec.shape)).to(device, dtype)
+    if spec.init != "normal":
+        raise NotImplementedError(f"init {spec.init!r} is not ported")
+    fan_in = max(1, int(np.prod([spec.shape[d] for d in spec.fan_in_dims]))
+                 if spec.fan_in_dims else spec.shape[-1])
+    out = torch.randn(spec.shape, dtype=dtype, device=device, generator=gen)
+    return out.mul_(1.0 / math.sqrt(fan_in))
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None, *, seed: int = 0) -> PyTree:
+    """Random weights from a ``torch.Generator`` (seeded with ``seed`` when
+    none is given).  Runs on the card unless ``device="cpu"`` is asked
+    for.  Parity tests load the JAX package's weights through the bridge
+    instead: the two RNGs give different numbers."""
+    dev = resolve_device(device)
+    gen = generator_for(dev, seed, generator)
+    dtype = getattr(torch, cfg.param_dtype)
+    return tree_map(lambda s: _init_one(s, gen, dtype, dev), model_spec(cfg))
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count.  The ported families are dense, so every
+    parameter is active for every token and ``active_only`` changes
+    nothing."""
+    return sum(leaf.size() for leaf in tree_leaves(model_spec(cfg)))

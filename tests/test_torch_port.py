@@ -1,0 +1,189 @@
+"""The port as a package: the parameter bridge, its independence from JAX
+and from ``repro``, entry points that refuse to fall back to the CPU, the
+sampler, the torch-RNG init, and the serving launcher."""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.models import params as JP  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models import params as TP  # noqa: E402
+from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.sampling import sample_tokens  # noqa: E402
+
+from test_torch_helpers import ARCH_IDS, PARITY_ARCHS, bridged, configs  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+@pytest.mark.parametrize("arch,patch", PARITY_ARCHS, ids=ARCH_IDS)
+def test_bridge_round_trips_exactly_and_keys_match_keystr(arch, patch):
+    jcfg, tcfg = configs(arch, **patch)
+    jp, tp = bridged(jcfg, tcfg)
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    jkeys = {jax.tree_util.keystr(p): tuple(l.shape) for p, l in flat}
+    assert {k: tuple(v.shape) for k, v in bridge.flatten(tp)} == jkeys
+    back = bridge.params_to_numpy(tp)
+    for path, leaf in flat:
+        node = back
+        for k in path:
+            node = node[k.key]
+        assert node.dtype == np.asarray(leaf).dtype
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+
+
+def test_bridge_carries_bf16_bit_exactly():
+    jcfg, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    jcfg = dataclasses.replace(jcfg, param_dtype="bfloat16")
+    tcfg = dataclasses.replace(tcfg, param_dtype="bfloat16")
+    jp = JP.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    assert tp["embed"]["tok"].dtype == torch.bfloat16
+    back = bridge.params_to_numpy(tp)
+    a = np.asarray(jp["embed"]["tok"]).view(np.uint16)
+    np.testing.assert_array_equal(back["embed"]["tok"].view(np.uint16), a)
+
+
+def test_bridge_rejects_a_tree_of_another_shape():
+    jcfg, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    tree = jax.tree.map(np.asarray, JP.init_params(jcfg,
+                                                   jax.random.PRNGKey(0)))
+    del tree["final_norm"]
+    with pytest.raises(KeyError):
+        bridge.params_from_numpy(tree, tcfg, "cpu")
+
+
+def test_package_imports_with_jax_blocked():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = ("import sys\nsys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\nimport importlib\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "print('ok', len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_no_file_of_the_port_imports_jax_or_repro():
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "repro"), (f, n)
+
+
+def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jcfg, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.init_params(tcfg)
+    params = TP.init_params(tcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, tcfg, EngineConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.init_params(tcfg, device="cuda")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([])
+
+
+def test_engine_refuses_params_on_another_device():
+    _, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    params = TP.init_params(tcfg, device="cpu")
+    params = TP.tree_map(lambda a: a.to("meta"), params)
+    with pytest.raises(ValueError, match="params live on"):
+        ServeEngine(params, tcfg, EngineConfig(), torch_device="cpu")
+
+
+def test_init_params_distributions_follow_the_spec():
+    _, tcfg = configs("opt-125m")
+    g = torch.Generator().manual_seed(0)
+    p = TP.init_params(tcfg, g, device="cpu")
+    wq = p["decoder"]["g0"]["s0_attn"]["wq"]          # fan-in d
+    assert abs(float(wq.std()) - tcfg.d_model ** -0.5) < 0.01
+    assert float(p["decoder"]["g0"]["s0_attn"]["bq"].abs().max()) == 0.0
+    assert float(p["final_norm"]["scale"].min()) == 1.0
+    pos = p["embed"]["pos"].numpy()
+    np.testing.assert_allclose(pos[0, : tcfg.d_model // 2], 0.0)
+    again = TP.init_params(tcfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert torch.equal(again["embed"]["tok"], p["embed"]["tok"])
+    assert TP.count_params(tcfg) == sum(
+        x.numel() for x in TP.tree_leaves(p))
+
+
+def test_bf16_init_draws_directly_in_bf16():
+    _, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    p = TP.init_params(dataclasses.replace(tcfg, param_dtype="bfloat16"),
+                       device="cpu")
+    assert all(x.dtype == torch.bfloat16 for x in TP.tree_leaves(p))
+
+
+def test_sampler_greedy_and_topk():
+    logits = torch.from_numpy(np.random.RandomState(0).randn(4, 50)
+                              .astype(np.float32))
+    out = sample_tokens(logits, torch.Generator().manual_seed(0),
+                        torch.zeros(4), torch.zeros(4, dtype=torch.int32))
+    np.testing.assert_array_equal(out.numpy(), logits.argmax(-1).numpy())
+    top = np.argsort(logits.numpy(), axis=-1)[:, -3:]
+    gen = torch.Generator().manual_seed(0)
+    seen = set()
+    for _ in range(20):
+        out = sample_tokens(logits, gen, torch.full((4,), 1.0),
+                            torch.full((4,), 3, dtype=torch.int32))
+        for b in range(4):
+            assert int(out[b]) in top[b]
+            seen.add((b, int(out[b])))
+    assert len(seen) > 4                      # it samples, not argmax
+    mixed = sample_tokens(logits, gen, torch.tensor([0.0, 1.0, 0.0, 1.0]),
+                          torch.tensor([0, 3, 0, 3], dtype=torch.int32))
+    assert int(mixed[0]) == int(logits[0].argmax())
+    assert int(mixed[2]) == int(logits[2].argmax())
+
+
+def test_kernel_build_helpers(monkeypatch, tmp_path):
+    assert len(build.c_args("p" * 10 + "i" * 12 + "f" + "i" + "p")) == 25
+    lib = build._lib_path("flash_decode")
+    assert lib.parent == build.BUILD_DIR and lib.name.startswith(
+        "flash_decode-")
+    assert {p.stem for p in build.CSRC.glob("*.cu")} == {"flash_decode"}
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    import torch.utils.cpp_extension as ext
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+def test_serve_launcher_runs_on_the_cpu(tmp_path, capsys):
+    from repro_torch.launch import serve
+    out = tmp_path / "m.jsonl"
+    serve.main(["--torch-device", "cpu", "--batch", "3", "--max-new", "3",
+                "--metrics-out", str(out)])
+    text = capsys.readouterr().out
+    assert "9 tokens" in text and "attn=kernel" in text
+    assert out.read_text().count("\n") > 3
