@@ -17,7 +17,18 @@ Phases (any failure exits nonzero):
    seed) through ``ServeEngine`` with the kernel, check that every request
    completes and that every attention layer of every step launched the
    kernel, and compare one mixed decode/prefill step's logits between the
-   kernel and the plain gather path.
+   kernel and the plain gather path;
+3. hold the three FA-2 kernels (forward, dq, dk/dv) against their plain
+   PyTorch versions in fp32 and bf16 on the JAX package's FA_CASES shapes
+   and on opt-1.3b's attention shape, and time kernel, plain version,
+   SDPA (forward, and its backward for the dq + dk/dv pair) and the bound
+   at opt-1.3b's shape;
+4. train opt-1.3b at full width and depth in bf16 (4 x 2048 tokens, random
+   weights from a seed) through ``repro_torch.train.trainer.train`` with
+   the kernels for 8 steps, check the losses and that every attention
+   layer of every step launched each kernel once, compare one step's loss
+   and gradient norm between the kernels and the plain chunked path (bf16
+   and fp32 compute), and profile one step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``; before that a
@@ -35,9 +46,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 H, K, D, BS, B = 28, 4, 128, 16, 8  # qwen2-7b attention; 8 engine slots
 TOL = {"float32": 2e-5, "bfloat16": 1e-4, "int8": 1e-4}
 LOGITS_TOL = 5e-2                  # the repo's int8/bf16 logits bar
+# FA-2 shapes (B, S, H, K, D, causal, window[, T]): the JAX package's
+# FA_CASES (tests/test_kernels.py) and a non-causal T != S case, then
+# opt-1.3b's attention at 4 x 2048 tokens
+FA_CASES = [(2, 256, 4, 2, 64, True, 0), (1, 384, 4, 4, 128, True, 0),
+            (2, 256, 8, 2, 64, True, 128), (1, 200, 2, 1, 64, False, 0),
+            (1, 130, 2, 2, 96, True, 0), (2, 100, 4, 2, 32, False, 0, 230)]
+OPT_FA = (4, 2048, 32, 32, 64, True, 0)
+# kernel vs plain, as a share of the reference's largest magnitude (at
+# least 1): both compute in fp32 from the same inputs and differ in
+# summation order only; a bf16 output may round to the neighbouring value,
+# 2**-7 of it
+FA_TOL = {"float32": {"out": 1e-5, "lse": 1e-5, "grad": 1e-4},
+          "bfloat16": {"out": 2.0 ** -7, "lse": 1e-5, "grad": 1e-4}}
+# one opt-1.3b step, kernels vs the chunked path from the same weights and
+# batch.  fp32 compute: the two differ in summation order only.  bf16
+# compute: the chunked path rounds p and ds to bf16 before their products
+# (as the JAX chunked twin does) where the kernels keep fp32, and both
+# round each attention output to bf16, then 24 layers of bf16 residual
+# stream; the loss (~11, fp32 from bf16 logits) may move by a third of one
+# bf16 step there (0.0625), the grad norm by a few percent
+STEP_TOL = {"float32": {"loss": 1e-4, "gnorm": 1e-3},
+            "bfloat16": {"loss": 2e-2, "gnorm": 5e-2}}
 
 
 def log(msg: str) -> None:
@@ -389,6 +423,278 @@ def phase_engine(torch, np, device):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 3: FA-2 kernels vs plain
+# --------------------------------------------------------------------------- #
+
+def fa_tensors(torch, case, dtype, device, seed):
+    """q (B,H,S,D), k/v (B,K,T,D), do: (B,H,S,D) views of (B,S,H,D)
+    tensors, the training layout the kernels read through strides."""
+    Bc, S, Hc, Kc, Dc = case[:5]
+    T = case[7] if len(case) > 7 else S
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((Bc, S, Hc, Dc), generator=g, device=device)
+             .to(dtype).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((Bc, T, Kc, Dc), generator=g, device=device)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+def fa_work(case, q, k, v, do):
+    """(FLOPs, bytes) of one call of each kernel on these inputs: every
+    visible (query, key) pair costs 2*D per product, and each input is
+    read and each output written once."""
+    from repro_torch.kernels.flash_attention.ref import visible
+    Bc, S, Hc, Kc, Dc, causal, window = case
+    pairs = int(visible(S, S, causal=causal, window=window,
+                        device=q.device).sum())
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    rows = Bc * Hc * S * 4                           # one fp32 row value
+    qkv = nb(q, k, v)
+    f32 = lambda t: t.numel() * 4                     # noqa: E731
+    return {
+        "fwd": (2 * 2 * Dc * pairs * Bc * Hc, qkv + nb(q) + rows),
+        "dq": (3 * 2 * Dc * pairs * Bc * Hc, qkv + nb(do) + 2 * rows
+               + f32(q)),
+        "dkdv": (4 * 2 * Dc * pairs * Bc * Hc, qkv + nb(do) + 2 * rows
+                 + 2 * f32(k)),
+    }
+
+
+def phase_fa(torch, device, timer):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
+    for i, case in enumerate(FA_CASES + [OPT_FA]):
+        causal, window = case[5], case[6]
+        kw = dict(causal=causal, window=window)
+        for dt in ("float32", "bfloat16"):
+            q, k, v, do = fa_tensors(torch, case, getattr(torch, dt),
+                                     device, seed=10 + i)
+            out, lse = FK.flash_attention_fwd(q, k, v, **kw)
+            ref_out, ref_lse = FK.attention_fwd_plain(q, k, v, **kw)
+            delta = (do.float() * ref_out.float()).sum(-1)
+            dq = FK.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **kw)
+            dk, dv = FK.flash_attention_bwd_dkdv(q, k, v, do, ref_lse, delta,
+                                                 **kw)
+            torch.cuda.synchronize()
+            ref_dq = FK.attention_bwd_dq_plain(q, k, v, do, ref_lse, delta,
+                                               **kw)
+            ref_dk, ref_dv = FK.attention_bwd_dkdv_plain(
+                q, k, v, do, ref_lse, delta, **kw)
+            tol = FA_TOL[dt]
+            checks = [("fwd", "out", out, ref_out, tol["out"]),
+                      ("fwd", "lse", lse, ref_lse, tol["lse"]),
+                      ("dq", "dq", dq, ref_dq, tol["grad"]),
+                      ("dkdv", "dk", dk, ref_dk, tol["grad"]),
+                      ("dkdv", "dv", dv, ref_dv, tol["grad"])]
+            msg = []
+            for kern, name, a, b, t in checks:
+                a, b = a.float(), b.float()
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"non-finite {name} from the {kern} kernel {case}")
+                err = float((a - b).abs().max())
+                bound = t * max(1.0, float(b.abs().max()))
+                worst[kern] = max(worst[kern], err)
+                msg.append(f"{name} {err:.2e}/{bound:.1e}")
+                if err > bound:
+                    fail(f"{kern} kernel disagrees with its plain version "
+                         f"on {name} ({case}, {dt}): {err} > {bound}")
+            log(f"FA case {case} {dt:8s}: max_abs_err/bound "
+                + ", ".join(msg))
+            del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
+            del ref_dq, ref_dk, ref_dv
+            torch.cuda.empty_cache()
+
+    # timing at opt-1.3b's shape, bf16, as the train step calls them
+    q, k, v, do = fa_tensors(torch, OPT_FA, torch.bfloat16, device, seed=99)
+    out, lse = FK.flash_attention_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = sdpa(qg, kg, vg, is_causal=True)
+    calls = {
+        "fwd": (lambda: FK.flash_attention_fwd(q, k, v),
+                lambda: FK.attention_fwd_plain(q, k, v),
+                lambda: sdpa(q, k, v, is_causal=True)),
+        "dq": (lambda: FK.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+               lambda: FK.attention_bwd_dq_plain(q, k, v, do, lse, delta),
+               lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                           retain_graph=True)),
+        "dkdv": (lambda: FK.flash_attention_bwd_dkdv(q, k, v, do, lse,
+                                                     delta),
+                 lambda: FK.attention_bwd_dkdv_plain(q, k, v, do, lse,
+                                                     delta),
+                 None),
+    }
+    work = fa_work(OPT_FA, q, k, v, do)
+    timing = {}
+    for kern, (kfn, pfn, lfn) in calls.items():
+        ms = timer.ms(kfn)
+        spread = timer.spread
+        plain_ms = timer.ms(pfn)
+        library_ms = timer.ms(lfn) if lfn else timing["dq"]["library_ms"]
+        flops, nbytes = work[kern]
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        timing[kern] = {"ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms,
+                        "bound_ms": max(t_ops, t_bytes),
+                        "bound_by": "operations" if t_ops >= t_bytes
+                        else "bytes"}
+        log(f"timing {kern} at opt-1.3b shape {OPT_FA} bf16: kernel_ms "
+            f"{ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}) plain_ms "
+            f"{plain_ms:.4f} library_ms {library_ms:.4f} "
+            f"({'SDPA backward, dq+dk+dv together' if kern != 'fwd' else 'SDPA forward'}) "
+            f"bound_ms {timing[kern]['bound_ms']:.4f} ({flops:.3e} FLOP, "
+            f"{nbytes/1e6:.1f} MB; bound by {timing[kern]['bound_by']}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    log("FA-2 kernels held against their plain versions: worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst, timing
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4: full-width training
+# --------------------------------------------------------------------------- #
+
+def step_loss_gnorm(torch, M, adamw, params, cfg, batch, impl):
+    """One forward/backward from ``params``: (loss, global grad norm), and
+    checks that the kernels ran once a layer exactly when asked for."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models.params import tree_leaves
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    before = FK.flash_attention_fwd.launches, FK.flash_attention_bwd_dq.launches
+    loss, _ = M.forward_train(params, cfg, batch, attn_impl=impl)
+    grads = torch.autograd.grad(loss, leaves)
+    ran = (FK.flash_attention_fwd.launches - before[0],
+           FK.flash_attention_bwd_dq.launches - before[1])
+    want = cfg.num_layers if impl == "kernel" else 0
+    if ran != (want, want):
+        fail(f"{impl} step ran the FA-2 kernels {ran} times, not {want}")
+    out = (float(loss.detach()), float(adamw.global_norm(list(grads))))
+    del grads, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_step(torch, step_fn, params, opt_state, batch, step_ms):
+    """Device time by kernel over one profiled train step (the timed steps
+    are not profiled); busy share against the unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    rows = [(ev.device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    log(f"profiled step: device busy {dev_ms:.3f} ms vs {step_ms:.3f} ms a "
+        f"step unprofiled: busy {100 * dev_ms / step_ms:.1f}%, idle "
+        f"{100 - 100 * dev_ms / step_ms:.1f}%")
+    groups = {}
+    for dev_us, key, _ in rows:
+        kind = ("FA-2 kernels" if any(w in key for w in (
+                    "fa_fwd_kernel<", "fa_bwd_dq_kernel<",
+                    "fa_bwd_dkdv_kernel<")) else
+                "GEMMs" if any(w in key for w in ("nvjet", "gemm", "cutlass",
+                                                  "sm90_xmma")) else
+                "reductions" if "reduce" in key else
+                "elementwise and copies")
+        groups[kind] = groups.get(kind, 0.0) + dev_us / 1e3
+    log("  by kind: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / dev_ms:.1f}%)"
+        for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for dev_us, key, count in sorted(rows, reverse=True)[:12]:
+        log(f"  device {dev_us / 1e3:9.3f} ms x{count:5d}  {key[:90]}")
+
+
+def phase_train(torch, np, device):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    cfg = get_config("opt-1.3b")
+    Bt, St, steps = 4, 2048, 8
+    log(f"opt-1.3b full width: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"padded vocab {cfg.padded_vocab_size}, {cfg.param_count():,} "
+        f"params, {cfg.param_dtype} params, fp32 AdamW moments, "
+        f"{Bt} x {St} tokens a step")
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv)
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
+                                   attn_impl="kernel", seed=0),
+                device=device)
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = 1.0 / res.steady_steps_per_s
+    tflops = F.train_flops(cfg, Bt, St, remat=False) / step_s / 1e12
+    log(f"train: losses {[round(x, 4) for x in res.losses]}; first step "
+        f"{res.compile_time_s:.3f} s; then {res.steady_steps_per_s:.3f} "
+        f"steps/s, {1e3 * step_s:.1f} ms a step, "
+        f"{res.steady_steps_per_s * Bt * St:.0f} tokens/s; "
+        f"peak memory {peak / 1e9:.2f} GB; train_flops/step time "
+        f"{tflops:.1f} TFLOP/s = {100 * tflops * 1e12 / BF16_FLOP_PER_S:.1f}"
+        f"% of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s")
+    n = cfg.num_layers * steps
+    log(f"FA-2 launches {launches}, expected {cfg.num_layers} x {steps} = "
+        f"{n} each")
+    if len(res.losses) != steps or not all(np.isfinite(res.losses)):
+        fail(f"non-finite or missing losses: {res.losses}")
+    if any(v != n for v in launches.values()):
+        fail(f"FA-2 kernel launches {launches} != {n} each")
+    del res
+    torch.cuda.empty_cache()
+
+    # one step, kernels vs chunked, from the same weights and first batch
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             next(make_batch_fn(cfg, Bt, St, seed=0)).items()}
+    params = init_params(cfg, device=device, seed=0)
+    diffs = {}
+    for dt in ("bfloat16", "float32"):
+        c = cfg if dt == "bfloat16" else dataclasses.replace(
+            cfg, param_dtype="float32", compute_dtype="float32")
+        p = params if dt == "bfloat16" else tree_map(lambda t: t.float(),
+                                                     params)
+        got = {impl: step_loss_gnorm(torch, M, adamw, p, c, batch, impl)
+               for impl in ("kernel", "chunked")}
+        dl = abs(got["kernel"][0] - got["chunked"][0])
+        dg = abs(got["kernel"][1] - got["chunked"][1]) / got["chunked"][1]
+        diffs[dt] = (dl, dg)
+        log(f"one step, {dt} compute: loss kernel {got['kernel'][0]:.6f} "
+            f"chunked {got['chunked'][0]:.6f} (|diff| {dl:.3e}, bound "
+            f"{STEP_TOL[dt]['loss']:.0e}); grad norm kernel "
+            f"{got['kernel'][1]:.6f} chunked {got['chunked'][1]:.6f} "
+            f"(relative diff {dg:.3e}, bound {STEP_TOL[dt]['gnorm']:.0e})")
+        del p
+        torch.cuda.empty_cache()
+    for dt, (dl, dg) in diffs.items():
+        if not (dl <= STEP_TOL[dt]["loss"] and dg <= STEP_TOL[dt]["gnorm"]):
+            fail(f"kernel and chunked steps differ in {dt}: loss {dl}, "
+                 f"grad norm {dg}")
+
+    # one profiled step through the kernels
+    opt_cfg = adamw.OptConfig(warmup_steps=10, decay_steps=steps)
+    step_fn = make_train_step(cfg, opt_cfg, attn_impl="kernel")
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    step_fn(params, opt_state, batch)            # warm
+    profile_step(torch, step_fn, params, opt_state, batch, 1e3 * step_s)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -423,15 +729,29 @@ def main() -> int:
 
     timer = Timer(torch, device)
     worst, timing = phase_kernel(torch, device, timer)
-    del timer
     torch.cuda.empty_cache()
     launches = phase_engine(torch, np, device)
+    torch.cuda.empty_cache()
+    fa_worst, fa_timing = phase_fa(torch, device, timer)
+    del timer
+    torch.cuda.empty_cache()
+    fa_launches = phase_train(torch, np, device)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_decode_paged", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_attention/decode.py:132",
-        "launches": launches, "max_abs_err": worst, **timing}]}))
+    fa = "src/repro/kernels/flash_attention/kernel.py"
+    rows = [{"name": "flash_decode_paged", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_decode.cu",
+             "replaces": "src/repro/kernels/flash_attention/decode.py:132",
+             "launches": launches, "max_abs_err": worst, **timing}]
+    for name, kern, src, line in (
+            ("flash_attention_fwd", "fwd", "flash_attn_fwd.cu", 86),
+            ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
+            ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": f"{fa}:{line}",
+                     "launches": fa_launches[name],
+                     "max_abs_err": fa_worst[kern], **fa_timing[kern]})
+    print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

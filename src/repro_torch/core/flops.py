@@ -1,6 +1,7 @@
-"""Analytic FLOP / byte models for decode (the part of ``repro.core.flops``
-the serving engine prices its steps with).
+"""Analytic FLOP / byte models (the parts of ``repro.core.flops`` the
+trainer and the serving engine price their steps with).
 
+train step     : 6·N·D  (+ attention term 12·L·S²·H·hd·(1/2 causal) x3)
 decode (1 tok) : 2·N_active·B (+ cache-read attention term)
 """
 
@@ -12,6 +13,45 @@ from repro_torch.models.config import ModelConfig
 def _num_attn_layers(cfg: ModelConfig) -> int:
     return sum(1 for i in range(cfg.num_layers)
                if cfg.layer_kind(i) == "attn")
+
+
+def _attn_flops_per_seq(cfg: ModelConfig, S: int, causal: bool = True
+                        ) -> float:
+    """QK^T + PV flops for one sequence, all attention layers."""
+    if cfg.attention == "mla":
+        qk_dim = cfg.mla.qk_head_dim
+        v_dim = cfg.mla.v_head_dim
+    else:
+        qk_dim = v_dim = cfg.resolved_head_dim
+    per_layer = 2.0 * S * S * cfg.num_heads * (qk_dim + v_dim)
+    if cfg.sliding_window and S > cfg.sliding_window:
+        per_layer *= cfg.sliding_window / S          # SWA cuts the window
+    elif causal:
+        per_layer *= 0.5
+    return _num_attn_layers(cfg) * per_layer
+
+
+def _ssd_flops_per_seq(cfg: ModelConfig, S: int) -> float:
+    """SSD chunked-scan flops for one sequence, all SSM layers."""
+    if not cfg.ssm.enabled:
+        return 0.0
+    ssm = cfg.ssm
+    n_ssm = cfg.num_layers - _num_attn_layers(cfg)
+    n, Q, p = ssm.d_state, ssm.chunk_size, ssm.head_dim
+    per_head_chunk = 2.0 * (Q * Q * n + Q * Q * p + 2 * Q * p * n)
+    return n_ssm * ssm.num_heads(cfg.d_model) * (S / Q) * per_head_chunk
+
+
+def fwd_flops(cfg: ModelConfig, batch: int, seq_len: int) -> float:
+    return (2.0 * cfg.active_param_count() * batch * seq_len
+            + batch * _attn_flops_per_seq(cfg, seq_len)
+            + batch * _ssd_flops_per_seq(cfg, seq_len))
+
+
+def train_flops(cfg: ModelConfig, batch: int, seq_len: int,
+                remat: bool = True) -> float:
+    """fwd + bwd (2x fwd) [+ recompute fwd if remat]."""
+    return (4.0 if remat else 3.0) * fwd_flops(cfg, batch, seq_len)
 
 
 def decode_flops(cfg: ModelConfig, batch: int, cache_len: int) -> float:

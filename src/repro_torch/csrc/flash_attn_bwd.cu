@@ -1,0 +1,261 @@
+// FA-2 backward for Hopper (sm_90a): the dq kernel and the dk/dv kernel.
+//
+// Replace the Pallas TPU kernels in src/repro/kernels/flash_attention/
+// kernel.py (launched by _bwd_bhsd):
+//  * _fa_bwd_dq_kernel   -> fa_bwd_dq_kernel: one block per (b, h, 64-row
+//    query tile), looping over key tiles: dq = sum_j ds_ij k_j;
+//  * _fa_bwd_dkdv_kernel -> fa_bwd_dkdv_kernel: one block per (b, kv head,
+//    64-row key tile), looping over the g query heads of the group and
+//    their query tiles: dk = sum_i ds_ij^T q_i, dv = sum_i p_ij^T do_i.
+//    The group sum happens inside the block, so dk/dv are written once per
+//    kv head; the TPU kernel wrote a (B, H, T, D) fp32 intermediate and
+//    summed the group outside (kernel.py:370).
+// Both recompute p = exp(s - lse) from the forward's lse and take
+// ds = p * (do.v - delta) * scale with delta = rowsum(do * out) computed
+// outside (kernel.py:293).  Outputs are fp32, cast by the caller.
+// Tiling, masks and what bounds them: see flash_attn.cuh.
+//
+// At opt-1.3b's shape (B=4, S=2048, H=32, D=64, causal, bf16) dq is
+// 1.0e11 FLOP and dk/dv 1.4e11 FLOP: both bound by operations on this card.
+
+#include "flash_attn.cuh"
+
+namespace {
+
+using namespace fa;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(const Params p) {
+  constexpr int DJ = D / 16;
+  const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / p.group;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                      // [D][kLdT]      q^T
+  float* dot = qt + D * kLdT;            // [D][kLdT]      do^T
+  float* ks = dot + D * kLdT;            // [kBlock][D+1]  k
+  float* vs = ks + kBlock * (D + 1);     // [kBlock][D+1]  v
+  float* dst = vs + kBlock * (D + 1);    // [kBlock][kLdT] ds^T
+  float* lse_s = dst + kBlock * kLdT;    // [kBlock]
+  float* dlt_s = lse_s + kBlock;         // [kBlock]
+
+  const int q1 = min(p.S, q0 + kBlock);
+  load_tile_t<T, D>(qt, p.q, p.sq, b, h, q0, q1 - q0);
+  load_tile_t<T, D>(dot, p.dout, p.sdo, b, h, q0, q1 - q0);
+  const long long row0 = (static_cast<long long>(b) * p.H + h) * p.S + q0;
+  for (int r = threadIdx.x; r < kBlock; r += kThreads) {
+    lse_s[r] = q0 + r < p.S ? p.lse[row0 + r] : 0.f;
+    dlt_s[r] = q0 + r < p.S ? p.delta[row0 + r] : 0.f;
+  }
+  __syncthreads();
+  float lse_r[4], dlt_r[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lse_r[i] = lse_s[ty * 4 + i];
+    dlt_r[i] = dlt_s[ty * 4 + i];
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
+  }
+  int k_begin, k_end;
+  kv_range(p, q0, q1, &k_begin, &k_end);
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kBlock) {
+    __syncthreads();
+    const int rows = min(kBlock, p.T - k0);
+    load_tile<T, D>(ks, p.k, p.sk, b, hk, k0, rows);
+    load_tile<T, D>(vs, p.v, p.sv, b, hk, k0, rows);
+    __syncthreads();
+
+    float s[4][4] = {}, dp[4][4] = {};
+    tile_dot<D>(s, qt, ks, tx, ty);
+    tile_dot<D>(dp, dot, vs, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pr = visible(p, qp, k0 + tx + 16 * j)
+                             ? expf(s[i][j] * p.scale - lse_r[i])
+                             : 0.f;
+        dst[(tx + 16 * j) * kLdT + ty * 4 + i] =
+            pr * (dp[i][j] - dlt_r[i]) * p.scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBlock; ++c) {
+      const float4 dv4 = *reinterpret_cast<const float4*>(dst + c * kLdT + ty * 4);
+      const float ds[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) {
+        const float kv = ks[c * (D + 1) + tx + 16 * jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(ds[i], kv, acc[i][jj]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty * 4 + i;
+    if (qp >= p.S) continue;
+    float* row = p.dq + row_off(p.sdq, b, h, qp);
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) row[tx + 16 * jj] = acc[i][jj];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(const Params p) {
+  constexpr int DJ = D / 16;
+  const int k0 = blockIdx.x * kBlock, hk = blockIdx.y, b = blockIdx.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;                      // [D][kLdT]      k^T
+  float* vt = kt + D * kLdT;             // [D][kLdT]      v^T
+  float* qs = vt + D * kLdT;             // [kBlock][D+1]  q
+  float* dos = qs + kBlock * (D + 1);    // [kBlock][D+1]  do
+  float* ps = dos + kBlock * (D + 1);    // [kBlock][kLdT] p  (row = query)
+  float* dss = ps + kBlock * kLdT;       // [kBlock][kLdT] ds (row = query)
+  float* lse_s = dss + kBlock * kLdT;    // [kBlock]
+  float* dlt_s = lse_s + kBlock;         // [kBlock]
+
+  const int k1 = min(p.T, k0 + kBlock);
+  load_tile_t<T, D>(kt, p.k, p.sk, b, hk, k0, k1 - k0);
+  load_tile_t<T, D>(vt, p.v, p.sv, b, hk, k0, k1 - k0);
+  int q_begin, q_end;
+  q_range(p, k0, k1, &q_begin, &q_end);
+
+  float dk[4][DJ], dv[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) {
+      dk[i][jj] = 0.f;
+      dv[i][jj] = 0.f;
+    }
+
+  for (int h = hk * p.group; h < (hk + 1) * p.group; ++h) {
+    for (int q0 = q_begin; q0 < q_end; q0 += kBlock) {
+      __syncthreads();
+      const int rows = min(kBlock, p.S - q0);
+      load_tile<T, D>(qs, p.q, p.sq, b, h, q0, rows);
+      load_tile<T, D>(dos, p.dout, p.sdo, b, h, q0, rows);
+      const long long row0 = (static_cast<long long>(b) * p.H + h) * p.S + q0;
+      for (int r = threadIdx.x; r < kBlock; r += kThreads) {
+        lse_s[r] = r < rows ? p.lse[row0 + r] : 0.f;
+        dlt_s[r] = r < rows ? p.delta[row0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      // transposed products: row i is key k0 + ty*4 + i, column j is
+      // query q0 + tx + 16*j
+      float st[4][4] = {}, dpt[4][4] = {};
+      tile_dot<D>(st, kt, qs, tx, ty);
+      tile_dot<D>(dpt, vt, dos, tx, ty);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qr = tx + 16 * j;
+        const float lse = lse_s[qr], dlt = dlt_s[qr];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pr = visible(p, q0 + qr, k0 + ty * 4 + i)
+                               ? expf(st[i][j] * p.scale - lse)
+                               : 0.f;
+          ps[qr * kLdT + ty * 4 + i] = pr;
+          dss[qr * kLdT + ty * 4 + i] = pr * (dpt[i][j] - dlt) * p.scale;
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 2
+      for (int r = 0; r < kBlock; ++r) {
+        const float4 p4 = *reinterpret_cast<const float4*>(ps + r * kLdT + ty * 4);
+        const float4 d4 = *reinterpret_cast<const float4*>(dss + r * kLdT + ty * 4);
+        const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+        const float ds[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int jj = 0; jj < DJ; ++jj) {
+          const float dov = dos[r * (D + 1) + tx + 16 * jj];
+          const float qv = qs[r * (D + 1) + tx + 16 * jj];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dv[i][jj] = fmaf(pr[i], dov, dv[i][jj]);
+            dk[i][jj] = fmaf(ds[i], qv, dk[i][jj]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = k0 + ty * 4 + i;
+    if (kp >= p.T) continue;
+    float* krow = p.dk + row_off(p.sdk, b, hk, kp);
+    float* vrow = p.dv + row_off(p.sdv, b, hk, kp);
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) {
+      krow[tx + 16 * jj] = dk[i][jj];
+      vrow[tx + 16 * jj] = dv[i][jj];
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t run_dq(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * D * kLdT + 2 * kBlock * (D + 1) +
+                                       kBlock * kLdT + 2 * kBlock);
+  const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
+  return launch(fa_bwd_dq_kernel<T, D>, grid, smem, p, stream);
+}
+
+template <typename T, int D>
+cudaError_t run_dkdv(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * D * kLdT + 2 * kBlock * (D + 1) +
+                                       2 * kBlock * kLdT + 2 * kBlock);
+  const dim3 grid((p.T + kBlock - 1) / kBlock, p.K, p.B);
+  return launch(fa_bwd_dkdv_kernel<T, D>, grid, smem, p, stream);
+}
+
+template <typename T>
+cudaError_t run_head_dim(const Params& p, int which, int head_dim,
+                         cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return which == 0 ? run_dq<T, 32>(p, s) : run_dkdv<T, 32>(p, s);
+    case 64: return which == 0 ? run_dq<T, 64>(p, s) : run_dkdv<T, 64>(p, s);
+    case 96: return which == 0 ? run_dq<T, 96>(p, s) : run_dkdv<T, 96>(p, s);
+    case 128:
+      return which == 0 ? run_dq<T, 128>(p, s) : run_dkdv<T, 128>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run_dtype(const fa::Params* p, int which, int dtype, int head_dim,
+              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return static_cast<int>(run_head_dim<float>(*p, which, head_dim, s));
+    case 1:
+      return static_cast<int>(
+          run_head_dim<__nv_bfloat16>(*p, which, head_dim, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16; head_dim 32, 64, 96 or 128.  Each returns
+// cudaGetLastError() after its launch (0 on success).
+extern "C" int fa_bwd_dq_launch(const fa::Params* p, int dtype, int head_dim,
+                                void* stream) {
+  return run_dtype(p, 0, dtype, head_dim, stream);
+}
+
+extern "C" int fa_bwd_dkdv_launch(const fa::Params* p, int dtype,
+                                  int head_dim, void* stream) {
+  return run_dtype(p, 1, dtype, head_dim, stream);
+}

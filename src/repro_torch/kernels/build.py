@@ -3,8 +3,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/kernels/<name>-<hash>.so`` under the repository root (a
-directory ``.gitignore`` lists); the hash is taken over the source, so an
-edited kernel never loads a stale library.  Nothing is built at import:
+directory ``.gitignore`` lists); the hash is taken over the source and
+every shared ``csrc/*.cuh`` header, so an edited kernel never loads a
+stale library.  Nothing is built at import:
 the first launch builds, or ``build_all()`` builds every source at once,
 one ``nvcc`` process each, all started together.
 """
@@ -49,8 +50,10 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,24 +1,110 @@
-"""Stacked-group execution of the paged decode step.
+"""Stacked-group execution: the train/prefill forward and the paged
+decode step.
 
-Port of the paged part of ``repro.models.blocks``.  A
+Port of ``repro.models.blocks`` for attn + mlp units.  A
 :class:`~repro_torch.models.params.ScanGroup` stacks ``depth`` identical
 units on a leading ``layers`` axis; where the JAX package ran the unit
 under ``lax.scan``, the port loops over that axis in Python, taking views
-of each layer's parameters and page pools (the pools are updated in
-place through those views).
+of each layer's parameters (and page pools, which the decode step updates
+in place through those views).  ``ctx`` threads ``attn_impl`` and
+``remat`` from the train step down to every sublayer, as in JAX.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import attn_decode_paged, mlp_forward
+from repro_torch.models.layers import (attn_decode_paged, attn_forward,
+                                       mlp_forward)
 from repro_torch.models.params import ScanGroup, tree_map
 
 PyTree = Any
+
+# Rematerialization of each stacked unit (JAX ``REMAT_POLICIES``): "full"
+# saves nothing inside a unit and recomputes it in the backward; "dots"
+# saves every matmul output and recomputes the rest; "dots_no_batch" saves
+# only matmuls without a batch dimension (the projections, not the
+# attention products).  torch.utils.checkpoint, non-reentrant, with a
+# selective-checkpoint policy for the two "dots" variants.
+REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+
+
+def _save_ops(remat: str):
+    aten = torch.ops.aten
+    ops = {aten.mm.default, aten.addmm.default}
+    if remat == "dots":
+        ops |= {aten.bmm.default, aten.baddbmm.default}
+    return ops
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the rematerialization policy ``remat``."""
+    if remat == "none":
+        return fn
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; expected one of "
+                         f"{REMAT_POLICIES}")
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if remat != "full":
+        save = _save_ops(remat)
+
+        def policy(ctx, op, *args, **kwargs):
+            return (ckpt.CheckpointPolicy.MUST_SAVE if op in save
+                    else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy)
+    return functools.partial(ckpt.checkpoint, fn, **kw)
+
+
+# --------------------------------------------------------------------------- #
+# Train / prefill
+# --------------------------------------------------------------------------- #
+
+def _sublayer_train(kind: str, p: PyTree, x: torch.Tensor,
+                    aux: torch.Tensor, cfg: ModelConfig,
+                    ctx: Dict[str, Any]):
+    if kind == "attn":
+        return attn_forward(p, x, cfg, positions=ctx["positions"],
+                            causal=ctx.get("causal", True),
+                            impl=ctx.get("attn_impl", "kernel")), aux
+    if kind == "mlp":
+        return mlp_forward(p, x, cfg), aux
+    raise NotImplementedError(f"training of {kind!r} sublayers is not "
+                              "ported yet")
+
+
+def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
+                  cfg: ModelConfig, ctx: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hidden, aux_loss).  Each stacked leaf is unbound once, so
+    the backward stacks the per-layer gradients in one op instead of
+    scattering each into a zero-filled copy of the stack."""
+
+    def unit(p_unit: PyTree, h: torch.Tensor, aux: torch.Tensor):
+        for j, kind in enumerate(group.sublayers):
+            h, aux = _sublayer_train(kind, p_unit[f"s{j}_{kind}"], h, aux,
+                                     cfg, ctx)
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if group.depth == 1:
+        return unit(gparams, x, aux)
+    body = _remat(unit, ctx.get("remat", "none"))
+    layers = tree_map(lambda a: a.unbind(0), gparams)
+    for i in range(group.depth):
+        x, aux = body(tree_map(lambda t: t[i], layers), x, aux)
+    return x, aux
+
+
+# --------------------------------------------------------------------------- #
+# Decode (paged KV cache — the serving-engine path)
+# --------------------------------------------------------------------------- #
 
 PAGED_SUBLAYERS = ("attn", "mlp", "moe")
 
@@ -26,11 +112,12 @@ PAGED_SUBLAYERS = ("attn", "mlp", "moe")
 def init_paged_sublayer_cache(kind: str, cfg: ModelConfig, num_blocks: int,
                               block_size: int,
                               dtype: torch.dtype = torch.bfloat16,
-                              device: torch.device = torch.device("cpu")
-                              ) -> PyTree:
+                              device: DeviceLike = None) -> PyTree:
     """Per-sublayer page pools (no batch dim — sequences share the pool
     through their block tables).  int8 pools carry fp32 ``k_scale`` /
-    ``v_scale`` pools alongside, one scale per (page slot, kv head)."""
+    ``v_scale`` pools alongside, one scale per (page slot, kv head).  The
+    pools live on the card unless ``device="cpu"`` is asked for."""
+    device = resolve_device(device)
     if kind == "attn":
         K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         shape = (num_blocks, block_size, K, hd)

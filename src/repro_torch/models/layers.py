@@ -1,12 +1,13 @@
-"""Core layers for paged decode: norms, rotary embeddings, attention
-against the paged KV cache, and the MLP.
+"""Core layers: norms, rotary embeddings, full-sequence attention (train),
+attention against the paged KV cache (serve), and the MLP.
 
-Port of the decode-side functions of ``repro.models.layers``: plain
-functions on tensors over a parameter dict, with the JAX package's
-conventions kept exactly — norm statistics in fp32 with the multiply in
-the input dtype, RoPE over split halves, attention in fp32 from an fp32
-query.  Large projections are plain ``torch.matmul``, as the JAX package
-left them to XLA; the paged attention itself is the flash-decode kernel.
+Port of ``repro.models.layers`` for attn + mlp decoders: plain functions
+on tensors over a parameter dict, with the JAX package's conventions kept
+exactly — norm statistics in fp32 with the multiply in the input dtype,
+RoPE over split halves, softmax in fp32.  Large projections are plain
+``torch.matmul``, as the JAX package left them to XLA; attention itself
+is the FA-2 kernels (train) or the flash-decode kernel (serve).  The JAX
+sharding constraints are left out: they need a device mesh.
 """
 
 from __future__ import annotations
@@ -16,12 +17,16 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention.chunked import chunked_attention
 from repro_torch.kernels.flash_attention.decode import (
     flash_decode_paged, paged_attention_reference)
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF, visible
 from repro_torch.kernels.quant8.ops import quantize_kv
 from repro_torch.models.config import ModelConfig
 
-ATTN_IMPLS = ("kernel", "gather")
+ATTN_IMPLS = ("kernel", "gather")                  # paged decode
+TRAIN_ATTN_IMPLS = ("naive", "chunked", "kernel")  # full-sequence
 
 
 def norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -94,6 +99,70 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd")."""
     h, k, d = wo.shape
     return out.flatten(-2) @ wo.to(out.dtype).reshape(h * k, d)
+
+
+def _mask_bias(q_len: int, kv_len: int, *, causal: bool, window: int,
+               q_offset: int = 0,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """(q_len, kv_len) additive mask bias in fp32."""
+    ok = visible(q_len, kv_len, causal=causal, window=window,
+                 q_offset=q_offset, device=device)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int = 0, q_offset: int = 0,
+                   kv_valid_len: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Reference attention.  q: (B,S,H,D), k/v: (B,T,K,D) with H % K == 0.
+    ``kv_valid_len`` masks cache positions >= valid length.  Softmax in
+    fp32; output in q's dtype."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qf = q.reshape(B, S, K, H // K, D).float()
+    logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) \
+        / torch.sqrt(torch.tensor(float(D)))
+    logits = logits + _mask_bias(S, T, causal=causal, window=window,
+                                 q_offset=q_offset, device=q.device)
+    if kv_valid_len is not None:
+        valid = torch.arange(T, device=q.device)[None, :] \
+            < kv_valid_len.reshape(-1, 1)
+        logits = logits + torch.where(valid, 0.0, NEG_INF)[
+            :, None, None, None, :]
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def run_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: int = 0, impl: str = "kernel",
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Dispatch: "naive" oracle, "chunked" online softmax (plain torch,
+    the JAX package's default), or "kernel" (the FA-2 CUDA kernels; their
+    plain versions on CPU tensors).  All three are differentiable."""
+    if impl == "naive":
+        return attention_core(q, k, v, causal=causal, window=window)
+    if impl == "kernel":
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    if impl != "chunked":
+        raise ValueError(f"unknown attn_impl {impl!r}; expected one of "
+                         f"{TRAIN_ATTN_IMPLS}")
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             scale=scale)
+
+
+def attn_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+                 positions: torch.Tensor, causal: bool = True,
+                 impl: str = "kernel") -> torch.Tensor:
+    """Full-sequence self-attention sublayer (train / prefill)."""
+    h = norm(p["norm"], x, cfg)
+    q, k, v = _project_qkv(p, h, cfg)
+    q = positional(q, positions, cfg)
+    k = positional(k, positions, cfg)
+    out = run_attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                        impl=impl)
+    return x + _out_proj(out, p["wo"])
 
 
 def attn_decode_paged(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,

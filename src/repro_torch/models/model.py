@@ -1,5 +1,9 @@
-"""Full-model paged decode: embedding, the stacked decoder groups, the LM
-head (port of the paged-decode part of ``repro.models.model``)."""
+"""Full-model passes: the train loss, full-sequence logits and the paged
+decode step (port of ``repro.models.model`` for attn + mlp decoders).
+
+Batch dict keys: ``tokens`` (B, S) int decoder input ids; ``labels``
+(B, S) int next-token targets, -1 masked; ``positions`` (B, S) optional.
+"""
 
 from __future__ import annotations
 
@@ -7,8 +11,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.device import DeviceLike
 from repro_torch.models import params as P
 from repro_torch.models.blocks import (PAGED_SUBLAYERS, group_decode_paged,
+                                       group_forward,
                                        init_paged_sublayer_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import norm
@@ -29,9 +35,91 @@ def lm_logits(params: PyTree, cfg: ModelConfig,
     else:
         logits = h @ params["lm_head"].to(h.dtype)
     if cfg.padded_vocab_size != cfg.vocab_size:
-        # vocab-padding mask: padded ids never win softmax/argmax
-        logits[..., cfg.vocab_size:] = -1e30
+        # vocab-padding mask: padded ids never win softmax/argmax.  Out of
+        # place, since the logits sit under autograd when training.
+        pad = torch.arange(cfg.padded_vocab_size,
+                           device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean CE in fp32.  labels == -1 are ignored.  Returns (loss,
+    number of counted tokens)."""
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    return nll.sum() / denom, denom
+
+
+def default_positions(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                      seq_len: int, bsz: int) -> torch.Tensor:
+    if "positions" in batch:
+        return batch["positions"]
+    pos = torch.arange(seq_len, dtype=torch.int32,
+                       device=batch["tokens"].device)
+    return pos[None, :].expand(bsz, seq_len)
+
+
+def decoder_trunk(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                  ctx: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gi, g in enumerate(P.decoder_groups(cfg)):
+        x, a = group_forward(params["decoder"][f"g{gi}"], g, x, cfg, ctx)
+        aux = aux + a
+    return norm(params["final_norm"], x, cfg), aux
+
+
+def _embed_with_positions(params: PyTree, cfg: ModelConfig,
+                          batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    for key in ("vision_embeds", "frames"):
+        if key in batch:
+            raise NotImplementedError(f"batches with {key!r} (VLM / "
+                                      "encoder-decoder) are not ported")
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens)
+    if "pos" in params["embed"]:
+        x = x + params["embed"]["pos"][:tokens.shape[1]].to(x.dtype)[None]
+    return x
+
+
+def forward_train(params: PyTree, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor], *, remat: str = "none",
+                  attn_impl: str = "kernel"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (scalar loss, metrics).
+
+    ``attn_impl`` selects the attention of every attention sublayer:
+    "naive" (fp32 oracle), "chunked" (plain online softmax, the JAX
+    package's default) or "kernel" (the FA-2 CUDA kernels with their
+    backward kernels; the plain versions on CPU tensors).  All three
+    train."""
+    x = _embed_with_positions(params, cfg, batch)
+    B, S = batch["tokens"].shape
+    ctx = {"positions": default_positions(batch, cfg, S, B),
+           "remat": remat, "attn_impl": attn_impl, "causal": True}
+    h, aux = decoder_trunk(params, cfg, x, ctx)
+    logits = lm_logits(params, cfg, h)
+    loss, n_tok = cross_entropy(logits, batch["labels"])
+    metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n_tok}
+    return loss + aux, metrics
+
+
+def forward_logits(params: PyTree, cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor], *,
+                   attn_impl: str = "naive") -> torch.Tensor:
+    """Full-sequence logits (tests / prefill scoring)."""
+    x = _embed_with_positions(params, cfg, batch)
+    B, S = batch["tokens"].shape
+    ctx = {"positions": default_positions(batch, cfg, S, B),
+           "causal": True, "attn_impl": attn_impl}
+    h, _ = decoder_trunk(params, cfg, x, ctx)
+    return lm_logits(params, cfg, h)
 
 
 def paged_decode_supported(cfg: ModelConfig) -> bool:
@@ -46,10 +134,11 @@ def paged_decode_supported(cfg: ModelConfig) -> bool:
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device: torch.device = torch.device("cpu")) -> PyTree:
+                     device: DeviceLike = None) -> PyTree:
     """Per-layer page pools (no batch dim — sequences share the pool via
     their block tables; block 0 is the null page, see serve.paged_cache).
-    Stacked groups carry a leading depth axis, as the parameters do."""
+    Stacked groups carry a leading depth axis, as the parameters do.  The
+    pools live on the card unless ``device="cpu"`` is asked for."""
     cache: Dict[str, Any] = {}
     for gi, g in enumerate(P.decoder_groups(cfg)):
         unit = {}

@@ -1,5 +1,6 @@
-"""Metrics registry: counters, gauges and fixed-bucket histograms (a copy
-of ``repro.obs.metrics`` without its JAX device accumulator).
+"""Metrics registry: counters, gauges and fixed-bucket histograms, and the
+device accumulator that batches device scalars into one host copy per
+drain (a copy of ``repro.obs.metrics``, with a torch accumulator).
 
 Histograms use fixed log-spaced buckets (one ``bisect`` per observe, no
 per-sample storage) and report p50/p95/p99 by linear interpolation
@@ -13,6 +14,8 @@ import math
 import threading
 from bisect import bisect_right
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 
 class Counter:
@@ -169,3 +172,58 @@ class MetricsRegistry:
             for name, snap in self.snapshot().items():
                 f.write(json.dumps({"record": "metric", "name": name,
                                     **snap}) + "\n")
+
+
+class DeviceAccumulator:
+    """Batches device-scalar observations; ONE host copy per drain.
+
+    ``observe``/``inc`` only append the (still device-resident, possibly
+    not yet computed) scalar to a pending list, so the hot loop never
+    waits for the card.  ``drain()`` stacks the window on the device,
+    copies it to the host in a single ``.tolist()`` and routes the floats
+    into the registry — call it at log-window boundaries and at loop exit,
+    where the trainer already syncs."""
+
+    def __init__(self, registry: MetricsRegistry):
+        self.registry = registry
+        self._pending: List[Tuple[str, str, Any]] = []
+
+    def observe(self, hist_name: str, device_scalar) -> None:
+        self._pending.append(("hist", hist_name, device_scalar))
+
+    def inc(self, counter_name: str, device_scalar) -> None:
+        self._pending.append(("ctr", counter_name, device_scalar))
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def drain(self) -> List[float]:
+        """Fetch + route every pending value; returns them in order."""
+        if not self._pending:
+            return []
+        vals = fetch_scalars([p[2] for p in self._pending])
+        for (kind, name, _), v in zip(self._pending, vals):
+            if kind == "hist":
+                self.registry.histogram(name).observe(v)
+            else:
+                self.registry.counter(name).inc(v)
+        self._pending.clear()
+        return vals
+
+
+def fetch_scalars(values: List[Any]) -> List[float]:
+    """Host floats of 0-d tensors (and plain numbers), with one device to
+    host copy for all the tensors of a device."""
+    out: List[Optional[float]] = [None] * len(values)
+    by_device: Dict[Any, List[int]] = {}
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            by_device.setdefault(v.device, []).append(i)
+        else:
+            out[i] = float(v)
+    for idx in by_device.values():
+        host = torch.stack([values[i].detach().reshape(()).double()
+                            for i in idx]).tolist()
+        for i, f in zip(idx, host):
+            out[i] = f
+    return out

@@ -1,0 +1,102 @@
+"""AdamW (decoupled weight decay) over parameter dicts (port of
+``repro.optim.adamw``).
+
+The update math is the JAX package's, in its order: fp32 throughout
+whatever the storage dtypes, global-norm clipping, bias correction, decay
+inside the step on >= 2-D leaves only, the new parameter cast back to its
+dtype and the moments stored in ``moment_dtype``.  Where the JAX update
+returned new arrays (and the trainer donated the old ones), this one
+writes parameters and moments in place under ``no_grad``: no second copy
+of the model or its optimizer state is ever allocated.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple, Union
+
+import torch
+
+from repro_torch.models.params import tree_leaves, tree_map
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    learning_rate: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def schedule(cfg: OptConfig, step: Union[int, torch.Tensor]
+             ) -> torch.Tensor:
+    """Linear warmup + cosine decay to ``min_lr_ratio`` (fp32)."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    frac = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.decay_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * frac))
+    scale = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos
+    return cfg.learning_rate * warm * scale
+
+
+def init_opt_state(params: PyTree, cfg: OptConfig) -> Dict[str, Any]:
+    """Zero moments beside each parameter, and the step count (a 0-d int
+    tensor on the parameters' device, so the update never syncs)."""
+    dt = getattr(torch, cfg.moment_dtype)
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    device = tree_leaves(params)[0].device
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(leaves: Union[PyTree, List[torch.Tensor]]) -> torch.Tensor:
+    """sqrt(Σ x²) over every leaf, in fp32."""
+    if not isinstance(leaves, list):
+        leaves = tree_leaves(leaves)
+    return torch.stack([x.float().square().sum() for x in leaves]).sum() \
+        .sqrt()
+
+
+@torch.no_grad()
+def apply_updates(params: PyTree, grads: Union[PyTree, List[torch.Tensor]],
+                  state: Dict[str, Any], cfg: OptConfig
+                  ) -> Tuple[PyTree, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step, in place.  ``grads`` is a tree shaped like
+    ``params`` or the list of its leaves in ``tree_leaves`` order.
+    Returns (params, state, {"grad_norm", "lr"}) — the same parameter and
+    moment tensors, updated."""
+    flat_g = grads if isinstance(grads, list) else tree_leaves(grads)
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    gnorm = global_norm(flat_g)
+    clip = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+            if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - torch.pow(b1, step.float())
+    bc2 = 1.0 - torch.pow(b2, step.float())
+    for p, g, mu, nu in zip(tree_leaves(params), flat_g,
+                            tree_leaves(state["mu"]),
+                            tree_leaves(state["nu"])):
+        g = g.float() * clip
+        mu_f = mu.float() * b1 + (1 - b1) * g
+        nu_f = nu.float() * b2 + (1 - b2) * g.square()
+        delta = (mu_f / bc1) / ((nu_f / bc2).sqrt() + cfg.eps)
+        if p.dim() >= 2:          # decoupled decay on >= 2-D weights only
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        mu.copy_(mu_f)
+        nu.copy_(nu_f)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,101 @@
+"""The train step: forward + backward + AdamW, one closure per config
+(port of ``repro.train.step``).
+
+``make_train_step`` returns ``train_step(params, opt_state, batch) ->
+(params, opt_state, metrics)``.  PyTorch runs it eagerly; the parameters
+and moments are updated in place (the JAX step was pure and the trainer
+donated its buffers), and every metric stays a device scalar.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import tree_leaves
+from repro_torch.optim import adamw
+
+PyTree = Any
+
+
+def _split_microbatches(batch: Dict[str, torch.Tensor], m: int
+                        ) -> List[Dict[str, torch.Tensor]]:
+    """m batches of B/m rows each."""
+    for k, v in batch.items():
+        if v.shape[0] % m:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split into {m} microbatches")
+    parts = {k: v.chunk(m, dim=0) for k, v in batch.items()}
+    return [{k: parts[k][i] for k in batch} for i in range(m)]
+
+
+def _trainable(params: PyTree) -> List[torch.Tensor]:
+    leaves = tree_leaves(params)
+    for p in leaves:
+        if not p.requires_grad:
+            p.requires_grad_(True)
+    return leaves
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, *,
+                    remat: str = "none", compress: Optional[Any] = None,
+                    attn_impl: str = "kernel",
+                    microbatches: int = 1) -> Callable:
+    """Gradient accumulation over ``microbatches``: activation memory
+    scales with B/microbatches while the optimizer update stays per global
+    batch; the per-microbatch gradients are summed in fp32.  ``compress``
+    (the compressed pseudo-gradient hook) is not ported yet."""
+    if compress is not None and getattr(compress, "method", "none") != "none":
+        raise NotImplementedError("gradient compression comes with the "
+                                  "local-SGD slice (slice 3)")
+
+    def loss_and_grads(leaves, params, batch):
+        loss, metrics = M.forward_train(params, cfg, batch, remat=remat,
+                                        attn_impl=attn_impl)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            list(grads)
+
+    def train_step(params: PyTree, opt_state: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[PyTree, Dict[str, Any], Dict[str, torch.Tensor]]:
+        leaves = _trainable(params)
+        if microbatches > 1:
+            gsum: Optional[List[torch.Tensor]] = None
+            for mb in _split_microbatches(batch, microbatches):
+                loss, _, g = loss_and_grads(leaves, params, mb)
+                if gsum is None:
+                    gsum, lsum = [x.float() for x in g], loss
+                else:
+                    for a, b in zip(gsum, g):
+                        a.add_(b.float())
+                    lsum = lsum + loss
+                del g
+            grads = [g.div_(microbatches) for g in gsum]
+            loss = lsum / microbatches
+            metrics: Dict[str, torch.Tensor] = {}
+        else:
+            loss, metrics, grads = loss_and_grads(leaves, params, batch)
+        params, opt_state, opt_metrics = adamw.apply_updates(
+            params, grads, opt_state, opt_cfg)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, *, remat: str = "none",
+                   attn_impl: str = "kernel") -> Callable:
+    """The eval step takes the same ``remat``/``attn_impl`` knobs as the
+    train step, so evaluation runs the configuration being trained."""
+
+    @torch.no_grad()
+    def eval_step(params: PyTree, batch: Dict[str, torch.Tensor]):
+        loss, metrics = M.forward_train(params, cfg, batch, remat=remat,
+                                        attn_impl=attn_impl)
+        return dict(metrics, loss=loss)
+
+    return eval_step

@@ -1,0 +1,206 @@
+"""Trainer loop: the train step + data pipeline + the energy monitor wired
+per step (port of ``repro.train.trainer``, single host).
+
+The hot loop never waits for the card unless asked to:
+
+* **in-place update** — the step writes parameters and AdamW moments in
+  place (the JAX trainer donated their buffers to the jit);
+* **device-resident metrics** — each step's loss, grad norm and lr stay
+  on the device; the loop copies them to the host once per ``log_every``
+  window (and once at the end), one ``.tolist()`` for the whole window;
+* **prefetch** — the next batch is copied host -> device through pinned
+  memory with a ``non_blocking`` copy right after the step is queued, so
+  data generation and transfer overlap the card's compute.
+
+Passing an ``EnergyMonitor`` opts back into one sync per step: energy
+accounting needs each step's true wall-clock time.  Checkpointing and
+resume come with slice 3 of the port and raise here.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import flops as F
+from repro_torch.core.energy.monitor import EnergyMonitor
+from repro_torch.data.pipeline import make_batch_fn
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import params as PM
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs.metrics import (DeviceAccumulator, MetricsRegistry,
+                                     fetch_scalars)
+from repro_torch.obs.trace import get_tracer
+from repro_torch.optim import adamw
+from repro_torch.train.step import make_train_step
+
+PyTree = Any
+
+
+@dataclass
+class TrainerConfig:
+    steps: int = 100
+    batch: int = 8
+    seq_len: int = 256
+    log_every: int = 10
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_placement: Any = None
+    checkpoint_replication: int = 0
+    resume: bool = False
+    remat: str = "none"         # "none" | "full" | "dots" | "dots_no_batch"
+    attn_impl: str = "kernel"   # "naive" | "chunked" | "kernel"
+    microbatches: int = 1
+    donate: bool = True         # kept for the JAX field set: the update is
+                                # always in place
+    async_metrics: bool = True  # no per-step host sync; bulk-fetch metrics
+    prefetch: bool = True       # stage the next batch while the card works
+    seed: int = 0
+
+
+@dataclass
+class TrainerResult:
+    losses: List[float] = field(default_factory=list)
+    steps_per_s: float = 0.0            # includes the first step
+    steady_steps_per_s: float = 0.0     # excludes the first step
+    compile_time_s: float = 0.0         # first-step time (kernel builds)
+    energy_wh: float = 0.0
+    final_loss: float = float("nan")
+    resumed_from_step: int = 0          # 0: no resume in this slice
+
+
+def _to_device(batch: Dict[str, np.ndarray], device: torch.device
+               ) -> Dict[str, torch.Tensor]:
+    """numpy batch -> device tensors; through pinned memory and an
+    asynchronous copy when the device is a card."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def train(cfg: ModelConfig, tc: TrainerConfig,
+          opt_cfg: Optional[adamw.OptConfig] = None,
+          monitor: Optional[EnergyMonitor] = None,
+          metrics: Optional[MetricsRegistry] = None, *,
+          params: Optional[PyTree] = None,
+          device: DeviceLike = None) -> TrainerResult:
+    """Train ``cfg`` for ``tc.steps`` steps on ``device`` (the card unless
+    ``"cpu"`` is asked for).  ``params`` are the initial weights (for
+    example bridged from the JAX package), updated in place; by default
+    they are drawn with ``init_params(seed=tc.seed)``.  ``metrics`` opts
+    into loss / grad-norm histograms, batched in a
+    :class:`DeviceAccumulator` and drained at the log-window syncs."""
+    if tc.checkpoint_dir or tc.checkpoint_every or tc.resume:
+        raise NotImplementedError("checkpointing and resume come with "
+                                  "slice 3 of the port")
+    dev = resolve_device(device)
+    opt_cfg = opt_cfg or adamw.OptConfig(
+        learning_rate=3e-4, warmup_steps=max(10, tc.steps // 20),
+        decay_steps=tc.steps)
+    if params is None:
+        params = PM.init_params(cfg, device=dev, seed=tc.seed)
+    elif any(p.device != dev for p in PM.tree_leaves(params)):
+        raise ValueError(f"params must live on {dev}")
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, remat=tc.remat,
+                              attn_impl=tc.attn_impl,
+                              microbatches=tc.microbatches)
+    data: Iterator = make_batch_fn(cfg, tc.batch, tc.seq_len, tc.seed)
+
+    step_flops = F.train_flops(cfg, tc.batch, tc.seq_len,
+                               remat=tc.remat != "none")
+    # the monitor needs true per-step wall clock -> forces the sync path
+    sync_every_step = (not tc.async_metrics) or monitor is not None
+    result = TrainerResult()
+    pending: List[Dict[str, torch.Tensor]] = []   # device-resident metrics
+    tr = get_tracer()
+    acc = DeviceAccumulator(metrics) if metrics is not None else None
+
+    def fetch(mxs: List[Dict[str, torch.Tensor]]) -> List[Dict[str, float]]:
+        keys = ("loss", "grad_norm", "lr")
+        flat = fetch_scalars([m[k] for m in mxs for k in keys])
+        return [dict(zip(keys, flat[i:i + 3]))
+                for i in range(0, len(flat), 3)]
+
+    batch = _to_device(next(data), dev) if tc.prefetch else None
+    t0 = time.perf_counter()
+    t_prev = t0
+    for step in range(tc.steps):
+        with tr.span("step", "train", metric="train/step_s", step=step):
+            if not tc.prefetch:
+                with tr.span("data", "train", metric="train/data_s"):
+                    batch = _to_device(next(data), dev)
+            # the span times host-side queueing under the async loop and
+            # the true step time under the sync loop
+            with tr.span("fwd_bwd_opt", "train",
+                         metric="train/fwd_bwd_opt_s"):
+                params, opt_state, mx = step_fn(params, opt_state, batch)
+            if tc.prefetch and step + 1 < tc.steps:
+                with tr.span("data", "train", metric="train/data_s"):
+                    batch = _to_device(next(data), dev)
+
+            host: Optional[Dict[str, float]] = None
+            if sync_every_step:
+                host = fetch([mx])[0]                # one sync per step
+                result.losses.append(host["loss"])
+                if metrics is not None:
+                    metrics.histogram("train/loss", lo=1e-4, hi=1e4) \
+                        .observe(host["loss"])
+                    metrics.histogram("train/grad_norm", lo=1e-4, hi=1e4) \
+                        .observe(host["grad_norm"])
+            else:
+                pending.append(mx)                   # no sync
+                if acc is not None:
+                    acc.observe("train/loss", mx["loss"])
+                    acc.observe("train/grad_norm", mx["grad_norm"])
+            if step == 0:
+                if host is None and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                result.compile_time_s = time.perf_counter() - t0
+            if monitor is not None:
+                t_now = time.perf_counter()
+                monitor.record_step(flops=step_flops,
+                                    duration_s=t_now - t_prev)
+                t_prev = t_now
+            if tc.log_every and step % tc.log_every == 0:
+                if host is None:
+                    # drain the whole window in one copy
+                    with tr.span("metrics_drain", "train"):
+                        fetched = fetch(pending)
+                        if acc is not None:
+                            acc.drain()
+                    result.losses.extend(m["loss"] for m in fetched)
+                    host = fetched[-1]
+                    pending.clear()
+                print(f"step {step:5d}  loss {host['loss']:.4f}  "
+                      f"gnorm {host['grad_norm']:.3f}  "
+                      f"lr {host['lr']:.2e}")
+    if pending:
+        with tr.span("metrics_drain", "train"):
+            result.losses.extend(m["loss"] for m in fetch(pending))
+    if acc is not None:
+        acc.drain()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if metrics is not None:
+        metrics.counter("train/steps").inc(tc.steps)
+        metrics.counter("train/tokens").inc(tc.steps * tc.batch * tc.seq_len)
+    wall = time.perf_counter() - t0
+    result.steps_per_s = tc.steps / wall
+    if tc.steps > 1 and wall > result.compile_time_s:
+        result.steady_steps_per_s = (tc.steps - 1) / (
+            wall - result.compile_time_s)
+    else:
+        result.steady_steps_per_s = result.steps_per_s
+    result.final_loss = result.losses[-1]
+    if monitor is not None:
+        result.energy_wh = monitor.total_wh
+    return result

@@ -1,6 +1,8 @@
-"""The port on the card: the CUDA flash-decode kernel against its plain
-PyTorch version, and the engine through the kernel against the engine
-through the plain gather path.  Every test here skips without CUDA.
+"""The port on the card: the CUDA flash-decode and FA-2 kernels against
+their plain PyTorch versions, the engine through the kernel against the
+engine through the plain gather path, and a train step through the FA-2
+kernels against one through the chunked path.  Every test here skips
+without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -15,10 +17,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
     flash_decode_paged, paged_attention_reference)
 from repro_torch.kernels.quant8.ops import quantize_kv  # noqa: E402
-from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.models.params import init_params, tree_leaves  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
                                       ServeEngine)
 
@@ -40,6 +43,32 @@ CASES = [
 IDS = ["gqa", "mha-fresh", "gqa-window", "window<block", "chunk4",
        "chunk4-int8-window", "g7-int8", "g7-chunk4", "empty-slot",
        "empty-slot-chunk4-int8"]
+
+
+# B, S, H, K, D, causal, window[, T] — the JAX package's FA_CASES
+# (tests/test_kernels.py): GQA g=2 and 4, a 128 window, non-causal S=200,
+# S=130 with head_dim 96; then non-causal with T != S and head_dim 32
+FA_CASES = [
+    (2, 256, 4, 2, 64, True, 0),
+    (1, 384, 4, 4, 128, True, 0),
+    (2, 256, 8, 2, 64, True, 128),
+    (1, 200, 2, 1, 64, False, 0),
+    (1, 130, 2, 2, 96, True, 0),
+    (2, 100, 4, 2, 32, False, 0, 230),
+]
+FA_IDS = ["gqa2", "mha-d128", "gqa4-window", "noncausal-200", "d96-s130",
+          "cross-t230-d32"]
+
+
+def fa_inputs(case, seed=0):
+    """numpy fp32 q (B,S,H,D), k/v (B,T,K,D) and an output cotangent."""
+    B, S, H, K, D = case[:5]
+    T = case[7] if len(case) > 7 else S
+    rs = np.random.RandomState(seed)
+    return (rs.randn(B, S, H, D).astype(np.float32),
+            rs.randn(B, T, K, D).astype(np.float32),
+            rs.randn(B, T, K, D).astype(np.float32),
+            rs.randn(B, S, H, D).astype(np.float32))
 
 
 def inputs(H, K, D, bs, lens, C, quant, seed=0):
@@ -110,3 +139,60 @@ def test_cuda_engine_kernel_matches_gather(cuda):
     gath, none, _ = run("gather")
     assert kern == gath
     assert launched == cfg.num_layers * steps and none == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+def test_cuda_fa2_kernels_match_plain_versions(case, dtype, cuda):
+    causal, window = case[5], case[6]
+    q, k, v, do = (torch.from_numpy(x).to(cuda, dtype).transpose(1, 2)
+                   for x in fa_inputs(case, seed=5))
+    kw = dict(causal=causal, window=window)
+    counts = [f.launches for f in (FK.flash_attention_fwd,
+                                   FK.flash_attention_bwd_dq,
+                                   FK.flash_attention_bwd_dkdv)]
+    out, lse = FK.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = FK.attention_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dq = FK.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **kw)
+    dk, dv = FK.flash_attention_bwd_dkdv(q, k, v, do, ref_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (FK.flash_attention_fwd,
+                                 FK.flash_attention_bwd_dq,
+                                 FK.flash_attention_bwd_dkdv)] == \
+        [c + 1 for c in counts]
+    ref_dq = FK.attention_bwd_dq_plain(q, k, v, do, ref_lse, delta, **kw)
+    ref_dk, ref_dv = FK.attention_bwd_dkdv_plain(q, k, v, do, ref_lse,
+                                                 delta, **kw)
+    # fp32 math on both sides from the same inputs; a bf16 output differs
+    # by at most one rounding step (2**-7 of the value)
+    out_tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=out_tol,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    for mine, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(mine, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_kernel_matches_chunked(cuda):
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("opt-125m-smoke"),
+                              param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg, device=cuda, seed=0)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 200))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    out = {}
+    for impl in ("kernel", "chunked"):
+        before = FK.flash_attention_fwd.launches
+        loss, _ = M.forward_train(params, cfg, batch, attn_impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+        out[impl] = (float(loss.detach()), grads,
+                     FK.flash_attention_fwd.launches - before)
+    assert out["kernel"][2] == cfg.num_layers and out["chunked"][2] == 0
+    assert abs(out["kernel"][0] - out["chunked"][0]) < 1e-4
+    for a, b in zip(out["kernel"][1], out["chunked"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)

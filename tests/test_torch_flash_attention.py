@@ -1,0 +1,188 @@
+"""FA-2 attention: the port's plain kernel versions against the JAX
+package's Pallas kernels (interpret mode), the autograd wiring against
+``jax.grad`` through the Pallas custom VJP, and the chunked twin against
+the JAX chunked twin.  The CUDA kernels are held against the plain
+versions in ``test_torch_cuda.py``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention import kernel as JK  # noqa: E402
+from repro.kernels.flash_attention.chunked import (  # noqa: E402
+    chunked_attention as j_chunked)
+from repro.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention as j_flash)
+from repro_torch.kernels.flash_attention import kernel as TK  # noqa: E402
+from repro_torch.kernels.flash_attention.chunked import (  # noqa: E402
+    chunked_attention)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_reference)
+
+from test_torch_cuda import FA_CASES, FA_IDS, fa_inputs  # noqa: E402
+
+# the JAX package's own bars (tests/test_kernels.py): forward 2e-6 in
+# fp32 and 2e-2 in bf16, gradients 1e-3
+FWD_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+GRAD_TOL = 1e-3
+# bf16 gradients: both sides compute in fp32 from the same bf16 inputs and
+# round once at the end, so they differ by at most one bf16 step, which is
+# 2**-7 of the value
+BF16_STEP = 2.0 ** -7
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _bhsd(case, dtype, seed=0):
+    """numpy (B,H,S,D) q, (B,K,T,D) k/v, do, in both frameworks."""
+    q, k, v, do = fa_inputs(case, seed)
+    tr = lambda x: np.ascontiguousarray(x.transpose(0, 2, 1, 3))  # noqa: E731
+    arrs = [tr(x) for x in (q, k, v, do)]
+    jx = [jnp.asarray(a, JDT[dtype]) for a in arrs]
+    tx = [torch.from_numpy(a).to(TDT[dtype]) for a in arrs]
+    return jx, tx
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+def test_plain_forward_matches_pallas(case, dtype):
+    B, S, H, K, D, causal, window = case[:7]
+    (jq, jk, jv, _), (tq, tk, tv, _) = _bhsd(case, dtype)
+    jo, jl = JK._fwd_bhsd(jq, jk, jv, causal, window, 1.0 / D ** 0.5,
+                          128, 128, True)
+    to, tl = TK.flash_attention_fwd(tq, tk, tv, causal=causal,
+                                    window=window)
+    assert to.dtype == TDT[dtype] and tl.dtype == torch.float32
+    tol = FWD_TOL[dtype]
+    np.testing.assert_allclose(_f32(to), _f32(jo), rtol=tol, atol=tol)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+def test_plain_backward_matches_pallas(case, dtype):
+    B, S, H, K, D, causal, window = case[:7]
+    T = case[7] if len(case) > 7 else S
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _bhsd(case, dtype)
+    scale = 1.0 / D ** 0.5
+    jo, jl = JK._fwd_bhsd(jq, jk, jv, causal, window, scale, 128, 128, True)
+    jdq, jdk, jdv = JK._bwd_bhsd(jq, jk, jv, jo, jl, jdo, causal, window,
+                                 scale, 128, 128, True)
+    # the same residuals on both sides: the JAX forward's out and lse
+    to = torch.from_numpy(_f32(jo).copy()).to(TDT[dtype])
+    tl = torch.from_numpy(np.asarray(jl))
+    delta = (tdo.float() * to.float()).sum(-1)
+    kw = dict(causal=causal, window=window)
+    dq = TK.flash_attention_bwd_dq(tq, tk, tv, tdo, tl, delta, **kw)
+    dk, dv = TK.flash_attention_bwd_dkdv(tq, tk, tv, tdo, tl, delta, **kw)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    assert dk.shape == (B, K, T, D) and dv.shape == (B, K, T, D)
+    for name, mine, ref in (("dq", dq, jdq), ("dk", dk, jdk),
+                            ("dv", dv, jdv)):
+        if dtype == "float32":
+            np.testing.assert_allclose(mine.numpy(), np.asarray(ref),
+                                       rtol=GRAD_TOL, atol=GRAD_TOL,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(_f32(mine.to(torch.bfloat16)),
+                                       _f32(ref), rtol=BF16_STEP,
+                                       atol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+def test_autograd_function_matches_pallas_vjp(case):
+    causal, window = case[5], case[6]
+    q, k, v, w = fa_inputs(case, seed=7)
+
+    def jfwd(*a):
+        return j_flash(*a, causal=causal, window=window, interpret=True)
+    jo, vjp = jax.vjp(jfwd, *(jnp.asarray(x) for x in (q, k, v)))
+    jg = vjp(jnp.asarray(w))
+    tx = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*tx, causal=causal, window=window)
+    out.backward(torch.from_numpy(w))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo),
+                               rtol=FWD_TOL["float32"],
+                               atol=FWD_TOL["float32"])
+    for name, t, j in zip(("dq", "dk", "dv"), tx, jg):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_autograd_bf16_primals_get_bf16_grads():
+    q, k, v, _ = fa_inputs((1, 128, 4, 2, 64, True, 0), seed=8)
+    tx = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+          for x in (q, k, v)]
+    flash_attention(*tx, causal=True).float().sum().backward()
+    assert all(t.grad.dtype == torch.bfloat16 for t in tx)
+    assert all(torch.isfinite(t.grad.float()).all() for t in tx)
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+def test_chunked_matches_jax_chunked_with_grads(case):
+    causal, window = case[5], case[6]
+    q, k, v, w = fa_inputs(case, seed=1)
+
+    def jloss(*a):
+        return (j_chunked(*a, causal=causal, window=window, chunk=64)
+                * jnp.asarray(w)).sum()
+    jo = j_chunked(*(jnp.asarray(x) for x in (q, k, v)), causal=causal,
+                   window=window, chunk=64)
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tx = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = chunked_attention(*tx, causal=causal, window=window, chunk=64)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo),
+                               rtol=2e-5, atol=2e-5)
+    ref = attention_reference(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=causal, window=window)
+    np.testing.assert_allclose(out.detach().numpy(), ref.numpy(),
+                               rtol=2e-5, atol=2e-5)
+    for name, t, j in zip(("dq", "dk", "dv"), tx, jg):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_chunked_bf16_keeps_dtypes():
+    q, k, v, _ = fa_inputs((1, 130, 2, 2, 96, True, 0), seed=2)
+    tx = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+          for x in (q, k, v)]
+    out = chunked_attention(*tx, causal=True, chunk=64)
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert all(t.grad.dtype == torch.bfloat16 for t in tx)
+
+
+def test_wrappers_reject_devices_without_a_kernel():
+    q = torch.zeros((1, 2, 8, 32), device="meta")
+    for fn in (lambda: TK.flash_attention_fwd(q, q, q),
+               lambda: TK.flash_attention_bwd_dq(q, q, q, q, q[..., 0],
+                                                 q[..., 0]),
+               lambda: TK.flash_attention_bwd_dkdv(q, q, q, q, q[..., 0],
+                                                   q[..., 0])):
+        with pytest.raises(ValueError, match="not CUDA/CPU"):
+            fn()
+
+
+def test_launch_counters_count_only_kernel_launches():
+    fns = (TK.flash_attention_fwd, TK.flash_attention_bwd_dq,
+           TK.flash_attention_bwd_dkdv)
+    before = [f.launches for f in fns]
+    q, k, v, _ = fa_inputs((1, 64, 2, 1, 32, True, 0), seed=3)
+    tx = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    flash_attention(*tx).sum().backward()              # CPU: plain versions
+    assert [f.launches for f in fns] == before

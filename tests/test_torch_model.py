@@ -33,7 +33,7 @@ def test_decode_step_paged_logits_match_jax(arch, patch, jax_impl, chunk):
     kv = PagedKVCache(num_blocks=nblocks, block_size=bs, max_slots=B,
                       max_blocks_per_seq=4)
     jpages = JM.init_paged_cache(jcfg, nblocks, bs, jnp.float32)
-    tpages = TM.init_paged_cache(tcfg, nblocks, bs, torch.float32)
+    tpages = TM.init_paged_cache(tcfg, nblocks, bs, torch.float32, "cpu")
     for s in range(B):
         kv.open_slot(s)
     for i in range(0, S, chunk):
@@ -62,7 +62,7 @@ def test_paged_cache_layout_matches_jax():
     jcfg, tcfg = configs("qwen2-7b", num_kv_heads=2)
     for jdt, tdt in [(jnp.bfloat16, torch.bfloat16), (jnp.int8, torch.int8)]:
         jc = JM.init_paged_cache(jcfg, 8, 16, jdt)
-        tc = TM.init_paged_cache(tcfg, 8, 16, tdt)
+        tc = TM.init_paged_cache(tcfg, 8, 16, tdt, "cpu")
         jl = {k: v for k, v in jc["g0"]["s0_attn"].items()}
         tl = tc["g0"]["s0_attn"]
         assert set(jl) == set(tl)

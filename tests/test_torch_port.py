@@ -109,6 +109,16 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main([])
+    from repro_torch.models import model as TM
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_paged_cache(tcfg, 4, 4)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main([])
+    from repro_torch.train.trainer import TrainerConfig
+    from repro_torch.train.trainer import train as run_train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_train(tcfg, TrainerConfig(steps=1))
 
 
 def test_engine_refuses_params_on_another_device():
@@ -170,7 +180,17 @@ def test_kernel_build_helpers(monkeypatch, tmp_path):
     lib = build._lib_path("flash_decode")
     assert lib.parent == build.BUILD_DIR and lib.name.startswith(
         "flash_decode-")
-    assert {p.stem for p in build.CSRC.glob("*.cu")} == {"flash_decode"}
+    assert {p.stem for p in build.CSRC.glob("*.cu")} == {
+        "flash_decode", "flash_attn_fwd", "flash_attn_bwd"}
+    header = build.CSRC / "flash_attn.cuh"
+    assert header.is_file()
+    # the shared header is part of every library's name
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    for name in ("flash_attn_fwd.cu", "flash_attn.cuh"):
+        (tmp_path / name).write_text("// a")
+    before = build._lib_path("flash_attn_fwd")
+    (tmp_path / "flash_attn.cuh").write_text("// b")
+    assert build._lib_path("flash_attn_fwd") != before
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     import torch.utils.cpp_extension as ext
