@@ -28,7 +28,22 @@ Phases (any failure exits nonzero):
    the kernels for 8 steps, check the losses and that every attention
    layer of every step launched each kernel once, compare one step's loss
    and gradient norm between the kernels and the plain chunked path (bf16
-   and fp32 compute), and profile one step.
+   and fp32 compute), and profile one step;
+5. hold the int8 quantize/dequantize kernels against their plain
+   versions (codes, scales and values equal) on the JAX package's quant8
+   cases, ragged tails, an all-zero block, bf16 input and opt-1.3b's
+   largest leaf, and time kernel, plain version, ``torch.mul`` and the
+   bound there;
+6. train opt-1.3b at full width through
+   ``repro_torch.train.local_sgd.train_local_sgd``: 2 replicas x 4 inner
+   steps of 2 x 2048 tokens, 2 rounds, int8-compressed pseudo-gradients
+   with error feedback, sync priced over examples/diloco_edge.py's
+   two-region topology; check the losses, the launches of every kernel
+   and the wire bytes, and the compressed round-1 pseudo-gradient against
+   the plain version;
+7. at opt-1.3b width and 2 layers, check that async with quorum =
+   replicas and staleness 0 equals sync, and that a run checkpointed
+   every round restores and resumes from exactly what it saved.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``; before that a
@@ -695,6 +710,321 @@ def phase_train(torch, np, device):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 5: quant8 kernels vs plain
+# --------------------------------------------------------------------------- #
+
+# (N, block): the JAX package's cases (tests/test_kernels.py), a row count
+# its 256-row TPU tile does not divide, ragged tails, and opt-1.3b's
+# largest leaf (s1_mlp/wi, 24 x 2048 x 8192)
+QUANT_CASES = [(65536, 256), (512 * 512, 512), (1 << 16, 128),
+               (304 * 256, 256), (100 * 777, 256), (3 * 5 * 7, 256),
+               (1000, 128)]
+QUANT_SHAPES = [(100, 777), (3, 5, 7)]
+LARGEST_LEAF = 24 * 2048 * 8192
+
+
+def quant_plain(torch, x, block):
+    """The plain version of quantize_blocks on the same device: the
+    padded tail, then ``quantize_reference``."""
+    from repro_torch.kernels.quant8.ref import quantize_reference
+    n = x.shape[0]
+    pad = -(-n // block) * block - n
+    return quantize_reference(torch.nn.functional.pad(x, (0, pad)), block)
+
+
+def quant_check(torch, x, block, dtype):
+    """Kernel vs plain on x: codes, scales and dequantized values must be
+    equal; returns the largest difference seen (0 when they are)."""
+    from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
+                                                   quantize_blocks)
+    from repro_torch.kernels.quant8.ref import dequantize_reference
+    q, s = quantize_blocks(x, block=block)
+    out = dequantize_blocks(q, s, block=block, dtype=dtype)
+    torch.cuda.synchronize()
+    rq, rs = quant_plain(torch, x, block)
+    ro = dequantize_reference(rq, rs, block, dtype)
+    err = max(float((q.int() - rq.int()).abs().max()),
+              float((s - rs).abs().max()),
+              float((out.float() - ro.float()).abs().max()))
+    if not (torch.equal(q, rq) and torch.equal(s, rs)
+            and torch.equal(out, ro)):
+        fail(f"quant8 kernels differ from their plain versions (N="
+             f"{x.shape[0]}, block {block}, {x.dtype}): {err}")
+    return err
+
+
+def phase_quant8(torch, device, timer):
+    from repro_torch.kernels.quant8 import ops
+    from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
+                                                   quantize_blocks)
+    from repro_torch.kernels.quant8.ref import dequantize_reference
+    g = torch.Generator(device=device).manual_seed(5)
+    worst = 0.0
+    for n, block in QUANT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(n, generator=g, device=device) * 3).to(dtype)
+            x[:min(n, block)] = 0                   # an all-zero block
+            worst = max(worst, quant_check(torch, x, block, dtype))
+        log(f"quant8 N={n} block {block} fp32 and bf16: codes, scales and "
+            f"values equal to the plain version")
+    for shape in QUANT_SHAPES:
+        x = torch.randn(shape, generator=g, device=device) * 2
+        q, s, sh = ops.quantize(x)
+        rq, rs = quant_plain(torch, x.reshape(-1), 256)
+        out = ops.dequantize(q, s, sh)
+        ref = dequantize_reference(rq, rs)[:x.numel()].reshape(shape)
+        if not (torch.equal(q, rq) and torch.equal(s, rs)
+                and torch.equal(out, ref)):
+            fail(f"quantize/dequantize of {shape} differ from the plain "
+                 "version")
+        log(f"quant8 any-shape {shape}: equal to the plain version")
+
+    # opt-1.3b's largest leaf, fp32 as the pseudo-gradient path gives it
+    n, block = LARGEST_LEAF, 256
+    rows = n // block
+    x = torch.randn(n, generator=g, device=device) * 1e-3
+    worst = max(worst, quant_check(torch, x, block, torch.float32))
+    q, s = quantize_blocks(x)
+    timing = {}
+    ms = timer.ms(lambda: quantize_blocks(x))
+    spread = timer.spread
+    plain_ms = timer.ms(lambda: quant_plain(torch, x, block))
+    nbytes = n * 4 + rows * block + rows * 4
+    timing["quantize"] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None,
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                          "bound_by": "bytes"}
+    log(f"timing quantize at the largest leaf (N={n}, block {block}, fp32): "
+        f"kernel_ms {ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}) "
+        f"plain_ms {plain_ms:.4f} library_ms none (no single PyTorch call "
+        f"computes it) bound_ms {timing['quantize']['bound_ms']:.4f} "
+        f"({nbytes / 1e9:.3f} GB, bound by bytes); "
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved")
+    ms = timer.ms(lambda: dequantize_blocks(q, s))
+    spread = timer.spread
+    plain_ms = timer.ms(lambda: dequantize_reference(q, s))
+    library_ms = timer.ms(lambda: torch.mul(q.view(rows, block), s[:, None]))
+    nbytes = rows * block + rows * 4 + rows * block * 4
+    timing["dequantize"] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms,
+                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                            "bound_by": "bytes"}
+    log(f"timing dequantize at the largest leaf: kernel_ms {ms:.4f} (min "
+        f"{spread[0]:.4f} max {spread[1]:.4f}) plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} (torch.mul(q.view(rows, block), "
+        f"s[:, None])) bound_ms {timing['dequantize']['bound_ms']:.4f} "
+        f"({nbytes / 1e9:.3f} GB, bound by bytes); "
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved")
+    log(f"quant8 kernels held against their plain versions: worst "
+        f"difference {worst:.3e}")
+    return worst, timing
+
+
+# --------------------------------------------------------------------------- #
+# Phase 6: local SGD at full width
+# --------------------------------------------------------------------------- #
+
+def edge_topology():
+    """examples/diloco_edge.py's fleet: two edge laptops in two regions
+    over a 4 MB/s wide-area link."""
+    from repro_torch.core.energy.devices import LAPTOP_M2PRO
+    from repro_torch.core.net import NetParams, Topology
+    return Topology.from_specs([LAPTOP_M2PRO] * 2,
+                               regions=["europe", "north_america"],
+                               params=NetParams(wan_bw_Bps=4e6))
+
+
+def compress_check(torch, cfg, tc, ls, opt_cfg, device):
+    """Replica 0's round-1 pseudo-gradient, recomputed from the same seed,
+    through compress_leaf (the kernels) and through the plain versions on
+    the card: sent values and new errors must be equal leaf for leaf."""
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.quant8.ref import dequantize_reference
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import compress_leaf
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import _to_device
+    glob = init_params(cfg, device=device, seed=tc.seed)
+    work = tree_map(lambda t: t.clone(), glob)
+    step = make_train_step(cfg, opt_cfg, attn_impl="kernel")
+    opt = adamw.init_opt_state(work, opt_cfg)
+    data = make_batch_fn(cfg, tc.batch, tc.seq_len, tc.seed)
+    for _ in range(ls.inner_steps):
+        work, opt, _ = step(work, opt, _to_device(next(data), device))
+    del opt
+    worst, n = 0.0, 0
+    with torch.no_grad():
+        for gl, wl in zip(tree_leaves(glob), tree_leaves(work)):
+            d = gl.float() - wl.float()
+            sent, err = compress_leaf(d, None, ls.compress)
+            rq, rs = quant_plain(torch, d.reshape(-1), 256)
+            ref = dequantize_reference(rq, rs)[:d.numel()].reshape(d.shape)
+            worst = max(worst, float((sent - ref).abs().max()),
+                        float((err - (d - ref)).abs().max()))
+            if not (torch.equal(sent, ref) and torch.equal(err, d - ref)):
+                fail("compress_grads through the kernels differs from the "
+                     "plain version on the real pseudo-gradient")
+            n += 1
+    log(f"round-1 pseudo-gradient of replica 0 ({n} leaves): int8 sent "
+        f"values and new errors through the kernels equal the plain "
+        f"version (worst difference {worst:.3e})")
+    return worst
+
+
+def phase_local_sgd(torch, np, device):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
+                                                   quantize_blocks)
+    from repro_torch.bridge import flatten
+    from repro_torch.models.params import model_spec
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import CompressConfig
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = get_config("opt-1.3b")
+    R, K, rounds, Bt, St = 2, 4, 2, 2, 2048
+    tc = TrainerConfig(steps=K * rounds, batch=Bt, seq_len=St,
+                       attn_impl="kernel", log_every=K, seed=0)
+    ls = LocalSGDConfig(replicas=R, inner_steps=K, outer_lr=0.7,
+                        outer_momentum=0.9,
+                        compress=CompressConfig(method="int8"))
+    opt_cfg = adamw.OptConfig(learning_rate=3e-3, warmup_steps=5,
+                              decay_steps=tc.steps)
+    sizes = [int(np.prod(s.shape)) for _, s in flatten(model_spec(cfg))]
+    wire = sum(n + 4 * (n // 256 + 1) for n in sizes)
+    log(f"local SGD, opt-1.3b full width: {len(sizes)} leaves, "
+        f"{sum(sizes):,} params; R={R} replicas x K={K} inner steps of "
+        f"{Bt} x {St} tokens, {rounds} rounds; int8 sync with error "
+        f"feedback, Nesterov outer step (lr 0.7, momentum 0.9), "
+        f"hierarchical allreduce over two regions at 4 MB/s WAN")
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv, quantize_blocks,
+               dequantize_blocks)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = train_local_sgd(cfg, tc, ls, opt_cfg, topology=edge_topology(),
+                          sync_algorithm="hierarchical", device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    per_round = {k: 1e3 * v / rounds for k, v in res.phase_s.items()}
+    round_ms = 1e3 * R * K / res.steps_per_s
+    log(f"local SGD: replica-0 losses {[round(x, 4) for x in res.losses]}; "
+        f"round losses {[round(x, 4) for x in res.round_losses]}")
+    log(f"local SGD: {round_ms:.1f} ms a round on the host clock "
+        f"({wall:.1f} s for the whole call, set-up included); device time "
+        f"a round: inner steps {per_round.get('inner', 0):.1f} ms, "
+        f"pseudo-gradient + int8 compression "
+        f"{per_round.get('pseudograd', 0):.1f} ms, outer update "
+        f"{per_round.get('outer', 0):.1f} ms; "
+        f"{res.steps_per_s * Bt * St:.0f} tokens/s over the rounds; "
+        f"modelled "
+        f"hierarchical sync {res.comm_time_s_per_round:.3f} s a round "
+        f"({res.sync_wire_bytes_per_round:,} wire bytes per replica, "
+        f"{res.sync_wan_bytes_per_round / 1e9:.3f} GB over the WAN); "
+        f"peak memory {peak / 1e9:.2f} GB")
+    n_q = len(sizes) * R * rounds
+    n_fa = cfg.num_layers * R * K * rounds
+    log(f"launches {launches}; expected quant8 {len(sizes)} x {R} x "
+        f"{rounds} = {n_q} each, FA-2 {cfg.num_layers} x {R} x {K} x "
+        f"{rounds} = {n_fa} each")
+    if len(res.losses) != K * rounds or not all(
+            np.isfinite(res.losses + res.round_losses)):
+        fail(f"non-finite or missing losses: {res.losses} "
+             f"{res.round_losses}")
+    if any(launches[f.__name__] != n_q for f in kernels[3:]) or any(
+            launches[f.__name__] != n_fa for f in kernels[:3]):
+        fail(f"launches {launches} are not {n_q} (quant8) and {n_fa} "
+             "(FA-2) each")
+    if res.sync_wire_bytes_per_round != wire:
+        fail(f"sync wire bytes {res.sync_wire_bytes_per_round} != {wire}")
+    del res
+    torch.cuda.empty_cache()
+    worst = compress_check(torch, cfg, tc, ls, opt_cfg, device)
+    torch.cuda.empty_cache()
+    return launches, worst
+
+
+# --------------------------------------------------------------------------- #
+# Phase 7: async = sync, and checkpoint resume, at reduced depth
+# --------------------------------------------------------------------------- #
+
+def phase_local_sgd_reduced(torch, np, device):
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.compress import CompressConfig
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    from repro_torch.train.trainer import TrainerConfig, _to_device
+
+    full = get_config("opt-1.3b")
+    cfg = dataclasses.replace(full, name=full.name + "-L2", num_layers=2)
+    tc = TrainerConfig(steps=4, batch=2, seq_len=2048, attn_impl="kernel",
+                       log_every=0, seed=1)
+    ls = LocalSGDConfig(replicas=2, inner_steps=2,
+                        compress=CompressConfig(method="int8"))
+    sync = train_local_sgd(cfg, tc, ls, device=device)
+    asyn = train_local_sgd(cfg, tc, dataclasses.replace(ls, async_mode=True),
+                           device=device)
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(sync.outer_state), tree_leaves(asyn.outer_state)))
+    log(f"opt-1.3b width at 2 layers: sync round losses "
+        f"{sync.round_losses}, async (Q=R, S=0) {asyn.round_losses}; "
+        f"losses identical {asyn.losses == sync.losses}, final outer "
+        f"state identical {same_state}")
+    if not (asyn.losses == sync.losses
+            and asyn.round_losses == sync.round_losses and same_state):
+        fail("async with Q=R, S=0 differs from sync on the card")
+    del asyn
+
+    with tempfile.TemporaryDirectory() as d:
+        first = train_local_sgd(cfg, tc, dataclasses.replace(
+            ls, checkpoint_dir=d, checkpoint_every_rounds=1), device=device)
+        saved = first.outer_state
+        got = ckpt.restore(d, saved)
+        exact = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(got), tree_leaves(saved)))
+        m_abs = max(float(x.abs().max()) for x in tree_leaves(
+            saved["outer_m"]))
+        resumed = train_local_sgd(
+            cfg, dataclasses.replace(tc, steps=2),
+            dataclasses.replace(ls, checkpoint_dir=d,
+                                checkpoint_every_rounds=1, resume=True),
+            device=device)
+        # the resumed run's first step starts from the restored params
+        batch = _to_device(next(make_batch_fn(cfg, tc.batch, tc.seq_len,
+                                              tc.seed)), device)
+        with torch.no_grad():
+            loss0, _ = M.forward_train(saved["params"], cfg, batch,
+                                       attn_impl="kernel")
+        loss0 = float(loss0)
+        latest = ckpt.latest_complete_step(d)
+    log(f"checkpoint resume: restored params and outer momentum equal to "
+        f"the saved ones bit for bit {exact} (largest |momentum| "
+        f"{m_abs:.3e}); resumed from round {resumed.resumed_from_round}, "
+        f"newest complete step {latest}; resumed first loss "
+        f"{resumed.losses[0]:.6f} vs the saved params' loss {loss0:.6f}")
+    if not (exact and m_abs > 0 and resumed.resumed_from_round == 2
+            and latest == 3):
+        fail("checkpoint round trip or resume failed")
+    if abs(resumed.losses[0] - loss0) > 1e-6 * abs(loss0):
+        fail(f"the resumed run did not start from the saved params: "
+             f"{resumed.losses[0]} vs {loss0}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -733,9 +1063,13 @@ def main() -> int:
     launches = phase_engine(torch, np, device)
     torch.cuda.empty_cache()
     fa_worst, fa_timing = phase_fa(torch, device, timer)
+    q_worst, q_timing = phase_quant8(torch, device, timer)
     del timer
     torch.cuda.empty_cache()
     fa_launches = phase_train(torch, np, device)
+    torch.cuda.empty_cache()
+    ls_launches, c_worst = phase_local_sgd(torch, np, device)
+    phase_local_sgd_reduced(torch, np, device)
 
     fa = "src/repro/kernels/flash_attention/kernel.py"
     rows = [{"name": "flash_decode_paged", "route": "cuda",
@@ -751,6 +1085,14 @@ def main() -> int:
                      "replaces": f"{fa}:{line}",
                      "launches": fa_launches[name],
                      "max_abs_err": fa_worst[kern], **fa_timing[kern]})
+    for name, kern, line in (("quantize_blocks", "quantize", 21),
+                             ("dequantize_blocks", "dequantize", 30)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/quant8.cu",
+                     "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
+                     "launches": ls_launches[name],
+                     "max_abs_err": max(q_worst, c_worst),
+                     **q_timing[kern]})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,2 +1,2 @@
-"""Host-side models of energy, carbon, FLOPs and faults (copies of the
-parts of ``repro.core`` the serving engine calls)."""
+"""Host-side models of energy, carbon, FLOPs, faults and the wide-area
+network (copies of the parts of ``repro.core`` the port calls)."""

@@ -104,6 +104,8 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def c_args(kinds: str) -> List[type]:
-    """ctypes argtypes from short codes: p pointer, i int, f float."""
-    table = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    """ctypes argtypes from short codes: p pointer, i int, l 64-bit int,
+    f float."""
+    table = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "l": ctypes.c_longlong, "f": ctypes.c_float}
     return [table[k] for k in kinds]

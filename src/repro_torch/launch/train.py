@@ -8,6 +8,18 @@ widths.  Attention goes through the FA-2 CUDA kernels unless
 prints the final loss, steps/s, tokens/s and the modelled energy and
 carbon of the run on ``--device``'s energy profile.
 
+``--local-sgd`` switches to the DiLoCo local-update loop
+(``repro_torch.train.local_sgd``, ``--replicas`` x ``--inner-steps``);
+``--async`` upgrades it to bounded-staleness async outer updates
+(``--quorum`` / ``--staleness-bound``), and ``--straggler-frac`` /
+``--crash-prob`` / ``--link-flap-prob`` inject a deterministic,
+seed-replayable fault plan (``--fault-seed``).  ``--checkpoint-dir`` with
+``--checkpoint-every`` (steps, or rounds under ``--local-sgd``) saves
+checkpoints in the JAX package's format; ``--resume`` restores the newest
+complete one first.  ``--health-out``, ``--slo``, ``--mesh`` and
+``--host-devices`` wait for the ports of ``obs/health.py``, ``obs/slo.py``
+and the multi-device paths, and raise.
+
 Telemetry: ``--trace-out trace.json`` writes a Chrome-trace / Perfetto
 timeline of the step phases (data / fwd_bwd_opt / metrics drain);
 ``--metrics-out metrics.jsonl`` writes the metrics registry (per-phase
@@ -17,6 +29,9 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch opt-1.3b \\
         --full --batch 4 --seq 2048 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
+        --local-sgd --replicas 2 --inner-steps 2 --steps 8 --batch 2 \\
+        --seq 32
 """
 
 from __future__ import annotations
@@ -49,7 +64,50 @@ def main(argv=None) -> None:
                     help="write a Chrome-trace/Perfetto JSON timeline")
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics registry as JSONL")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="steps (rounds with --local-sgd) between saves")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest complete checkpoint in "
+                         "--checkpoint-dir before training")
+    ap.add_argument("--local-sgd", action="store_true",
+                    help="run the DiLoCo local-update loop instead of "
+                         "the plain trainer")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="local-SGD replica count")
+    ap.add_argument("--inner-steps", type=int, default=8,
+                    help="local-SGD inner steps per sync round (K)")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="bounded-staleness async outer updates instead "
+                         "of the barrier sync round (implies --local-sgd)")
+    ap.add_argument("--quorum", type=int, default=0,
+                    help="async: replicas required before an outer "
+                         "update fires (0 = all replicas)")
+    ap.add_argument("--staleness-bound", type=int, default=0,
+                    help="async: drop + resync replicas more than S "
+                         "outer versions stale (0 = lockstep)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed the deterministic fault-injection plan")
+    ap.add_argument("--straggler-frac", type=float, default=0.0,
+                    help="fraction of replicas slowed 4-8x by the plan")
+    ap.add_argument("--crash-prob", type=float, default=0.0,
+                    help="per-round crash probability per replica")
+    ap.add_argument("--link-flap-prob", type=float, default=0.0,
+                    help="per-round link flap probability per replica")
+    for flag in ("--health-out", "--slo", "--mesh"):
+        ap.add_argument(flag, default=None, help="not ported yet: raises")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="not ported yet: raises")
     args = ap.parse_args(argv)
+    waiting = {"health_out": "obs/health.py", "slo": "obs/slo.py",
+               "mesh": "the multi-device paths",
+               "host_devices": "the multi-device paths"}
+    for name, what in waiting.items():
+        if getattr(args, name):
+            raise NotImplementedError(f"--{name.replace('_', '-')} waits "
+                                      f"for the port of {what}")
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume needs --checkpoint-dir")
 
     import torch
 
@@ -74,19 +132,55 @@ def main(argv=None) -> None:
                           process=f"train:{cfg.name}"))
     monitor = EnergyMonitor(ComponentModel.for_device(
         get_device(args.device)))
+    local = args.local_sgd or args.async_mode
     tc = TrainerConfig(steps=args.steps, batch=args.batch, seq_len=args.seq,
                        microbatches=args.microbatches, remat=args.remat,
-                       attn_impl=args.attn_impl)
-    res = train(cfg, tc, monitor=monitor, metrics=registry, device=dev)
+                       attn_impl=args.attn_impl,
+                       checkpoint_dir=None if local else args.checkpoint_dir,
+                       checkpoint_every=0 if local else args.checkpoint_every,
+                       resume=args.resume and not local)
+    if local:
+        from repro_torch.core.faultinject import FaultPlan
+        from repro_torch.train.local_sgd import (LocalSGDConfig,
+                                                 train_local_sgd)
+        fault_plan = None
+        if args.straggler_frac or args.crash_prob or args.link_flap_prob:
+            fault_plan = FaultPlan(seed=args.fault_seed,
+                                   straggler_frac=args.straggler_frac,
+                                   crash_prob=args.crash_prob,
+                                   link_flap_prob=args.link_flap_prob)
+        ls = LocalSGDConfig(replicas=args.replicas,
+                            inner_steps=args.inner_steps,
+                            checkpoint_dir=args.checkpoint_dir,
+                            checkpoint_every_rounds=args.checkpoint_every,
+                            resume=args.resume, async_mode=args.async_mode,
+                            quorum=args.quorum or None,
+                            staleness_bound=args.staleness_bound)
+        res = train_local_sgd(
+            cfg, tc, ls, monitor=None if args.async_mode else monitor,
+            metrics=registry, fault_plan=fault_plan, device=dev)
+        tokens_s = res.steps_per_s * args.batch * args.seq
+    else:
+        res = train(cfg, tc, monitor=monitor, metrics=registry, device=dev)
+        tokens_s = res.steady_steps_per_s * args.batch * args.seq
 
     led = CarbonLedger()
     led.add_operational_wh("train", res.energy_wh)
     print(f"[train] final loss {res.final_loss:.4f}  "
           f"{res.steps_per_s:.2f} steps/s "
-          f"({res.steady_steps_per_s * args.batch * args.seq:.0f} "
-          f"tokens/s after the first step)  "
+          f"({tokens_s:.0f} tokens/s"
+          f"{'' if local else ' after the first step'})  "
           f"{res.energy_wh:.3f} Wh modelled  "
           f"{led.operational_kg*1000:.3f} gCO2e")
+    if getattr(res, "mode", "") == "async":
+        print(f"[train] async: {res.outer_updates} outer updates, "
+              f"{res.dropped_stale} dropped stale, {res.resyncs} resyncs, "
+              f"{res.crashes} crashes, "
+              f"{res.virtual_tokens_per_s:.0f} virtual tok/s")
+        if res.fault_counts:
+            faults = " ".join(f"{k}={v}"
+                              for k, v in sorted(res.fault_counts.items()))
+            print(f"[train] faults: {faults}")
     if args.trace_out:
         get_tracer().save_chrome_trace(args.trace_out)
         print(f"[train] trace: {args.trace_out} "
@@ -94,6 +188,7 @@ def main(argv=None) -> None:
     if args.metrics_out:
         registry.dump_jsonl(args.metrics_out,
                             meta={"arch": cfg.name, "steps": args.steps,
+                                  "local_sgd": local,
                                   "attn_impl": args.attn_impl,
                                   "torch_device": str(dev)})
         print(f"[train] metrics: {args.metrics_out} "

@@ -50,6 +50,21 @@ def tree_leaves(tree: PyTree) -> List[Any]:
     return [tree]
 
 
+def tree_unflatten(like: PyTree, leaves: List[Any]) -> PyTree:
+    """A tree shaped like ``like`` holding ``leaves``, given in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node: PyTree) -> PyTree:
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+    out = build(like)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Sub-layer specs
 # --------------------------------------------------------------------------- #

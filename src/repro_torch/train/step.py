@@ -17,6 +17,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import adamw
+from repro_torch.optim.compress import CompressConfig, compress_grads
 
 PyTree = Any
 
@@ -41,16 +42,15 @@ def _trainable(params: PyTree) -> List[torch.Tensor]:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, *,
-                    remat: str = "none", compress: Optional[Any] = None,
+                    remat: str = "none",
+                    compress: Optional[CompressConfig] = None,
                     attn_impl: str = "kernel",
                     microbatches: int = 1) -> Callable:
     """Gradient accumulation over ``microbatches``: activation memory
     scales with B/microbatches while the optimizer update stays per global
     batch; the per-microbatch gradients are summed in fp32.  ``compress``
-    (the compressed pseudo-gradient hook) is not ported yet."""
-    if compress is not None and getattr(compress, "method", "none") != "none":
-        raise NotImplementedError("gradient compression comes with the "
-                                  "local-SGD slice (slice 3)")
+    passes the gradients through that compressor, without error state,
+    before the update."""
 
     def loss_and_grads(leaves, params, batch):
         loss, metrics = M.forward_train(params, cfg, batch, remat=remat,
@@ -79,6 +79,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, *,
             metrics: Dict[str, torch.Tensor] = {}
         else:
             loss, metrics, grads = loss_and_grads(leaves, params, batch)
+        if compress is not None and compress.method != "none":
+            grads, _ = compress_grads(grads, None, compress)
         params, opt_state, opt_metrics = adamw.apply_updates(
             params, grads, opt_state, opt_cfg)
         metrics = dict(metrics, loss=loss, **opt_metrics)

@@ -13,8 +13,10 @@ The hot loop never waits for the card unless asked to:
   data generation and transfer overlap the card's compute.
 
 Passing an ``EnergyMonitor`` opts back into one sync per step: energy
-accounting needs each step's true wall-clock time.  Checkpointing and
-resume come with slice 3 of the port and raise here.
+accounting needs each step's true wall-clock time.  ``checkpoint_dir`` /
+``checkpoint_every`` save ``{"params", "opt"}`` in the JAX package's
+leaf-modulo layout (``repro_torch.checkpoint``), and ``resume`` restores
+the newest complete checkpoint, written by either package, first.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import flops as F
 from repro_torch.core.energy.monitor import EnergyMonitor
 from repro_torch.data.pipeline import make_batch_fn
@@ -49,9 +52,9 @@ class TrainerConfig:
     log_every: int = 10
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
-    checkpoint_placement: Any = None
+    checkpoint_placement: Any = None   # layer-sliced saves: not ported yet
     checkpoint_replication: int = 0
-    resume: bool = False
+    resume: bool = False        # restore the newest complete checkpoint
     remat: str = "none"         # "none" | "full" | "dots" | "dots_no_batch"
     attn_impl: str = "kernel"   # "naive" | "chunked" | "kernel"
     microbatches: int = 1
@@ -70,7 +73,7 @@ class TrainerResult:
     compile_time_s: float = 0.0         # first-step time (kernel builds)
     energy_wh: float = 0.0
     final_loss: float = float("nan")
-    resumed_from_step: int = 0          # 0: no resume in this slice
+    resumed_from_step: int = 0          # 0 when starting fresh
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -98,9 +101,9 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
     they are drawn with ``init_params(seed=tc.seed)``.  ``metrics`` opts
     into loss / grad-norm histograms, batched in a
     :class:`DeviceAccumulator` and drained at the log-window syncs."""
-    if tc.checkpoint_dir or tc.checkpoint_every or tc.resume:
-        raise NotImplementedError("checkpointing and resume come with "
-                                  "slice 3 of the port")
+    if tc.checkpoint_placement is not None:
+        raise NotImplementedError("layer-sliced checkpoints by placement "
+                                  "wait for the port of core/placement")
     dev = resolve_device(device)
     opt_cfg = opt_cfg or adamw.OptConfig(
         learning_rate=3e-4, warmup_steps=max(10, tc.steps // 20),
@@ -110,6 +113,20 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
     elif any(p.device != dev for p in PM.tree_leaves(params)):
         raise ValueError(f"params must live on {dev}")
     opt_state = adamw.init_opt_state(params, opt_cfg)
+    start_step = 0
+    if tc.resume and tc.checkpoint_dir:
+        found = ckpt.latest_complete_step(tc.checkpoint_dir)
+        if found is not None:
+            live = {"params": params, "opt": opt_state}
+            saved = ckpt.restore(tc.checkpoint_dir, live, step=found)
+            with torch.no_grad():       # into the caller's tensors
+                for dst, src in zip(PM.tree_leaves(live),
+                                    PM.tree_leaves(saved)):
+                    dst.copy_(src)
+            del saved
+            start_step = found
+            print(f"[trainer] resumed from step {found} "
+                  f"({tc.checkpoint_dir})")
     step_fn = make_train_step(cfg, opt_cfg, remat=tc.remat,
                               attn_impl=tc.attn_impl,
                               microbatches=tc.microbatches)
@@ -134,7 +151,8 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
     t0 = time.perf_counter()
     t_prev = t0
     for step in range(tc.steps):
-        with tr.span("step", "train", metric="train/step_s", step=step):
+        with tr.span("step", "train", metric="train/step_s",
+                     step=start_step + step):
             if not tc.prefetch:
                 with tr.span("data", "train", metric="train/data_s"):
                     batch = _to_device(next(data), dev)
@@ -183,6 +201,14 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
                 print(f"step {step:5d}  loss {host['loss']:.4f}  "
                       f"gnorm {host['grad_norm']:.3f}  "
                       f"lr {host['lr']:.2e}")
+            if tc.checkpoint_every and tc.checkpoint_dir \
+                    and (step + 1) % tc.checkpoint_every == 0:
+                with tr.span("checkpoint", "train",
+                             metric="train/checkpoint_s",
+                             step=start_step + step + 1):
+                    ckpt.save(tc.checkpoint_dir, start_step + step + 1,
+                              {"params": params, "opt": opt_state})
+                    ckpt.prune(tc.checkpoint_dir)
     if pending:
         with tr.span("metrics_drain", "train"):
             result.losses.extend(m["loss"] for m in fetch(pending))
@@ -201,6 +227,7 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
     else:
         result.steady_steps_per_s = result.steps_per_s
     result.final_loss = result.losses[-1]
+    result.resumed_from_step = start_step
     if monitor is not None:
         result.energy_wh = monitor.total_wh
     return result

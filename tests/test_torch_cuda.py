@@ -1,8 +1,9 @@
-"""The port on the card: the CUDA flash-decode and FA-2 kernels against
-their plain PyTorch versions, the engine through the kernel against the
-engine through the plain gather path, and a train step through the FA-2
-kernels against one through the chunked path.  Every test here skips
-without CUDA.
+"""The port on the card: the CUDA flash-decode, FA-2 and quant8 kernels
+against their plain PyTorch versions, the engine through the kernel
+against the engine through the plain gather path, a train step through
+the FA-2 kernels against one through the chunked path, and local SGD with
+int8-compressed sync through the kernels.  Every test here skips without
+CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -20,6 +21,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
     flash_decode_paged, paged_attention_reference)
+from repro_torch.kernels.quant8 import kernel as QK  # noqa: E402
+from repro_torch.kernels.quant8 import ref as QR  # noqa: E402
 from repro_torch.kernels.quant8.ops import quantize_kv  # noqa: E402
 from repro_torch.models.params import init_params, tree_leaves  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
@@ -58,6 +61,22 @@ FA_CASES = [
 ]
 FA_IDS = ["gqa2", "mha-d128", "gqa4-window", "noncausal-200", "d96-s130",
           "cross-t230-d32"]
+
+
+# (N, block): the JAX package's quant8 cases (tests/test_kernels.py), then
+# row counts its 256-row TPU tile does not divide (304 rows) and ragged
+# tails (N not a multiple of block)
+QUANT_CASES = [(65536, 256), (512 * 512, 512), (1 << 16, 128),
+               (304 * 256, 256), (100 * 777, 256), (3 * 5 * 7, 256),
+               (1000, 128)]
+QUANT_IDS = ["n64k-b256", "n256k-b512", "n64k-b128", "rows304",
+             "ragged-100x777", "ragged-105", "ragged-1000-b128"]
+SHAPES = [(100, 777), (3, 5, 7), (65536,)]
+
+
+def quant_input(n, seed=4):
+    """numpy fp32 (n,) with the JAX cases' spread (normal x 3)."""
+    return np.random.RandomState(seed).randn(n).astype(np.float32) * 3
 
 
 def fa_inputs(case, seed=0):
@@ -196,3 +215,55 @@ def test_cuda_train_step_kernel_matches_chunked(cuda):
     assert abs(out["kernel"][0] - out["chunked"][0]) < 1e-4
     for a, b in zip(out["kernel"][1], out["chunked"][1]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,block", QUANT_CASES, ids=QUANT_IDS)
+def test_cuda_quant8_kernels_equal_plain_versions(n, block, dtype, cuda):
+    x = torch.from_numpy(quant_input(n)).to(cuda, dtype)
+    x[: min(n, block)] = 0                  # an all-zero block
+    before = (QK.quantize_blocks.launches, QK.dequantize_blocks.launches)
+    q, s = QK.quantize_blocks(x, block=block)
+    out = QK.dequantize_blocks(q, s, block=block, dtype=dtype)
+    torch.cuda.synchronize()
+    assert (QK.quantize_blocks.launches,
+            QK.dequantize_blocks.launches) == (before[0] + 1, before[1] + 1)
+    rows = -(-n // block)
+    xp = torch.nn.functional.pad(x, (0, rows * block - n))
+    rq, rs = QR.quantize_reference(xp, block)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert float(s[0]) == 1.0
+    assert torch.equal(out, QR.dequantize_reference(rq, rs, block, dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_quant8_refuses_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError, match="block"):
+        QK.quantize_blocks(torch.zeros(384, device=cuda), block=384)
+    with pytest.raises(ValueError, match="dtype"):
+        QK.quantize_blocks(torch.zeros(256, device=cuda,
+                                       dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        QK.quantize_blocks(torch.zeros(512, device=cuda)[::2])
+
+
+@pytest.mark.cuda
+def test_cuda_local_sgd_int8_runs_the_kernels_and_async_equals_sync(cuda):
+    from repro_torch.optim.compress import CompressConfig
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    from repro_torch.train.trainer import TrainerConfig
+    cfg = dataclasses.replace(get_config("opt-125m-smoke"),
+                              param_dtype="float32", compute_dtype="float32")
+    tc = TrainerConfig(steps=4, batch=2, seq_len=64, log_every=0)
+    ls = LocalSGDConfig(replicas=2, inner_steps=2,
+                        compress=CompressConfig(method="int8"))
+    before = QK.quantize_blocks.launches
+    sync = train_local_sgd(cfg, tc, ls, device=cuda)
+    leaves = len(tree_leaves(init_params(cfg, device="cpu", seed=0)))
+    assert QK.quantize_blocks.launches - before == leaves * 2 * 2
+    asyn = train_local_sgd(cfg, tc, dataclasses.replace(ls, async_mode=True),
+                           device=cuda)
+    assert all(np.isfinite(sync.losses))
+    assert asyn.losses == sync.losses
+    assert asyn.round_losses == sync.round_losses

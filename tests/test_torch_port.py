@@ -119,6 +119,14 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
     from repro_torch.train.trainer import train as run_train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_train(tcfg, TrainerConfig(steps=1))
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    for mode in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_local_sgd(tcfg, TrainerConfig(steps=1),
+                            LocalSGDConfig(replicas=2, inner_steps=1,
+                                           async_mode=mode))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--local-sgd"])
 
 
 def test_engine_refuses_params_on_another_device():
@@ -177,11 +185,14 @@ def test_sampler_greedy_and_topk():
 
 def test_kernel_build_helpers(monkeypatch, tmp_path):
     assert len(build.c_args("p" * 10 + "i" * 12 + "f" + "i" + "p")) == 25
+    import ctypes
+    assert build.c_args("lip") == [ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_void_p]
     lib = build._lib_path("flash_decode")
     assert lib.parent == build.BUILD_DIR and lib.name.startswith(
         "flash_decode-")
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
-        "flash_decode", "flash_attn_fwd", "flash_attn_bwd"}
+        "flash_decode", "flash_attn_fwd", "flash_attn_bwd", "quant8"}
     header = build.CSRC / "flash_attn.cuh"
     assert header.is_file()
     # the shared header is part of every library's name

@@ -241,11 +241,21 @@ def test_train_step_matches_jax_and_microbatches_agree():
                       rtol=1e-5, atol=1e-6)
 
 
-def test_step_refuses_compression_and_eval_matches_forward():
+def test_step_compress_hook_runs_and_eval_matches_forward():
+    from repro_torch.optim.compress import CompressConfig
     _, tcfg = train_configs(*TRAIN_ARCHS[0])
-    comp = type("Compress", (), {"method": "int8"})()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TS.make_train_step(tcfg, TA.OptConfig(), compress=comp)
+    # the compress hook runs now (its parity with the JAX step is in
+    # test_torch_compress.py); an unknown method is refused
+    batch = {k: t(v) for k, v in np_batch(tcfg).items()}
+    tp = TM_params(tcfg)
+    step = TS.make_train_step(tcfg, TA.OptConfig(),
+                              compress=CompressConfig(method="int8"))
+    _, state, mx = step(tp, TA.init_opt_state(tp, TA.OptConfig()), batch)
+    assert int(state["step"]) == 1 and np.isfinite(float(mx["loss"]))
+    bad = TS.make_train_step(tcfg, TA.OptConfig(),
+                             compress=CompressConfig(method="fp4"))
+    with pytest.raises(ValueError, match="fp4"):
+        bad(tp, TA.init_opt_state(tp, TA.OptConfig()), batch)
     tp = TM_params(tcfg)
     batch = {k: t(v) for k, v in np_batch(tcfg).items()}
     ev = TS.make_eval_step(tcfg, attn_impl="chunked")(tp, batch)
@@ -285,8 +295,16 @@ def test_trainer_sync_path_metrics_and_refusals():
     assert len(mon.samples) == 3 and sync.energy_wh > 0
     assert reg.snapshot()["train/loss"]["count"] == 3
     assert reg.snapshot()["train/tokens"]["value"] == 3 * 2 * 16
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TT.train(tcfg, TT.TrainerConfig(checkpoint_dir="x", **kw),
+    # checkpointing runs now (resume parity is in
+    # test_torch_checkpoint.py); placement-sliced saves are still refused
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    with tempfile.TemporaryDirectory() as d:
+        TT.train(tcfg, TT.TrainerConfig(checkpoint_dir=d, checkpoint_every=3,
+                                        **kw), device="cpu")
+        assert ckpt.latest_complete_step(d) == 3
+    with pytest.raises(NotImplementedError, match="core/placement"):
+        TT.train(tcfg, TT.TrainerConfig(checkpoint_placement=object(), **kw),
                  device="cpu")
     tp = TM_params(tcfg)
     with pytest.raises(ValueError, match="params must live on"):
