@@ -43,7 +43,19 @@ Phases (any failure exits nonzero):
    the plain version;
 7. at opt-1.3b width and 2 layers, check that async with quorum =
    replicas and staleness 0 equals sync, and that a run checkpointed
-   every round restores and resumes from exactly what it saved.
+   every round restores and resumes from exactly what it saved;
+8. hold the SSD-scan kernel against its plain version in fp32 and bf16 on
+   the JAX package's SSD_CASES, a ragged case and mamba2-130m's shape at
+   8 x 4096 and 8 x 4000 tokens, and time kernel, plain version and the
+   bound at 8 x 4096;
+9. serve mamba2-130m at full width and depth in bf16 (random weights from
+   a seed): (a) ``serve.step.make_prefill`` over 8 x 4096 tokens through
+   the kernel — finite logits, 24 launches a forward, tokens/s, peak
+   memory, the kernel's share of device time, and the logits against the
+   ``ssd_reference`` path in bf16 and fp32; (b) ``greedy_generate`` of 8
+   prompts of 64 tokens + 32 new ones through the dense cache; (c) with
+   fp32 weights, ``decode_step`` token by token against the kernel
+   prefill's logits at every position of 2 x 300 tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``; before that a
@@ -87,6 +99,36 @@ FA_TOL = {"float32": {"out": 1e-5, "lse": 1e-5, "grad": 1e-4},
 # bf16 step there (0.0625), the grad norm by a few percent
 STEP_TOL = {"float32": {"loss": 1e-4, "gnorm": 1e-3},
             "bfloat16": {"loss": 2e-2, "gnorm": 5e-2}}
+# SSD shapes (b, s, h, g, p, n, chunk): the JAX package's SSD_CASES
+# (tests/test_kernels.py), a ragged s with p = n = 128 (the largest
+# shared-memory footprint), then mamba2-130m at 8 x 4096 and 8 x 4000
+# tokens
+SSD_CASES = [(2, 256, 4, 1, 64, 32, 64), (1, 128, 8, 2, 32, 128, 32),
+             (2, 100, 4, 4, 64, 16, 32), (1, 512, 2, 1, 128, 64, 128),
+             (1, 300, 4, 2, 128, 128, 128)]
+MAMBA_SSD = [(8, 4096, 24, 1, 64, 128, 128), (8, 4000, 24, 1, 64, 128, 128)]
+# kernel vs plain, as a share of the plain version's largest magnitude (at
+# least 1): both compute in fp32 from the same inputs with the same cumsum
+# and differ in the order of the products' sums only; a bf16 output may
+# round to the neighbouring value, 2**-7 of it
+SSD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# mamba2-130m prefill, kernel vs ssd_reference on the same weights.  fp32
+# compute: both scan in fp32 and differ in summation order (and the
+# reference's cumsum is not rounded once), amplified through 24 layers of
+# residual stream and the 50304-way head: 1e-3 of the largest |logit|.
+# bf16 compute: each layer rounds y to bf16 on both paths, and a one-ulp
+# flip there grows through 24 layers of bf16 residual stream; with random
+# weights the top two of 50280 logits are often closer than that, so the
+# two bf16 paths may pick different tokens at a few percent of positions
+# (93 % agreement on an H100).  The gate holds each bf16 path to the fp32
+# reference's token: the kernel path must pick it at least as often as
+# the ssd_reference path does, less 1 % (a ~7 sigma margin at 32768
+# positions)
+PREFILL_TOL = {"float32": 1e-3, "argmax_slack": 0.01}
+# phase 9's workloads: prefill (batch, tokens); decode (batch, prompt,
+# new tokens); decode-vs-prefill agreement (batch, tokens: two full
+# chunks of 128 and a ragged one)
+MAMBA_PREFILL, MAMBA_DECODE, MAMBA_AGREE = (8, 4096), (8, 64, 32), (2, 300)
 
 
 def log(msg: str) -> None:
@@ -1025,6 +1067,284 @@ def phase_local_sgd_reduced(torch, np, device):
              f"{resumed.losses[0]} vs {loss0}")
 
 
+# --------------------------------------------------------------------------- #
+# Phase 8: SSD-scan kernel vs plain
+# --------------------------------------------------------------------------- #
+
+def ssd_tensors(torch, case, dtype, device, seed):
+    """x (b,h,s,p), dt (b,h,s), A, B/C (b,g,s,n): transposed views of the
+    model-layout tensors, as ops.ssd hands them to the kernel; the JAX
+    package's distributions (dt = softplus(normal), A = -exp(normal))."""
+    b, s, h, g, p, n, _ = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    A = -torch.exp(randn(h))
+    B, C = randn(b, s, g, n).to(dtype), randn(b, s, g, n).to(dtype)
+    return (x.transpose(1, 2), dt.transpose(1, 2), A, B.transpose(1, 2),
+            C.transpose(1, 2))
+
+
+def ssd_work(case, args, y):
+    """(FLOPs, bytes) of one scan: core.flops' per-head-chunk count
+    2(Q^2 n + Q^2 p + 2 Q p n) over the chunks this s needs, and every
+    input read and the output written once."""
+    b, s, h, g, p, n, Q = case
+    flops = 2 * (Q * Q * n + Q * Q * p + 2 * Q * p * n) * b * h * -(-s // Q)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, y))
+    return flops, nbytes
+
+
+def phase_ssd(torch, device, timer):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bhcq, ssd_bhcq_plain
+    worst = 0.0
+    for i, case in enumerate(SSD_CASES + MAMBA_SSD):
+        dts = ("bfloat16",) if case == MAMBA_SSD[0] else \
+            ("float32", "bfloat16")
+        for dt in dts:
+            args = ssd_tensors(torch, case, getattr(torch, dt), device,
+                               seed=20 + i)
+            y = ssd_bhcq(*args, chunk=case[-1])
+            torch.cuda.synchronize()
+            ref = ssd_bhcq_plain(*args, chunk=case[-1])
+            if not bool(torch.isfinite(y).all()):
+                fail(f"non-finite SSD kernel output {case} {dt}")
+            err = float((y.float() - ref.float()).abs().max())
+            bound = SSD_TOL[dt] * max(1.0, float(ref.float().abs().max()))
+            worst = max(worst, err)
+            log(f"SSD case {case} {dt:8s}: max_abs_err {err:.3e} (bound "
+                f"{bound:.3e}) {'ok' if err <= bound else 'FAIL'}")
+            if err > bound:
+                fail(f"ssd_bhcq disagrees with its plain version ({case}, "
+                     f"{dt}): {err} > {bound}")
+            del args, y, ref
+    torch.cuda.empty_cache()
+
+    # timing at mamba2-130m's prefill shape, bf16, as the model calls it
+    case = MAMBA_SSD[0]
+    args = ssd_tensors(torch, case, torch.bfloat16, device, seed=99)
+    y = ssd_bhcq(*args, chunk=case[-1])
+    ms = timer.ms(lambda: ssd_bhcq(*args, chunk=case[-1]))
+    spread = timer.spread
+    plain_ms = timer.ms(lambda: ssd_bhcq_plain(*args, chunk=case[-1]))
+    flops, nbytes = ssd_work(case, args, y)
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    log(f"timing SSD scan at mamba2-130m's shape {case} bf16: kernel_ms "
+        f"{ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}) plain_ms "
+        f"{plain_ms:.4f} library_ms none (no single PyTorch call computes "
+        f"the scan) bound_ms {timing['bound_ms']:.4f} ({flops:.4e} FLOP = "
+        f"{t_ops:.4f} ms at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+        f"{nbytes:,} B = {t_bytes:.4f} ms; bound by {timing['bound_by']}; "
+        f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the "
+        f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s of fp32 CUDA cores); "
+        f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+    log(f"SSD kernel held against its plain version: worst max_abs_err "
+        f"{worst:.3e}")
+    return worst, timing
+
+
+# --------------------------------------------------------------------------- #
+# Phase 9: serving mamba2-130m at full width
+# --------------------------------------------------------------------------- #
+
+def profile_fn(torch, fn, wall_ms, steps, kernel_key, unit="step"):
+    """Device time of one profiled call of ``fn`` (``steps`` model steps):
+    busy share against the unprofiled wall time a step, and the share of
+    the kernel whose name contains ``kernel_key``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
+    dev_ms = sum(r[0] for r in rows) / 1e3 / steps
+    kern_ms = sum(r[0] for r in rows if kernel_key in r[1]) / 1e3 / steps
+    log(f"  profiled: device busy {dev_ms:.3f} ms a {unit} vs {wall_ms:.3f} "
+        f"ms a {unit} unprofiled: busy {100 * dev_ms / wall_ms:.1f}%, idle "
+        f"{100 - 100 * dev_ms / wall_ms:.1f}%; {kernel_key} "
+        f"{kern_ms:.3f} ms ({100 * kern_ms / max(dev_ms, 1e-9):.1f}% of "
+        f"device time)")
+    groups = {}
+    for dev_us, key, _ in rows:
+        kind = (kernel_key if kernel_key in key else
+                "GEMMs" if any(w in key for w in ("nvjet", "gemm", "cutlass",
+                                                  "sm90_xmma")) else
+                "reductions" if "reduce" in key else
+                "elementwise and copies")
+        groups[kind] = groups.get(kind, 0.0) + dev_us / 1e3 / steps
+    log("    by kind: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / max(dev_ms, 1e-9):.1f}%)"
+        for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for dev_us, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"    device {dev_us / 1e3 / steps:8.3f} ms/{unit} x{count:6d}  "
+            f"{key[:90]}")
+
+
+def wall_ms(torch, fn, reps):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    times.sort()
+    return times[len(times) // 2], times
+
+
+def phase_mamba(torch, np, device):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bhcq
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serve.step import greedy_generate, make_prefill
+
+    cfg = get_config("mamba2-130m")
+    Bp, Sp = MAMBA_PREFILL
+    params = init_params(cfg, device=device, seed=0)
+    log(f"mamba2-130m full width: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"d_inner {cfg.ssm.d_inner(cfg.d_model)}, "
+        f"{cfg.ssm.num_heads(cfg.d_model)} SSD heads x {cfg.ssm.head_dim}, "
+        f"state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk_size}, padded "
+        f"vocab {cfg.padded_vocab_size}, {cfg.param_count():,} params, "
+        f"{cfg.param_dtype}")
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bp, Sp))
+                              ).to(device)
+    batch = {"tokens": tokens}
+
+    # (a) prefill / scoring through the kernel
+    prefill = make_prefill(cfg)
+    prefill(params, batch)                                 # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_bhcq.launches = 0
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = ssd_bhcq.launches
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (Bp, Sp, cfg.padded_vocab_size) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        fail(f"prefill logits malformed: {tuple(logits.shape)}")
+    if launches != cfg.num_layers:
+        fail(f"a prefill forward launched the SSD kernel {launches} times, "
+             f"not {cfg.num_layers}")
+    ms, times = wall_ms(torch, lambda: prefill(params, batch), 5)
+    tflops = F.fwd_flops(cfg, Bp, Sp) / (ms / 1e3) / 1e12
+    log(f"prefill {Bp} x {Sp} tokens, bf16, through the kernel: "
+        f"{launches} SSD launches; {ms:.2f} ms a forward (median of 5: "
+        f"{', '.join(f'{x:.2f}' for x in times)}), "
+        f"{Bp * Sp / (ms / 1e3):,.0f} tokens/s; fwd_flops "
+        f"{F.fwd_flops(cfg, Bp, Sp):.4e} / time = {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    profile_fn(torch, lambda: prefill(params, batch), ms, 1,
+               "ssd_scan_kernel", unit="forward")
+
+    live = slice(0, cfg.vocab_size)
+    with torch.inference_mode():
+        ref = M.forward_logits(params, cfg, batch, use_kernel=False)
+    diff16 = float((logits[..., live].float()
+                    - ref[..., live].float()).abs().max())
+    peak16 = float(ref[..., live].float().abs().max())
+    top = {"kernel": logits[..., live].argmax(-1),
+           "reference": ref[..., live].argmax(-1)}
+    del logits, ref
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    k32 = make_prefill(cfg32)(p32, batch)
+    with torch.inference_mode():
+        r32 = M.forward_logits(p32, cfg32, batch, use_kernel=False)
+    diff32 = float((k32[..., live] - r32[..., live]).abs().max())
+    peak32 = float(r32[..., live].abs().max())
+    top32 = r32[..., live].argmax(-1)
+    del k32, r32
+    torch.cuda.empty_cache()
+    agree = {k: float((v == top32).float().mean()) for k, v in top.items()}
+    both = float((top["kernel"] == top["reference"]).float().mean())
+    log(f"prefill kernel vs ssd_reference on the same weights: fp32 "
+        f"max_abs_diff {diff32:.3e} (largest |logit| {peak32:.3f}, bound "
+        f"{PREFILL_TOL['float32']:.0e} of it = "
+        f"{PREFILL_TOL['float32'] * peak32:.3e}); bf16 max_abs_diff "
+        f"{diff16:.3e} (largest |logit| {peak16:.3f}); bf16 argmax: kernel "
+        f"path = reference path at {100 * both:.3f}% of {Bp * Sp} "
+        f"positions; = the fp32 reference's token at "
+        f"{100 * agree['kernel']:.3f}% (kernel path) and "
+        f"{100 * agree['reference']:.3f}% (reference path; bound: kernel "
+        f">= reference - {100 * PREFILL_TOL['argmax_slack']:.0f}%)")
+    if diff32 > PREFILL_TOL["float32"] * peak32:
+        fail(f"fp32 kernel and reference prefill differ by {diff32}")
+    if agree["kernel"] < agree["reference"] - PREFILL_TOL["argmax_slack"]:
+        fail(f"bf16 kernel path picks the fp32 token at {agree['kernel']}, "
+             f"the reference path at {agree['reference']}")
+
+    # (b) dense decode: 8 prompts of 64 tokens + 32 new ones
+    Bd, Sd, new = MAMBA_DECODE
+    prompt = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bd, Sd))
+                              ).to(device)
+    greedy_generate(params, cfg, prompt, 2, cache_len=Sd + new)   # warm
+    out = None
+
+    def gen():
+        nonlocal out
+        out = greedy_generate(params, cfg, prompt, new)
+    gen_ms, _ = wall_ms(torch, gen, 1)
+    steps = Sd + new - 1
+    if tuple(out.shape) != (Bd, Sd + new) or int(out.max()) >= \
+            cfg.vocab_size or not torch.equal(out[:, :Sd], prompt):
+        fail(f"greedy_generate output malformed: {tuple(out.shape)}, "
+             f"max id {int(out.max())}")
+    log(f"greedy_generate {Bd} x ({Sd} prompt + {new} new) tokens, bf16, "
+        f"dense cache: {gen_ms:.1f} ms, {steps} decode steps, "
+        f"{gen_ms / steps:.3f} ms a step, {Bd * new / (gen_ms / 1e3):.1f} "
+        f"new tokens/s ({Bd * (Sd + new - 1) / (gen_ms / 1e3):.1f} tokens "
+        f"through the step a second); every id < {cfg.vocab_size}")
+    profile_fn(torch, gen, gen_ms / steps, steps, "ssd_scan_kernel")
+
+    # (c) decode_step token by token == the kernel prefill, fp32 weights
+    Bc, Sc = MAMBA_AGREE
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bc, Sc))
+                            ).to(device)
+    with torch.inference_mode():
+        full = M.forward_logits(p32, cfg32, {"tokens": toks})
+        cache = M.init_cache(cfg32, Bc, Sc, dtype=torch.float32,
+                             device=device)
+        outs = []
+        for i in range(Sc):
+            lg, cache = M.decode_step(p32, cfg32, cache, toks[:, i:i + 1], i)
+            outs.append(lg)
+        dec = torch.stack(outs, dim=1)
+    full, dec = full[..., live], dec[..., live]
+    scale = max(1.0, float(full.abs().max()))
+    excess = float(((dec - full).abs() - 2e-3 * full.abs()).max())
+    log(f"decode_step x {Sc} vs the kernel prefill ({Bc} x {Sc} tokens, "
+        f"fp32, chunks of {cfg.ssm.chunk_size}: two full and a ragged "
+        f"one): max_abs_diff {float((dec - full).abs().max()):.3e}; "
+        f"largest |diff| - 2e-3 |logit| = {excess:.3e} (bound atol 2e-4 x "
+        f"largest |logit| {scale:.3f} = {2e-4 * scale:.3e})")
+    if excess > 2e-4 * scale:
+        fail("dense decode and the kernel prefill disagree")
+    del p32, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1070,6 +1390,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ls_launches, c_worst = phase_local_sgd(torch, np, device)
     phase_local_sgd_reduced(torch, np, device)
+    torch.cuda.empty_cache()
+    timer = Timer(torch, device)
+    ssd_worst, ssd_timing = phase_ssd(torch, device, timer)
+    del timer
+    ssd_launches = phase_mamba(torch, np, device)
 
     fa = "src/repro/kernels/flash_attention/kernel.py"
     rows = [{"name": "flash_decode_paged", "route": "cuda",
@@ -1093,6 +1418,11 @@ def main() -> int:
                      "launches": ls_launches[name],
                      "max_abs_err": max(q_worst, c_worst),
                      **q_timing[kern]})
+    rows.append({"name": "ssd_scan", "route": "cuda",
+                 "source": "src/repro_torch/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd_scan/kernel.py:31",
+                 "launches": ssd_launches, "max_abs_err": ssd_worst,
+                 **ssd_timing})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

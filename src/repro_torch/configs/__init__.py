@@ -1,4 +1,5 @@
-"""Architecture registry: qwen2-7b and the paper's OPT series."""
+"""Architecture registry: qwen2-7b, the paper's OPT series and
+mamba2-130m."""
 
 from repro_torch.configs.registry import ARCHS, get_config, list_archs
 

@@ -3,9 +3,12 @@
 Runs the continuous-batching paged-KV engine (``repro_torch.serve.engine``)
 over a mixed-length request set (reduced variant by default, ``--full``
 for the published widths) on the card, and prints tokens/s plus the
-per-token energy/carbon estimate.  A warmup request runs before the timing
-window so the kernel build and first-launch costs stay out of tokens/s.
-``--torch-device cpu`` runs the plain PyTorch versions on the CPU.
+per-token energy/carbon estimate.  Architectures whose caches the engine
+cannot page (Mamba2's recurrent state), or ``--legacy``, fall back to the
+dense ``serve.step.greedy_generate`` path.  A warmup runs before the
+timing window so the kernel build and first-launch costs stay out of
+tokens/s.  ``--torch-device cpu`` runs the plain PyTorch versions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -42,13 +45,14 @@ def main(argv=None) -> None:
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable the prefix-cache index (every request "
                          "recomputes its full prompt)")
+    ap.add_argument("--legacy", action="store_true",
+                    help="force the dense greedy_generate path")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace/Perfetto JSON timeline")
     ap.add_argument("--metrics-out", default=None,
                     help="write the engine metrics registry as JSONL")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -57,21 +61,31 @@ def main(argv=None) -> None:
     from repro_torch.models import model as M
     from repro_torch.models import params as P
     from repro_torch.obs import Tracer, get_tracer, set_tracer
-    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
-    from repro_torch.serve.paged_cache import blocks_for
 
     dev = resolve_device(args.torch_device)
     energy = get_device(args.device)
     cfg = get_config(args.arch if args.full else args.arch + "-smoke")
-    if not M.paged_decode_supported(cfg):
-        raise SystemExit(f"{cfg.name}: the port serves paged attn+mlp "
-                         "decoders only")
     print(f"[serve] {cfg.name}: {cfg.param_count()/1e6:.1f}M params on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev} "
           f"(energy profile: {energy.name})")
     params = P.init_params(cfg, device=dev, seed=0)
     if args.trace_out or args.metrics_out:
         set_tracer(Tracer(enabled=True, process=f"serve:{cfg.name}"))
+    if args.legacy or not M.paged_decode_supported(cfg):
+        _run_legacy(args, cfg, params, energy, dev)
+    else:
+        _run_engine(args, cfg, params, energy, dev)
+    if args.trace_out:
+        get_tracer().save_chrome_trace(args.trace_out)
+        print(f"[serve] trace: {args.trace_out} "
+              f"({len(get_tracer().events)} events)")
+
+
+def _run_engine(args, cfg, params, energy, dev) -> None:
+    import numpy as np
+
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serve.paged_cache import blocks_for
 
     block = 16
     slots = min(args.batch, 8)
@@ -120,10 +134,53 @@ def main(argv=None) -> None:
                   "max_new": args.max_new, "attn_impl": args.attn_impl,
                   "torch_device": str(dev)})
         print(f"[serve] metrics: {args.metrics_out}")
-    if args.trace_out:
-        get_tracer().save_chrome_trace(args.trace_out)
-        print(f"[serve] trace: {args.trace_out} "
-              f"({len(get_tracer().events)} events)")
+
+
+def _run_legacy(args, cfg, params, energy, dev) -> None:
+    """Dense greedy decoding of ``--batch`` prompts of ``--prompt-len``
+    tokens plus ``--max-new`` new ones, with the analytic decode FLOPs
+    priced on the energy profile's peak (``CLOUD_H100`` by default)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import flops as F
+    from repro_torch.obs import MetricsRegistry, get_tracer
+    from repro_torch.serve.step import greedy_generate
+
+    prompt = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    # warmup at the same shapes: kernel builds and first launches stay
+    # outside the timing window
+    greedy_generate(params, cfg, prompt, max_new=2,
+                    cache_len=args.prompt_len + args.max_new)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with get_tracer().span("greedy_generate", "serve", batch=args.batch,
+                           max_new=args.max_new):
+        out = greedy_generate(params, cfg, prompt, max_new=args.max_new)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    n_new = args.batch * args.max_new
+    dec_flops = sum(F.decode_flops(cfg, args.batch, args.prompt_len + i)
+                    for i in range(args.max_new))
+    print(f"[serve] legacy dense: {n_new} tokens in {wall:.2f}s "
+          f"({n_new / wall:.1f} tok/s); analytic decode "
+          f"{dec_flops / 1e9:.2f} GFLOP ({energy.name} roofline: "
+          f"{dec_flops / energy.peak_flops * 1e3:.3f} ms compute-bound)")
+    print(f"[serve] sample: {out[0, -10:].tolist()}")
+    if args.metrics_out:
+        reg = MetricsRegistry()
+        reg.counter("serve/tokens").inc(n_new)
+        reg.histogram("serve/tokens_per_s", lo=1e-3, hi=1e6) \
+            .observe(n_new / wall)
+        reg.dump_jsonl(args.metrics_out,
+                       meta={"arch": cfg.name, "path": "legacy",
+                             "torch_device": str(dev)})
+        print(f"[serve] metrics: {args.metrics_out}")
 
 
 if __name__ == "__main__":

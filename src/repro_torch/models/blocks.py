@@ -1,13 +1,14 @@
-"""Stacked-group execution: the train/prefill forward and the paged
-decode step.
+"""Stacked-group execution: the train/prefill forward, the dense-cache
+decode step and the paged decode step.
 
-Port of ``repro.models.blocks`` for attn + mlp units.  A
+Port of ``repro.models.blocks`` for attn, mlp and ssm (Mamba2) units.  A
 :class:`~repro_torch.models.params.ScanGroup` stacks ``depth`` identical
 units on a leading ``layers`` axis; where the JAX package ran the unit
 under ``lax.scan``, the port loops over that axis in Python, taking views
-of each layer's parameters (and page pools, which the decode step updates
-in place through those views).  ``ctx`` threads ``attn_impl`` and
-``remat`` from the train step down to every sublayer, as in JAX.
+of each layer's parameters (and caches, which the decode steps update in
+place through those views).  ``ctx`` threads ``attn_impl``, ``remat`` and
+``use_kernel`` (the SSD scan kernel) from the step down to every
+sublayer, as in JAX.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import mamba2
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attn_decode_paged, attn_forward,
-                                       mlp_forward)
+from repro_torch.models.layers import (attn_decode, attn_decode_paged,
+                                       attn_forward, mlp_forward)
 from repro_torch.models.params import ScanGroup, tree_map
 
 PyTree = Any
@@ -75,8 +77,12 @@ def _sublayer_train(kind: str, p: PyTree, x: torch.Tensor,
                             impl=ctx.get("attn_impl", "kernel")), aux
     if kind == "mlp":
         return mlp_forward(p, x, cfg), aux
-    raise NotImplementedError(f"training of {kind!r} sublayers is not "
-                              "ported yet")
+    if kind == "ssm":
+        return mamba2.ssm_forward(p, x, cfg,
+                                  use_kernel=ctx.get("use_kernel", False)), aux
+    raise NotImplementedError(f"{kind!r} sublayers are not ported yet (MoE, "
+                              "MLA and cross-attention wait for the other "
+                              "model families' slice)")
 
 
 def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
@@ -100,6 +106,90 @@ def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
     for i in range(group.depth):
         x, aux = body(tree_map(lambda t: t[i], layers), x, aux)
     return x, aux
+
+
+# --------------------------------------------------------------------------- #
+# Decode (single token, dense cache — the launcher's fallback path)
+# --------------------------------------------------------------------------- #
+
+DENSE_SUBLAYERS = ("attn", "ssm", "mlp")
+
+
+def _dense_only(kind: str) -> None:
+    if kind not in DENSE_SUBLAYERS:
+        raise NotImplementedError(
+            f"dense decode supports sublayers {DENSE_SUBLAYERS}, got "
+            f"{kind!r} (MoE, MLA and cross-attention wait for the other "
+            "model families' slice)")
+
+
+def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
+                        max_len: int, dtype: torch.dtype = torch.bfloat16,
+                        device: DeviceLike = None) -> PyTree:
+    """One sublayer's dense cache: (B, T, K, D) K/V for attn, the fp32
+    recurrent state and conv buffers for ssm (whatever ``dtype`` is, as
+    in the JAX package), nothing for mlp.  On the card unless
+    ``device="cpu"`` is asked for."""
+    _dense_only(kind)
+    device = resolve_device(device)
+    if kind == "attn":
+        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        shape = (batch, max_len, K, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "ssm":
+        return mamba2.init_ssm_cache(cfg, batch, device=device)
+    return {}                                      # stateless: mlp
+
+
+def _sublayer_decode(kind: str, p: PyTree, x: torch.Tensor, cache: PyTree,
+                     cfg: ModelConfig, ctx: Dict[str, Any]):
+    _dense_only(kind)
+    if kind == "attn":
+        y, ck, cv = attn_decode(p, x, cfg, cache_k=cache["k"],
+                                cache_v=cache["v"], index=ctx["index"],
+                                positions=ctx["positions"])
+        return y, {"k": ck, "v": cv}
+    if kind == "ssm":
+        return mamba2.ssm_decode(p, x, cfg, cache=cache)
+    return mlp_forward(p, x, cfg), cache
+
+
+def init_group_cache(group: ScanGroup, cfg: ModelConfig, batch: int,
+                     max_len: int, dtype: torch.dtype = torch.bfloat16,
+                     device: DeviceLike = None) -> PyTree:
+    unit = {f"s{j}_{kind}": init_sublayer_cache(kind, cfg, batch, max_len,
+                                                dtype, device)
+            for j, kind in enumerate(group.sublayers)}
+    if group.depth == 1:
+        return unit
+    return tree_map(lambda a: a[None].expand((group.depth,) + a.shape)
+                    .contiguous(), unit)
+
+
+def group_decode(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
+                 cache: PyTree, cfg: ModelConfig, ctx: Dict[str, Any]
+                 ) -> Tuple[torch.Tensor, PyTree]:
+    """One token through the group.  The cache is updated IN PLACE (each
+    layer's new state is copied into its view of the stacked cache), which
+    takes the place of the JAX scan's stacked new cache; returns (hidden,
+    the same cache)."""
+    def unit(p_unit: PyTree, c_unit: PyTree, h: torch.Tensor):
+        for j, kind in enumerate(group.sublayers):
+            key = f"s{j}_{kind}"
+            h, new = _sublayer_decode(kind, p_unit[key], h, c_unit[key],
+                                      cfg, ctx)
+            for name, t in new.items():
+                if t is not c_unit[key][name]:
+                    c_unit[key][name].copy_(t)
+        return h
+
+    if group.depth == 1:
+        return unit(gparams, cache, x), cache
+    for i in range(group.depth):
+        x = unit(tree_map(lambda a: a[i], gparams),
+                 tree_map(lambda a: a[i], cache), x)
+    return x, cache
 
 
 # --------------------------------------------------------------------------- #

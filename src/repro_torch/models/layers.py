@@ -1,5 +1,7 @@
-"""Core layers: norms, rotary embeddings, full-sequence attention (train),
-attention against the paged KV cache (serve), and the MLP.
+"""Core layers: norms (and Mamba2's gated RMSNorm), rotary embeddings,
+full-sequence attention (train / prefill), attention against the paged
+KV cache (the engine) and against a dense per-batch cache (the dense
+decode path), and the MLP.
 
 Port of ``repro.models.layers`` for attn + mlp decoders: plain functions
 on tensors over a parameter dict, with the JAX package's conventions kept
@@ -44,6 +46,16 @@ def norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
     inv = torch.rsqrt(var + cfg.norm_eps).to(dtype)
     out = (x - mean.to(dtype)) * inv
     return out * p["scale"].to(dtype) + p["bias"].to(dtype)
+
+
+def rms_gate_norm(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Mamba2 gated RMSNorm: norm(x * silu(z)); the gate multiplies in the
+    input dtype, the statistics and the scaling run in fp32."""
+    dtype = x.dtype
+    xf = (x * F.silu(gate)).float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -163,6 +175,28 @@ def attn_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     out = run_attention(q, k, v, causal=causal, window=cfg.sliding_window,
                         impl=impl)
     return x + _out_proj(out, p["wo"])
+
+
+def attn_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+                cache_k: torch.Tensor, cache_v: torch.Tensor, index: int,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token decode against a dense cache.  x: (B,1,d); cache_k/v:
+    (B,T,K,D).  The new K/V row is written at ``index`` IN PLACE (the JAX
+    package's ``dynamic_update_slice`` returned a new cache); the
+    attention is the plain fp32 ``attention_core`` over positions
+    ``<= index``, as in the JAX package.  Returns (y, cache_k, cache_v)."""
+    h = norm(p["norm"], x, cfg)
+    q, k, v = _project_qkv(p, h, cfg)
+    q = positional(q, positions, cfg)
+    k = positional(k, positions, cfg)
+    cache_k[:, index:index + 1] = k.to(cache_k.dtype)
+    cache_v[:, index:index + 1] = v.to(cache_v.dtype)
+    valid = torch.full((x.shape[0],), index + 1, device=x.device)
+    out = attention_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                         causal=False, window=cfg.sliding_window,
+                         q_offset=index, kv_valid_len=valid)
+    return x + _out_proj(out, p["wo"]), cache_k, cache_v
 
 
 def attn_decode_paged(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,

@@ -1,5 +1,6 @@
-"""Full-model passes: the train loss, full-sequence logits and the paged
-decode step (port of ``repro.models.model`` for attn + mlp decoders).
+"""Full-model passes: the train loss, full-sequence logits, the dense-cache
+decode step and the paged decode step (port of ``repro.models.model`` for
+attn + mlp decoders and the Mamba2 stack).
 
 Batch dict keys: ``tokens`` (B, S) int decoder input ids; ``labels``
 (B, S) int next-token targets, -1 masked; ``positions`` (B, S) optional.
@@ -13,8 +14,9 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.models import params as P
-from repro_torch.models.blocks import (PAGED_SUBLAYERS, group_decode_paged,
-                                       group_forward,
+from repro_torch.models.blocks import (PAGED_SUBLAYERS, group_decode,
+                                       group_decode_paged, group_forward,
+                                       init_group_cache,
                                        init_paged_sublayer_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import norm
@@ -112,14 +114,69 @@ def forward_train(params: PyTree, cfg: ModelConfig,
 
 def forward_logits(params: PyTree, cfg: ModelConfig,
                    batch: Dict[str, torch.Tensor], *,
-                   attn_impl: str = "naive") -> torch.Tensor:
-    """Full-sequence logits (tests / prefill scoring)."""
+                   attn_impl: str = "naive",
+                   use_kernel: bool = True) -> torch.Tensor:
+    """Full-sequence logits (tests / prefill scoring).  ``use_kernel``
+    runs every ssm sublayer's scan through the SSD kernel (its plain
+    version on CPU tensors; it has no backward); False runs the plain
+    ``ssd_reference``, the JAX package's default."""
     x = _embed_with_positions(params, cfg, batch)
     B, S = batch["tokens"].shape
     ctx = {"positions": default_positions(batch, cfg, S, B),
-           "causal": True, "attn_impl": attn_impl}
+           "causal": True, "attn_impl": attn_impl, "use_kernel": use_kernel}
     h, _ = decoder_trunk(params, cfg, x, ctx)
     return lm_logits(params, cfg, h)
+
+
+# --------------------------------------------------------------------------- #
+# Dense-cache decode (the launcher's fallback for non-paged architectures)
+# --------------------------------------------------------------------------- #
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = None) -> PyTree:
+    """Dense per-batch caches: (B, T, K, D) K/V in ``dtype`` for attention
+    sublayers, fp32 state and conv buffers for ssm sublayers; stacked
+    groups carry a leading depth axis.  On the card unless
+    ``device="cpu"`` is asked for."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder caches wait "
+                                  "for the Whisper slice")
+    return {f"g{gi}": init_group_cache(g, cfg, batch, max_len, dtype, device)
+            for gi, g in enumerate(P.decoder_groups(cfg))}
+
+
+def warm_cross_cache(params: PyTree, cfg: ModelConfig, cache: PyTree,
+                     enc: torch.Tensor) -> PyTree:
+    raise NotImplementedError("cross-attention caches wait for the Whisper "
+                              "slice")
+
+
+def decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree,
+                tokens: torch.Tensor, index: int, *,
+                positions: Optional[torch.Tensor] = None,
+                enc: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
+    """One decode step.  tokens: (B, 1) int; index: the cache offset every
+    sequence shares.  The cache is updated in place.  Returns (logits
+    (B, vocab), cache)."""
+    if enc is not None:
+        raise NotImplementedError("decoding against an encoder waits for "
+                                  "the Whisper slice")
+    B = tokens.shape[0]
+    index = int(index)
+    x = embed_tokens(params, cfg, tokens)
+    if "pos" in params["embed"]:
+        x = x + params["embed"]["pos"][index:index + 1].to(x.dtype)[None]
+    if positions is None:
+        positions = torch.full((B, 1), index, dtype=torch.int32,
+                               device=tokens.device)
+    ctx: Dict[str, Any] = {"index": index, "positions": positions}
+    for gi, g in enumerate(P.decoder_groups(cfg)):
+        x, _ = group_decode(params["decoder"][f"g{gi}"], g, x,
+                            cache[f"g{gi}"], cfg, ctx)
+    h = norm(params["final_norm"], x, cfg)
+    return lm_logits(params, cfg, h)[:, 0, :], cache
 
 
 def paged_decode_supported(cfg: ModelConfig) -> bool:

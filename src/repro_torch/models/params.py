@@ -1,10 +1,13 @@
-"""Parameter specs, initialization and counting for the dense decoder.
+"""Parameter specs, initialization and counting for the decoders the port
+runs.
 
-Port of ``repro.models.params`` for the families the paged engine serves
-(attn + mlp sublayers).  The parameter tree keeps the JAX layout exactly —
-``wq`` (d, H, hd), group keys ``g0/s0_attn/s1_mlp``, a leading ``layers``
-axis on stacked groups — so weights bridged from the JAX package
-(``repro_torch.bridge``) drop straight in.
+Port of ``repro.models.params`` for attn + mlp decoders and the Mamba2
+(``ssm``) stack.  The parameter tree keeps the JAX layout exactly —
+``wq`` (d, H, hd), group keys ``g0/s0_attn/s1_mlp`` or ``g0/s0_ssm``, a
+leading ``layers`` axis on stacked groups — so weights bridged from the
+JAX package (``repro_torch.bridge``) drop straight in.  The SSM decay
+leaves ``A_log`` and ``dt_bias`` stay fp32 whatever ``param_dtype`` is,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -101,7 +104,32 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Any]:
     return s
 
 
-SUBLAYER_BUILDERS = {"attn": attn_specs, "mlp": mlp_specs}
+def ssm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, ssm = cfg.d_model, cfg.ssm
+    di = ssm.d_inner(d)
+    nh = ssm.num_heads(d)
+    gs = ssm.n_groups * ssm.d_state
+    k = ssm.conv_kernel
+    s: Dict[str, Any] = {"norm": _norm_spec(cfg, d)}
+    s["wz"] = ParamSpec((d, di), ("embed", "mamba_inner"))
+    s["wx"] = ParamSpec((d, di), ("embed", "mamba_inner"))
+    s["wB"] = ParamSpec((d, gs), ("embed", "state"))
+    s["wC"] = ParamSpec((d, gs), ("embed", "state"))
+    s["wdt"] = ParamSpec((d, nh), ("embed", "mamba_heads"))
+    s["conv_x"] = ParamSpec((k, di), (None, "mamba_inner"))
+    s["conv_B"] = ParamSpec((k, gs), (None, "state"))
+    s["conv_C"] = ParamSpec((k, gs), (None, "state"))
+    s["A_log"] = ParamSpec((nh,), ("mamba_heads",), "ssm_a")
+    s["D"] = ParamSpec((nh,), ("mamba_heads",), "ones")
+    s["dt_bias"] = ParamSpec((nh,), ("mamba_heads",), "dt_bias")
+    s["gate_norm"] = ParamSpec((di,), ("mamba_inner",), "ones")
+    s["out"] = ParamSpec((di, d), ("mamba_inner", "embed"))
+    return s
+
+
+SUBLAYER_BUILDERS = {"attn": attn_specs, "mlp": mlp_specs, "ssm": ssm_specs}
+# leaves drawn and kept in fp32 whatever ``param_dtype`` is
+FP32_INITS = ("ssm_a", "dt_bias")
 
 
 # --------------------------------------------------------------------------- #
@@ -118,13 +146,20 @@ class ScanGroup:
 
 
 def _layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, ...]:
-    if cfg.layer_kind(i) != "attn" or cfg.attention != "gqa":
+    if cfg.layer_kind(i) == "ssm":
+        mixer = "ssm"
+    elif cfg.attention == "gqa":
+        mixer = "attn"
+    else:
         raise NotImplementedError(
-            f"{cfg.name}: layer {i} is not a GQA attention layer; the port "
-            "covers dense attn+mlp decoders")
+            f"{cfg.name}: layer {i} uses {cfg.attention!r} attention; the "
+            "port covers GQA attention and Mamba2 (MLA waits for the other "
+            "model families' slice)")
     if cfg.layer_is_moe(i):
-        return ("attn", "moe")
-    return ("attn", "mlp")
+        return (mixer, "moe")
+    if cfg.d_ff == 0:
+        return (mixer,)          # pure-SSM blocks (Mamba2) carry no FFN
+    return (mixer, "mlp")
 
 
 def layer_groups(cfg: ModelConfig) -> List[ScanGroup]:
@@ -203,16 +238,28 @@ def _sinusoidal(n: int, d: int) -> np.ndarray:
 
 
 def _init_one(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
-              device: torch.device) -> torch.Tensor:
+              device: torch.device, cfg: ModelConfig) -> torch.Tensor:
     """Same distributions as ``repro.models.params._init_one``; each leaf
     is drawn directly in the parameter dtype on the device, so a bf16
-    model never holds an fp32 copy of itself."""
+    model never holds an fp32 copy of itself.  The SSM decay leaves
+    (``FP32_INITS``) are drawn and kept in fp32."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
     if spec.init == "pos":
         return torch.from_numpy(_sinusoidal(*spec.shape)).to(device, dtype)
+    if spec.init == "ssm_a":
+        # A in [1, 16) => A_log = log(A)
+        u = torch.rand(spec.shape, dtype=torch.float32, device=device,
+                       generator=gen)
+        return torch.log(1.0 + 15.0 * u)
+    if spec.init == "dt_bias":
+        lo, hi = cfg.ssm.dt_min, cfg.ssm.dt_max
+        u = torch.rand(spec.shape, dtype=torch.float32, device=device,
+                       generator=gen)
+        dt = torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))
+        return dt + torch.log(-torch.expm1(-dt))      # inverse softplus
     if spec.init != "normal":
         raise NotImplementedError(f"init {spec.init!r} is not ported")
     fan_in = max(1, int(np.prod([spec.shape[d] for d in spec.fan_in_dims]))
@@ -230,11 +277,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     gen = generator_for(dev, seed, generator)
     dtype = getattr(torch, cfg.param_dtype)
-    return tree_map(lambda s: _init_one(s, gen, dtype, dev), model_spec(cfg))
+    return tree_map(lambda s: _init_one(s, gen, dtype, dev, cfg),
+                    model_spec(cfg))
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Parameter count.  The ported families are dense, so every
-    parameter is active for every token and ``active_only`` changes
-    nothing."""
+    """Parameter count.  The ported families (attn + mlp, Mamba2) have no
+    routed experts, so every parameter is active for every token and
+    ``active_only`` changes nothing."""
     return sum(leaf.size() for leaf in tree_leaves(model_spec(cfg)))

@@ -1,9 +1,10 @@
-"""The port on the card: the CUDA flash-decode, FA-2 and quant8 kernels
-against their plain PyTorch versions, the engine through the kernel
-against the engine through the plain gather path, a train step through
-the FA-2 kernels against one through the chunked path, and local SGD with
-int8-compressed sync through the kernels.  Every test here skips without
-CUDA.
+"""The port on the card: the CUDA flash-decode, FA-2, quant8 and SSD-scan
+kernels against their plain PyTorch versions, the engine through the
+kernel against the engine through the plain gather path, a train step
+through the FA-2 kernels against one through the chunked path, local SGD
+with int8-compressed sync through the kernels, and Mamba2's kernel
+prefill against its oracle path and its dense decode.  Every test here
+skips without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -24,6 +25,7 @@ from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
 from repro_torch.kernels.quant8 import kernel as QK  # noqa: E402
 from repro_torch.kernels.quant8 import ref as QR  # noqa: E402
 from repro_torch.kernels.quant8.ops import quantize_kv  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as SK  # noqa: E402
 from repro_torch.models.params import init_params, tree_leaves  # noqa: E402
 from repro_torch.serve.engine import (EngineConfig, Request,  # noqa: E402
                                       ServeEngine)
@@ -77,6 +79,27 @@ SHAPES = [(100, 777), (3, 5, 7), (65536,)]
 def quant_input(n, seed=4):
     """numpy fp32 (n,) with the JAX cases' spread (normal x 3)."""
     return np.random.RandomState(seed).randn(n).astype(np.float32) * 3
+
+
+# b, s, h, g, p, n, chunk — the JAX package's SSD_CASES
+# (tests/test_kernels.py), a ragged s with g=2 and p=n=128 (the largest
+# shared-memory footprint, which shrinks the row tile), and mamba2-130m's
+# head shape at a short length
+SSD_CASES = [(2, 256, 4, 1, 64, 32, 64), (1, 128, 8, 2, 32, 128, 32),
+             (2, 100, 4, 4, 64, 16, 32), (1, 512, 2, 1, 128, 64, 128),
+             (1, 300, 4, 2, 128, 128, 128), (2, 390, 24, 1, 64, 128, 128)]
+SSD_IDS = ["g1-c64", "g2-n128", "g4-ragged100", "p128-c128",
+           "ragged300-p128-n128", "mamba2-130m-s390"]
+
+
+def ssd_inputs(b, s, h, g, p, n, seed=0):
+    """numpy fp32 x, dt = softplus(normal), A = -exp(normal), B, C."""
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, s, h, p).astype(np.float32),
+            np.logaddexp(rs.randn(b, s, h), 0).astype(np.float32),
+            -np.exp(rs.randn(h)).astype(np.float32),
+            rs.randn(b, s, g, n).astype(np.float32),
+            rs.randn(b, s, g, n).astype(np.float32))
 
 
 def fa_inputs(case, seed=0):
@@ -267,3 +290,67 @@ def test_cuda_local_sgd_int8_runs_the_kernels_and_async_equals_sync(cuda):
     assert all(np.isfinite(sync.losses))
     assert asyn.losses == sync.losses
     assert asyn.round_losses == sync.round_losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES, ids=SSD_IDS)
+def test_cuda_ssd_kernel_matches_plain_version(case, dtype, cuda):
+    b, s, h, g, p, n, chunk = case
+    x, dt, A, B, C = (torch.from_numpy(a).to(cuda)
+                      for a in ssd_inputs(b, s, h, g, p, n))
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    args = (x.transpose(1, 2), dt.transpose(1, 2), A, B.transpose(1, 2),
+            C.transpose(1, 2))
+    before = SK.ssd_bhcq.launches
+    y = SK.ssd_bhcq(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SK.ssd_bhcq.launches == before + 1
+    ref = SK.ssd_bhcq_plain(*args, chunk=chunk)
+    # fp32 on both sides from the same inputs, the same cumsum bit for
+    # bit; a bf16 output may round to the neighbouring value (2**-7)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((y.float() - ref.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C = (torch.from_numpy(a).to(cuda)
+                      for a in ssd_inputs(1, 16, 2, 1, 12, 8))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        SK.ssd_bhcq(x.transpose(1, 2), dt.transpose(1, 2), A,
+                    B.transpose(1, 2), C.transpose(1, 2), chunk=8)
+    x, dt, A, B, C = (torch.from_numpy(a).to(cuda)
+                      for a in ssd_inputs(1, 16, 2, 1, 8, 8))
+    with pytest.raises(ValueError, match="float32"):
+        SK.ssd_bhcq(x.transpose(1, 2), dt.transpose(1, 2).double(), A,
+                    B.transpose(1, 2), C.transpose(1, 2), chunk=8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        SK.ssd_bhcq(x.transpose(1, 2).requires_grad_(True),
+                    dt.transpose(1, 2), A, B.transpose(1, 2),
+                    C.transpose(1, 2), chunk=8)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_prefill_kernel_matches_oracle_and_decode(cuda):
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("mamba2-130m-smoke"),
+                              param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg, device=cuda, seed=0)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 45))).to(cuda)
+    with torch.no_grad():
+        before = SK.ssd_bhcq.launches
+        kern = M.forward_logits(params, cfg, {"tokens": toks})
+        assert SK.ssd_bhcq.launches - before == cfg.num_layers
+        ref = M.forward_logits(params, cfg, {"tokens": toks},
+                               use_kernel=False)
+        cache = M.init_cache(cfg, 2, 45, dtype=torch.float32, device=cuda)
+        outs = []
+        for i in range(45):
+            lg, cache = M.decode_step(params, cfg, cache, toks[:, i:i + 1], i)
+            outs.append(lg)
+    torch.testing.assert_close(kern, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(torch.stack(outs, 1), kern, rtol=2e-3,
+                               atol=2e-4)

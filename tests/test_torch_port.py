@@ -112,6 +112,10 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
     from repro_torch.models import model as TM
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TM.init_paged_cache(tcfg, 4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_cache(tcfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-130m"])
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main([])
@@ -192,7 +196,8 @@ def test_kernel_build_helpers(monkeypatch, tmp_path):
     assert lib.parent == build.BUILD_DIR and lib.name.startswith(
         "flash_decode-")
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
-        "flash_decode", "flash_attn_fwd", "flash_attn_bwd", "quant8"}
+        "flash_decode", "flash_attn_fwd", "flash_attn_bwd", "quant8",
+        "ssd_scan"}
     header = build.CSRC / "flash_attn.cuh"
     assert header.is_file()
     # the shared header is part of every library's name

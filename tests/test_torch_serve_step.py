@@ -1,0 +1,122 @@
+"""The dense serving path: ``attn_decode``, ``serve.step`` (prefill,
+serve step, ``greedy_generate``) against the JAX package on bridged
+weights, and the serving launcher's fallback to it."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.models import layers as JL  # noqa: E402
+from repro.serve import step as JS  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.serve import step as TS  # noqa: E402
+
+from test_torch_helpers import bridged, configs, t  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+# (arch, patch, id): Mamba2 through ssm_decode; qwen2 (GQA g=2, QKV bias,
+# RoPE) and OPT (learned positions, LayerNorm) through attn_decode
+GEN_ARCHS = [("mamba2-130m", {}, "mamba2"),
+             ("qwen2-7b", dict(num_kv_heads=2), "qwen2-g2"),
+             ("opt-125m", {}, "opt-125m")]
+
+
+@pytest.mark.parametrize("arch,patch,aid", GEN_ARCHS,
+                         ids=[a[2] for a in GEN_ARCHS])
+def test_greedy_generate_tokens_equal_jax(arch, patch, aid):
+    """Prompt teacher-forced through the dense cache (bf16 K/V for
+    attention, fp32 state for ssm, the JAX package's defaults), then 6
+    greedy tokens: the ids must be equal."""
+    jcfg, tcfg = configs(arch, **patch)
+    jp, tp = bridged(jcfg, tcfg)
+    prompt = np.random.RandomState(7).randint(0, jcfg.vocab_size, (2, 7))
+    want = JS.greedy_generate(jp, jcfg, jnp.asarray(prompt), 6)
+    got = TS.greedy_generate(tp, tcfg, t(prompt), 6)
+    assert got.shape == (2, 13)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("index", [0, 5])
+def test_attn_decode_matches_jax(index):
+    jcfg, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    jp, tp = bridged(jcfg, tcfg)
+    jattn = jax.tree.map(lambda a: a[0], jp["decoder"]["g0"]["s0_attn"])
+    tattn = TM.P.tree_map(lambda a: a[0], tp["decoder"]["g0"]["s0_attn"])
+    rs = np.random.RandomState(8)
+    K, hd = jcfg.num_kv_heads, jcfg.resolved_head_dim
+    ck = rs.randn(2, 8, K, hd).astype(np.float32)
+    cv = rs.randn(2, 8, K, hd).astype(np.float32)
+    x = rs.randn(2, 1, jcfg.d_model).astype(np.float32)
+    pos = np.full((2, 1), index, np.int32)
+    jy, jk, jv = JL.attn_decode(jattn, jnp.asarray(x), jcfg,
+                                cache_k=jnp.asarray(ck),
+                                cache_v=jnp.asarray(cv),
+                                index=jnp.int32(index),
+                                positions=jnp.asarray(pos))
+    tk, tv = t(ck), t(cv)
+    ty, tk2, tv2 = TL.attn_decode(tattn, t(x), tcfg, cache_k=tk, cache_v=tv,
+                                  index=index, positions=t(pos))
+    assert tk2 is tk and tv2 is tv              # written in place
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+
+
+def test_prefill_and_serve_step_match_the_model_functions():
+    _, tcfg = configs("mamba2-130m")
+    tp = TM.P.init_params(tcfg, device="cpu", seed=2)
+    toks = torch.from_numpy(np.random.RandomState(9).randint(
+        0, tcfg.vocab_size, (2, 10)))
+    logits = TS.make_prefill(tcfg)(tp, {"tokens": toks})
+    assert logits.is_inference()
+    with torch.no_grad():
+        want = TM.forward_logits(tp, tcfg, {"tokens": toks},
+                                 use_kernel=False)
+    np.testing.assert_allclose(logits.numpy(), want.numpy(), **TOL)
+    serve = TS.make_serve_step(tcfg)
+    cache = TM.init_cache(tcfg, 2, 10, device="cpu")
+    for i in range(10):
+        lg, cache = serve(tp, cache, toks[:, i:i + 1], i)
+    np.testing.assert_allclose(lg.numpy(), logits[:, -1].numpy(),
+                               rtol=2e-3, atol=2e-4)
+    assert TS.jitted_decode_step(tcfg) is TS.jitted_decode_step(tcfg)
+    with pytest.raises(NotImplementedError, match="Whisper"):
+        serve(tp, cache, toks[:, :1], 0, enc=torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="Whisper"):
+        TM.warm_cross_cache(tp, tcfg, cache, torch.zeros(1))
+
+
+def test_dense_decode_refuses_unported_sublayers():
+    _, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    from repro_torch.models import blocks
+    with pytest.raises(NotImplementedError, match="other model families"):
+        blocks.init_sublayer_cache("mla", tcfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="other model families"):
+        blocks._sublayer_decode("moe", {}, torch.zeros(1, 1, 4), {}, tcfg,
+                                {})
+    mla = dataclasses.replace(tcfg, attention="mla")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        TM.P.model_spec(mla)
+
+
+@pytest.mark.parametrize("argv,expect", [
+    (["--arch", "mamba2-130m"], "mamba2-130m-smoke"),
+    (["--legacy", "--batch", "3"], "qwen2-7b-smoke"),
+], ids=["mamba2-fallback", "qwen2-legacy"])
+def test_serve_launcher_legacy_path_on_the_cpu(argv, expect, tmp_path,
+                                               capsys):
+    from repro_torch.launch import serve
+    out = tmp_path / "m.jsonl"
+    serve.main(["--torch-device", "cpu", "--max-new", "4", "--prompt-len",
+                "6", "--metrics-out", str(out), *argv])
+    text = capsys.readouterr().out
+    n = 3 if "--batch" in argv else 8
+    assert expect in text and "cloud-h100" in text
+    assert f"legacy dense: {4 * n} tokens" in text
+    assert '"path": "legacy"' in out.read_text()
