@@ -22,7 +22,8 @@ Phases (any failure exits nonzero):
    PyTorch versions in fp32 and bf16 on the JAX package's FA_CASES shapes
    and on opt-1.3b's attention shape, and time kernel, plain version,
    SDPA (forward, and its backward for the dq + dk/dv pair) and the bound
-   at opt-1.3b's shape;
+   at opt-1.3b's shape; the bf16 forward and dk/dv must execute more than
+   the fp32 CUDA cores' 67 TFLOP/s (they run on the tensor cores);
 4. train opt-1.3b at full width and depth in bf16 (4 x 2048 tokens, random
    weights from a seed) through ``repro_torch.train.trainer.train`` with
    the kernels for 8 steps, check the losses and that every attention
@@ -86,14 +87,17 @@ FA_CASES = [(2, 256, 4, 2, 64, True, 0), (1, 384, 4, 4, 128, True, 0),
 OPT_FA = (4, 2048, 32, 32, 64, True, 0)
 # kernel vs plain, as a share of the reference's largest magnitude (at
 # least 1): both compute in fp32 from the same inputs and differ in
-# summation order only; a bf16 output may round to the neighbouring value,
-# 2**-7 of it
+# summation order only (the bf16 forward and dk/dv kernels multiply P and
+# dS on the tensor cores as hi + lo bf16 pairs, which keeps each product
+# within 2**-18 of fp32); a bf16 output may round to the neighbouring
+# value, 2**-7 of it
 FA_TOL = {"float32": {"out": 1e-5, "lse": 1e-5, "grad": 1e-4},
           "bfloat16": {"out": 2.0 ** -7, "lse": 1e-5, "grad": 1e-4}}
 # one opt-1.3b step, kernels vs the chunked path from the same weights and
 # batch.  fp32 compute: the two differ in summation order only.  bf16
 # compute: the chunked path rounds p and ds to bf16 before their products
-# (as the JAX chunked twin does) where the kernels keep fp32, and both
+# (as the JAX chunked twin does) where the kernels keep them to fp32 (hi +
+# lo bf16 pairs), and both
 # round each attention output to bf16, then 24 layers of bf16 residual
 # stream; the loss (~11, fp32 from bf16 logits) may move by a third of one
 # bf16 step there (0.0625), the grad norm by a few percent
@@ -497,6 +501,12 @@ def fa_tensors(torch, case, dtype, device, seed):
     return q, k, v, do
 
 
+# FLOP a kernel executes per FLOP of the function, in bf16: the forward
+# multiplies P as two bf16 halves (3 products where 2 are counted), dk/dv
+# P and dS (6 where 4 are counted); dq runs unsplit on the CUDA cores
+FA_EXECUTED = {"fwd": 1.5, "dq": 1.0, "dkdv": 1.5}
+
+
 def fa_work(case, q, k, v, do):
     """(FLOPs, bytes) of one call of each kernel on these inputs: every
     visible (query, key) pair costs 2*D per product, and each input is
@@ -604,7 +614,17 @@ def phase_fa(torch, device, timer):
             f"({'SDPA backward, dq+dk+dv together' if kern != 'fwd' else 'SDPA forward'}) "
             f"bound_ms {timing[kern]['bound_ms']:.4f} ({flops:.3e} FLOP, "
             f"{nbytes/1e6:.1f} MB; bound by {timing[kern]['bound_by']}); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+            f"{flops / ms / 1e9:.1f} TFLOP/s counted, "
+            f"{FA_EXECUTED[kern] * flops / ms / 1e9:.1f} TFLOP/s executed")
+        if kern in ("fwd", "dkdv") and \
+                FA_EXECUTED[kern] * flops / ms * 1e3 <= FP32_FLOP_PER_S:
+            fail(f"the bf16 {kern} kernel executed no more than the fp32 "
+                 f"CUDA cores' {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: it is "
+                 "not running on the tensor cores")
+    bwd_ms = timing["dq"]["ms"] + timing["dkdv"]["ms"]
+    log(f"backward at opt-1.3b shape: dq + dk/dv {bwd_ms:.4f} ms vs SDPA's "
+        f"whole backward {timing['dq']['library_ms']:.4f} ms "
+        f"({bwd_ms / timing['dq']['library_ms']:.2f}x)")
     log("FA-2 kernels held against their plain versions: worst "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst, timing
@@ -653,8 +673,9 @@ def profile_step(torch, step_fn, params, opt_state, batch, step_ms):
     groups = {}
     for dev_us, key, _ in rows:
         kind = ("FA-2 kernels" if any(w in key for w in (
-                    "fa_fwd_kernel<", "fa_bwd_dq_kernel<",
-                    "fa_bwd_dkdv_kernel<")) else
+                    "fa_fwd_kernel<", "fa_fwd_tc_kernel<",
+                    "fa_bwd_dq_kernel<", "fa_bwd_dkdv_kernel<",
+                    "fa_bwd_dkdv_tc_kernel<")) else
                 "GEMMs" if any(w in key for w in ("nvjet", "gemm", "cutlass",
                                                   "sm90_xmma")) else
                 "reductions" if "reduce" in key else

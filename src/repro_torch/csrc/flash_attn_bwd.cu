@@ -4,19 +4,25 @@
 // kernel.py (launched by _bwd_bhsd):
 //  * _fa_bwd_dq_kernel   -> fa_bwd_dq_kernel: one block per (b, h, 64-row
 //    query tile), looping over key tiles: dq = sum_j ds_ij k_j;
-//  * _fa_bwd_dkdv_kernel -> fa_bwd_dkdv_kernel: one block per (b, kv head,
-//    64-row key tile), looping over the g query heads of the group and
-//    their query tiles: dk = sum_i ds_ij^T q_i, dv = sum_i p_ij^T do_i.
-//    The group sum happens inside the block, so dk/dv are written once per
-//    kv head; the TPU kernel wrote a (B, H, T, D) fp32 intermediate and
-//    summed the group outside (kernel.py:370).
+//  * _fa_bwd_dkdv_kernel -> fa_bwd_dkdv_tc_kernel (bf16) and
+//    fa_bwd_dkdv_kernel (fp32): one block per (b, kv head, 64-row key
+//    tile), looping over the g query heads of the group and their query
+//    tiles: dk = sum_i ds_ij^T q_i, dv = sum_i p_ij^T do_i.  The group sum
+//    happens inside the block, so dk/dv are written once per kv head; the
+//    TPU kernel wrote a (B, H, T, D) fp32 intermediate and summed the
+//    group outside (kernel.py:370).
 // Both recompute p = exp(s - lse) from the forward's lse and take
 // ds = p * (do.v - delta) * scale with delta = rowsum(do * out) computed
 // outside (kernel.py:293).  Outputs are fp32, cast by the caller.
-// Tiling, masks and what bounds them: see flash_attn.cuh.
 //
 // At opt-1.3b's shape (B=4, S=2048, H=32, D=64, causal, bf16) dq is
-// 1.0e11 FLOP and dk/dv 1.4e11 FLOP: both bound by operations on this card.
+// 1.0e11 FLOP and dk/dv 1.4e11 FLOP: both bound by operations on this
+// card.  For bf16 inputs dk/dv runs on the tensor cores: S^T = K Q^T and
+// dP^T = V dO^T by mma.sync, P^T and dS^T formed on the accumulators in
+// registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+// their hi and lo bf16 halves (6 products where unsplit ones take 4; see
+// flash_attn.cuh).  Q, dO, lse and delta stream through two cp.async
+// stages.  dq (both dtypes) and fp32 dk/dv run on the CUDA cores.
 
 #include "flash_attn.cuh"
 
@@ -205,6 +211,111 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(const Params p) {
   }
 }
 
+// bf16: one block of 4 warps per (b, kv head, 64-row key tile); warp w
+// owns key rows 16w .. 16w + 15, each thread rows g, g + 8 of those.
+// Query tiles are kQ rows: 64, or 32 at D = 128, where the dK and dV
+// accumulators alone take 128 registers a thread.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    fa_bwd_dkdv_tc_kernel(const Params p) {
+  constexpr int LD = D + 8, kQ = D > 96 ? 32 : 64;
+  constexpr int kTile = kBlock * LD, kQTile = kQ * LD;
+  const int k0 = blockIdx.x * kBlock, hk = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kBlock][LD]  k
+  bf16* vs = ks + kTile;                         // [kBlock][LD]  v
+  bf16* qdo = vs + kTile;                        // 2 stages x (q, do)
+  float* rows_s = reinterpret_cast<float*>(qdo + 4 * kQTile);
+                                                 // 2 stages x (lse, delta)
+
+  const int k1 = min(p.T, k0 + kBlock);
+  int q_begin, q_end;
+  q_range(p, k0, k1, &q_begin, &q_end);
+  const int nq = max(0, (q_end - q_begin + kQ - 1) / kQ);  // tiles a head
+  const int n = nq * p.group;
+  auto load_q = [&](int i) {  // query tile i of the group -> stage i % 2
+    const int h = hk * p.group + i / nq, q0 = q_begin + (i % nq) * kQ;
+    const int rows = min(kQ, p.S - q0);
+    bf16* dst = qdo + (i & 1) * 2 * kQTile;
+    cp_tile<D, kQ>(dst, p.q, p.sq, b, h, q0, rows);
+    cp_tile<D, kQ>(dst + kQTile, p.dout, p.sdo, b, h, q0, rows);
+    const long long row0 = (static_cast<long long>(b) * p.H + h) * p.S + q0;
+    float* dst_rows = rows_s + (i & 1) * 2 * kQ;
+    for (int r = threadIdx.x; r < kQ; r += kTcThreads) {
+      cp_async4(dst_rows + r, r < rows ? p.lse + row0 + r : p.lse,
+                r < rows ? 4 : 0);
+      cp_async4(dst_rows + kQ + r, r < rows ? p.delta + row0 + r : p.delta,
+                r < rows ? 4 : 0);
+    }
+  };
+  cp_tile<D, kBlock>(ks, p.k, p.sk, b, hk, k0, k1 - k0);
+  cp_tile<D, kBlock>(vs, p.v, p.sv, b, hk, k0, k1 - k0);
+  if (n > 0) load_q(0);
+  cp_async_commit();
+
+  const float scale2 = p.scale * kLog2e;  // scores in log2 units
+  const int key = k0 + warp * 16 + g;     // this thread's keys: key, key + 8
+  // dk accumulates sum_i (p * (dp - delta))^T q; the scale is applied once
+  // at the end
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) load_q(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i (and k, v) have landed
+    __syncthreads();
+    const int q0 = q_begin + (i % nq) * kQ;
+    const bf16* qs = qdo + (i & 1) * 2 * kQTile;
+    const bf16* dos = qs + kQTile;
+    const float* lse_s = rows_s + (i & 1) * 2 * kQ;
+    const float* dlt_s = lse_s + kQ;
+
+    // transposed products: row = key, column = query
+    float st[kQ / 8][4] = {}, dpt[kQ / 8][4] = {};
+    mma_abt<D, kQ>(st, ks + warp * 16 * LD, qs, lane);
+    mma_abt<D, kQ>(dpt, vs + warp * 16 * LD, dos, lane);
+    const bool full = all_visible(p, q0, kQ, k0, kBlock);
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j) {
+      const int c = 8 * j + 2 * t;  // this lane's columns c, c + 1
+      const float2 lse = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dlt = *reinterpret_cast<const float2*>(dlt_s + c);
+      const float lse2[2] = {lse.x * kLog2e, lse.y * kLog2e};
+      const float dl[2] = {dlt.x, dlt.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok =
+            full || visible(p, q0 + c + (e & 1), key + 8 * (e >> 1));
+        const float pr =
+            ok ? fast_exp2(fmaf(st[j][e], scale2, -lse2[e & 1])) : 0.f;
+        st[j][e] = pr;
+        dpt[j][e] = pr * (dpt[j][e] - dl[e & 1]);
+      }
+    }
+    mma_split_xb<D, kQ>(dv, st, dos, lane);
+    mma_split_xb<D, kQ>(dk, dpt, qs, lane);
+    __syncthreads();  // stage i % 2 is free for tile i + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = key + 8 * r;
+    if (kp >= p.T) continue;
+    float* krow = p.dk + row_off(p.sdk, b, hk, kp);
+    float* vrow = p.dv + row_off(p.sdv, b, hk, kp);
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn) {
+      *reinterpret_cast<float2*>(krow + nn * 8 + 2 * t) =
+          make_float2(dk[nn][2 * r] * p.scale, dk[nn][2 * r + 1] * p.scale);
+      *reinterpret_cast<float2*>(vrow + nn * 8 + 2 * t) =
+          make_float2(dv[nn][2 * r], dv[nn][2 * r + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t run_dq(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * kLdT + 2 * kBlock * (D + 1) +
@@ -213,49 +324,57 @@ cudaError_t run_dq(const Params& p, cudaStream_t stream) {
   return launch(fa_bwd_dq_kernel<T, D>, grid, smem, p, stream);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t run_dkdv(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * kLdT + 2 * kBlock * (D + 1) +
                                        2 * kBlock * kLdT + 2 * kBlock);
   const dim3 grid((p.T + kBlock - 1) / kBlock, p.K, p.B);
-  return launch(fa_bwd_dkdv_kernel<T, D>, grid, smem, p, stream);
+  return launch(fa_bwd_dkdv_kernel<float, D>, grid, smem, p, stream);
 }
 
-template <typename T>
-cudaError_t run_head_dim(const Params& p, int which, int head_dim,
-                         cudaStream_t s) {
-  switch (head_dim) {
-    case 32: return which == 0 ? run_dq<T, 32>(p, s) : run_dkdv<T, 32>(p, s);
-    case 64: return which == 0 ? run_dq<T, 64>(p, s) : run_dkdv<T, 64>(p, s);
-    case 96: return which == 0 ? run_dq<T, 96>(p, s) : run_dkdv<T, 96>(p, s);
-    case 128:
-      return which == 0 ? run_dq<T, 128>(p, s) : run_dkdv<T, 128>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-int run_dtype(const fa::Params* p, int which, int dtype, int head_dim,
-              void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return static_cast<int>(run_head_dim<float>(*p, which, head_dim, s));
-    case 1:
-      return static_cast<int>(
-          run_head_dim<__nv_bfloat16>(*p, which, head_dim, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+cudaError_t run_dkdv_tc(const Params& p, cudaStream_t stream) {
+  constexpr int kQ = D > 96 ? 32 : 64;
+  // k, v; 2 stages x (q, do) in bf16, then 2 stages x (lse, delta) in fp32
+  const size_t smem = sizeof(bf16) * (2 * kBlock + 4 * kQ) * (D + 8) +
+                      sizeof(float) * 4 * kQ;
+  const dim3 grid((p.T + kBlock - 1) / kBlock, p.K, p.B);
+  return launch(fa_bwd_dkdv_tc_kernel<D>, grid, smem, p, stream, kTcThreads);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim 32, 64, 96 or 128.  Each returns
-// cudaGetLastError() after its launch (0 on success).
+// dtype: 0 float32, 1 bfloat16 (dk/dv on the tensor cores); head_dim 32,
+// 64, 96 or 128.  Each returns cudaGetLastError() after its launch (0 on
+// success).
 extern "C" int fa_bwd_dq_launch(const fa::Params* p, int dtype, int head_dim,
                                 void* stream) {
-  return run_dtype(p, 0, dtype, head_dim, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
+        return run_dq<float, decltype(d)::value>(*p, s);
+      }));
+    case 1:
+      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
+        return run_dq<bf16, decltype(d)::value>(*p, s);
+      }));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int fa_bwd_dkdv_launch(const fa::Params* p, int dtype,
                                   int head_dim, void* stream) {
-  return run_dtype(p, 1, dtype, head_dim, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
+        return run_dkdv<decltype(d)::value>(*p, s);
+      }));
+    case 1:
+      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
+        return run_dkdv_tc<decltype(d)::value>(*p, s);
+      }));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -6,10 +6,15 @@
 // tile) an online softmax over the key tiles of kv head h / group, with
 // the running max m, the running sum l and the output accumulator in fp32;
 // it writes out = acc / l in the input dtype and lse = m + log(l) in fp32.
-// Tiling, masks and what bounds it: see flash_attn.cuh.
 //
 // At opt-1.3b's shape (B=4, S=2048, H=32, D=64, causal, bf16) the work is
-// 6.9e10 FLOP over ~68 MB of I/O: bound by operations on this card.
+// 6.9e10 FLOP over ~68 MB of I/O: bound by operations on this card, so
+// bf16 inputs run on the tensor cores (fa_fwd_tc_kernel): S = Q K^T by
+// mma.sync from ldmatrix fragments, the softmax on the accumulators in
+// registers, and P V with P as its hi and lo bf16 halves (3 products
+// where an unsplit P takes 2; see flash_attn.cuh).  K and V tiles stream
+// through two cp.async stages, the next tile's copy behind this tile's
+// products.  fp32 inputs run on the CUDA cores (fa_fwd_kernel).
 
 #include "flash_attn.cuh"
 
@@ -108,36 +113,138 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
+// bf16: one block of 4 warps per (b, h, 64-row query tile); warp w owns
+// query rows 16w .. 16w + 15 of the tile, and each thread rows g, g + 8 of
+// those (g = lane / 4).  At D <= 64 the registers are held to 128 a thread
+// so that four blocks share an SM.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
+    fa_fwd_tc_kernel(const Params p) {
+  constexpr int LD = D + 8, kTile = kBlock * LD;
+  // causal: the last query tiles see the most keys, so they go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBlock][LD]  q
+  bf16* kv = qs + kTile;                         // 2 stages x (k, v)
+
+  const int q1 = min(p.S, q0 + kBlock);
+  int k_begin, k_end;
+  kv_range(p, q0, q1, &k_begin, &k_end);
+  const int n = (k_end - k_begin + kBlock - 1) / kBlock;
+  auto load_kv = [&](int i) {  // key tile i -> stage i % 2
+    const int k0 = k_begin + i * kBlock, rows = min(kBlock, p.T - k0);
+    bf16* dst = kv + (i & 1) * 2 * kTile;
+    cp_tile<D, kBlock>(dst, p.k, p.sk, b, hk, k0, rows);
+    cp_tile<D, kBlock>(dst + kTile, p.v, p.sv, b, hk, k0, rows);
+  };
+  cp_tile<D, kBlock>(qs, p.q, p.sq, b, h, q0, q1 - q0);
+  if (n > 0) load_kv(0);
+  cp_async_commit();
+
+  const float scale2 = p.scale * kLog2e;  // scores in log2 units
+  const int row = q0 + warp * 16 + g;     // this thread's rows: row, row + 8
+  float o[D / 8][4] = {};
+  float m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) load_kv(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i (and q) have landed
+    __syncthreads();
+    const int k0 = k_begin + i * kBlock;
+    const bf16* ks = kv + (i & 1) * 2 * kTile;
+
+    float s[kBlock / 8][4] = {};
+    mma_abt<D, kBlock>(s, qs + warp * 16 * LD, ks, lane);
+    const bool full = all_visible(p, q0, kBlock, k0, kBlock);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = full || visible(p, row + 8 * (e >> 1),
+                                        k0 + 8 * j + 2 * t + (e & 1));
+        s[j][e] = ok ? s[j][e] * scale2 : kNegInf2;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = fast_exp2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = fast_exp2(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];  // this lane's part of the row sum
+      }
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nn][e] *= alpha[e >> 1];
+    mma_split_xb<D, kBlock>(o, s, ks + kTile, lane);
+    __syncthreads();  // stage i % 2 is free for tile i + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qp = row + 8 * r;
+    if (qp >= p.S) continue;
+    const float L = fmaxf(l[r], 1e-30f);
+    bf16* orow = static_cast<bf16*>(p.out) + row_off(p.so, b, h, qp);
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nn * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[nn][2 * r] / L, o[nn][2 * r + 1] / L);
+    if (t == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.S + qp] =
+          (m[r] + log2f(L)) * kLn2;
+  }
+}
+
+template <int D>
 cudaError_t run(const Params& p, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (D * kLdT + 2 * kBlock * (D + 1) + kBlock * kLdT);
   const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
-  return launch(fa_fwd_kernel<T, D>, grid, smem, p, stream);
+  return launch(fa_fwd_kernel<float, D>, grid, smem, p, stream);
 }
 
-template <typename T>
-cudaError_t run_head_dim(const Params& p, int head_dim, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32: return run<T, 32>(p, stream);
-    case 64: return run<T, 64>(p, stream);
-    case 96: return run<T, 96>(p, stream);
-    case 128: return run<T, 128>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t run_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * 5 * kBlock * (D + 8);  // q, 2 x (k, v)
+  const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
+  return launch(fa_fwd_tc_kernel<D>, grid, smem, p, stream, kTcThreads);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim 32, 64, 96 or 128.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); head_dim 32,
+// 64, 96 or 128.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int fa_fwd_launch(const fa::Params* p, int dtype, int head_dim,
                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(run_head_dim<float>(*p, head_dim, s));
+    case 0:
+      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
+        return run<decltype(d)::value>(*p, s);
+      }));
     case 1:
-      return static_cast<int>(run_head_dim<__nv_bfloat16>(*p, head_dim, s));
+      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
+        return run_tc<decltype(d)::value>(*p, s);
+      }));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,7 +3,8 @@ wrappers, their plain PyTorch versions, and the autograd wiring.
 
 Port of ``repro.kernels.flash_attention.kernel``.  Its three Pallas TPU
 kernels become hand-written sm_90a kernels (see the notes at the top of
-``csrc/flash_attn.cuh``):
+``csrc/flash_attn.cuh``; bf16 forward and dk/dv run on the tensor cores,
+fp32 inputs and dq on the CUDA cores):
 
 * ``_fa_fwd_kernel``      -> ``csrc/flash_attn_fwd.cu``, wrapped by
   :func:`flash_attention_fwd` -> (out, lse);
@@ -18,7 +19,9 @@ in its ``.launches``), runs its plain version for CPU tensors, and raises
 for anything else.  Layout is (B, H, S, D) for q and (B, K, T, D) for k/v,
 as in the JAX package; any strides work as long as the last dimension is
 dense, so (B, S, H, D) activations go in through transposed views without
-a copy.  :class:`FlashAttention` replaces the ``_flash_core`` custom VJP:
+a copy.  bf16 q, k, v and do must also start every row on 16 bytes
+(``data_ptr`` and the batch, head and row strides multiples of 8
+elements); the wrappers raise otherwise.  :class:`FlashAttention` replaces the ``_flash_core`` custom VJP:
 the forward saves (q, k, v, out, lse), the backward computes
 Δ = rowsum(do ⊙ out) outside the kernels (as ``kernel.py:293`` did) and
 returns gradients in the primal dtypes.
@@ -141,6 +144,14 @@ def _dense_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every (b, h, row) of a bf16 tensor starts on 16 bytes: the bf16
+    tensor-core kernels copy rows with cp.async and read them with
+    ldmatrix, 16 bytes at a time."""
+    return t.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
 # tensor argument -> its field of strides in _Params
 _STRIDE_FIELDS = {"q": "sq", "k": "sk", "v": "sv", "dout": "sdo",
                   "out": "so", "dq": "sdq", "dk": "sdk", "dv": "sdv"}
@@ -164,6 +175,14 @@ def _params(q, k, v, causal, window, scale, **tensors) -> _Params:
     ts = {"q": q, "k": k, "v": v, **tensors}
     _check(all(t.device == q.device for t in ts.values()),
            "all tensors must be on one device")
+    if q.dtype == torch.bfloat16:
+        for name in ("q", "k", "v", "dout"):
+            t = ts.get(name)
+            if t is not None and not _rows_aligned(t):
+                raise ValueError(
+                    f"flash attention: bf16 {name} rows must start on 16 "
+                    f"bytes (data_ptr {t.data_ptr()}, strides "
+                    f"{t.stride()[:3]}: multiples of 8 elements)")
     p = _Params()
     for name, t in ts.items():
         setattr(p, name, t.data_ptr())

@@ -63,6 +63,12 @@ FA_CASES = [
 ]
 FA_IDS = ["gqa2", "mha-d128", "gqa4-window", "noncausal-200", "d96-s130",
           "cross-t230-d32"]
+# on the card also opt-1.3b's attention at 4 x 2048 tokens (the train
+# step's shape) and a GQA case at head_dim 128 with S not a multiple of 64
+# (dk/dv's 32-row query tiles, a ragged last tile)
+CARD_FA_CASES = FA_CASES + [(4, 2048, 32, 32, 64, True, 0),
+                            (2, 333, 8, 2, 128, True, 0)]
+CARD_FA_IDS = FA_IDS + ["opt-1.3b", "gqa4-d128-s333"]
 
 
 # (N, block): the JAX package's quant8 cases (tests/test_kernels.py), then
@@ -185,7 +191,7 @@ def test_cuda_engine_kernel_matches_gather(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+@pytest.mark.parametrize("case", CARD_FA_CASES, ids=CARD_FA_IDS)
 def test_cuda_fa2_kernels_match_plain_versions(case, dtype, cuda):
     causal, window = case[5], case[6]
     q, k, v, do = (torch.from_numpy(x).to(cuda, dtype).transpose(1, 2)
@@ -207,14 +213,50 @@ def test_cuda_fa2_kernels_match_plain_versions(case, dtype, cuda):
     ref_dq = FK.attention_bwd_dq_plain(q, k, v, do, ref_lse, delta, **kw)
     ref_dk, ref_dv = FK.attention_bwd_dkdv_plain(q, k, v, do, ref_lse,
                                                  delta, **kw)
-    # fp32 math on both sides from the same inputs; a bf16 output differs
-    # by at most one rounding step (2**-7 of the value)
+    # fp32 products on both sides from the same inputs (bf16 kernels
+    # multiply P and dS as hi + lo bf16 pairs, within 2**-18 of fp32); a
+    # bf16 output differs by at most one rounding step (2**-7 of the value)
     out_tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=out_tol,
                                atol=1e-5)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     for mine, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         torch.testing.assert_close(mine, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_fa2_bf16_rows_must_start_on_16_bytes(cuda):
+    from repro_torch.models import model as M
+    B, S, H, D = 2, 128, 4, 64
+    n = B * S * H * D
+    flat = torch.randn(n + 8, device=cuda).to(torch.bfloat16)
+    good = flat[:n].view(B, S, H, D).transpose(1, 2)
+    off = flat[1:n + 1].view(B, S, H, D).transpose(1, 2)   # one element on
+    lse = torch.zeros((B, H, S), device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        FK.flash_attention_fwd(off, good, good)
+    with pytest.raises(ValueError, match="16 bytes"):
+        FK.flash_attention_bwd_dkdv(good, off, good, good, lse, lse)
+    with pytest.raises(ValueError, match="16 bytes"):
+        FK.flash_attention_bwd_dkdv(good, good, good, off, lse, lse)
+    # the main path's q, k, v (B, S, H, D) projections seen through
+    # transpose(1, 2), and the cotangent autograd hands the backward
+    cfg = get_config("opt-125m-smoke")
+    assert cfg.compute_dtype == "bfloat16"
+    params = init_params(cfg, device=cuda, seed=0)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 129))).to(cuda)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    fns = (FK.flash_attention_fwd, FK.flash_attention_bwd_dkdv)
+    before = [f.launches for f in fns]
+    loss, _ = M.forward_train(params, cfg, {"tokens": toks[:, :-1],
+                                            "labels": toks[:, 1:]},
+                              attn_impl="kernel")
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == \
+        [cfg.num_layers] * 2
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,95 @@
+"""The numerical design of the bf16 FA-2 forward and dk/dv kernels
+(``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``), checked on the
+CPU by emulating their rounding in plain PyTorch.
+
+The kernels run every product on the tensor cores, whose operands are
+bf16 and whose sums are fp32.  q, k, v and do are bf16 already, so
+q·kᵀ and do·vᵀ are exact products summed in fp32, as in the plain
+versions.  P (forward and dV) and dS (dK) are fp32 values; each is split
+into hi = bf16(x) and lo = bf16(x - hi) and both halves are multiplied,
+which leaves a residual of at most 2**-18 of x.  The emulation below
+holds that design to the bars the card test
+``test_cuda_fa2_kernels_match_plain_versions`` applies to the kernels,
+and records that a single bf16 rounding of P and dS, as FA-2 does it,
+breaks them.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    NEG_INF, visible)
+
+from test_torch_cuda import FA_CASES, FA_IDS, fa_inputs  # noqa: E402
+
+# the card test's bars: out after both sides round to bf16; dk and dv fp32
+OUT_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _bf16_operand(x, split):
+    """What the tensor cores multiply in place of the fp32 ``x``: the sum
+    of a bf16 hi and lo pair, or x rounded once to bf16."""
+    hi = x.to(torch.bfloat16).float()
+    if split == "single":
+        return hi
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _emulated(q, k, v, do, lse, delta, causal, window, split):
+    """(out, dk, dv) with the kernels' roundings: fp32 scores and softmax,
+    P and dS through ``_bf16_operand``, products summed in fp32."""
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    g, scale = H // K, 1.0 / D ** 0.5
+    qf = q.float().reshape(B, K, g, S, D)
+    dof = do.float().reshape(B, K, g, S, D)
+    kf, vf = k.float(), v.float()
+    ok = visible(S, T, causal=causal, window=window)
+    s = (torch.einsum("bkgsd,bktd->bkgst", qf, kf) * scale).masked_fill(
+        ~ok, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgst,bktd->bkgsd", _bf16_operand(p, split), vf) / l
+    # the backward recomputes P from lse (masked entries are exactly 0)
+    pb = torch.exp(s - lse.reshape(B, K, g, S, 1))
+    dp = torch.einsum("bkgsd,bktd->bkgst", dof, vf)
+    ds = pb * (dp - delta.reshape(B, K, g, S, 1)) * scale
+    dv = torch.einsum("bkgst,bkgsd->bktd", _bf16_operand(pb, split), dof)
+    dk = torch.einsum("bkgst,bkgsd->bktd", _bf16_operand(ds, split), qf)
+    return out.reshape(B, H, S, D).to(q.dtype), dk, dv
+
+
+def _within(a, b, rtol, atol):
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+@pytest.mark.parametrize("split", ["hi_lo", "single"])
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+def test_split_products_meet_the_card_bars(case, split):
+    causal, window = case[5], case[6]
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2)
+                   for x in fa_inputs(case, seed=5))
+    kw = dict(causal=causal, window=window)
+    ref_out, lse = FK.attention_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    ref_dk, ref_dv = FK.attention_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                 **kw)
+    out, dk, dv = _emulated(q, k, v, do, lse, delta, causal, window, split)
+    ok = {"out": _within(out.float(), ref_out.float(), **OUT_TOL),
+          "dk": _within(dk, ref_dk, **GRAD_TOL),
+          "dv": _within(dv, ref_dv, **GRAD_TOL)}
+    if split == "hi_lo":
+        assert all(ok.values()), ok
+        # P and dS kept to fp32 within the split's residual: dv's error
+        # is a few millionths of its largest magnitude
+        assert float((dv - ref_dv).abs().max()) \
+            <= 1e-5 * float(ref_dv.abs().max())
+    else:
+        # one bf16 rounding of P and dS is why the kernels split: the
+        # gradients leave their bars in every case
+        assert not (ok["dk"] and ok["dv"]), ok

@@ -186,3 +186,26 @@ def test_launch_counters_count_only_kernel_launches():
     tx = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     flash_attention(*tx).sum().backward()              # CPU: plain versions
     assert [f.launches for f in fns] == before
+
+
+def test_bf16_params_need_rows_on_16_bytes():
+    """The bf16 tensor-core kernels copy and read every row 16 bytes at a
+    time: the parameter block refuses a bf16 view that starts one element
+    on or whose row stride is not a multiple of 8, takes the (B, S, H, D)
+    projections seen through transpose(1, 2), and leaves fp32 (the CUDA-core
+    kernels) free."""
+    B, S, H, D = 2, 64, 4, 64
+    n = B * S * H * D
+    flat = torch.zeros(n + 8 * B * S, dtype=torch.bfloat16)
+    good = flat[:n].view(B, S, H, D).transpose(1, 2)
+    off = flat[1:n + 1].view(B, S, H, D).transpose(1, 2)
+    padded = flat[:B * S * (H * D + 4)].view(B, S, H * D + 4)[..., :H * D] \
+        .unflatten(-1, (H, D)).transpose(1, 2)
+    TK._params(good, good, good, True, 0, None, dout=good)
+    for kw in ({"q": off}, {"k": off}, {"v": padded}, {"dout": off}):
+        args = {"q": good, "k": good, "v": good, "dout": good, **kw}
+        with pytest.raises(ValueError, match="16 bytes"):
+            TK._params(args["q"], args["k"], args["v"], True, 0, None,
+                       dout=args["dout"])
+    f32 = [t.float() for t in (off, padded)]
+    TK._params(f32[0], f32[1], f32[1], True, 0, None)
