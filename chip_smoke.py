@@ -19,11 +19,13 @@ Phases (any failure exits nonzero):
    kernel, and compare one mixed decode/prefill step's logits between the
    kernel and the plain gather path;
 3. hold the three FA-2 kernels (forward, dq, dk/dv) against their plain
-   PyTorch versions in fp32 and bf16 on the JAX package's FA_CASES shapes
-   and on opt-1.3b's attention shape, and time kernel, plain version,
-   SDPA (forward, and its backward for the dq + dk/dv pair) and the bound
-   at opt-1.3b's shape; the bf16 forward and dk/dv must execute more than
-   the fp32 CUDA cores' 67 TFLOP/s (they run on the tensor cores);
+   PyTorch versions in fp32 and bf16 on the JAX package's FA_CASES shapes,
+   MLA's head widths (qk 96 / v 64 and 192 / 128), a width the wrappers
+   zero-pad, and opt-1.3b's attention shape, and time kernel, plain
+   version, SDPA (forward, and its backward for the dq + dk/dv pair) and
+   the bound at opt-1.3b's shape; the bf16 forward, dq and dk/dv must
+   execute more than the fp32 CUDA cores' 67 TFLOP/s (they run on the
+   tensor cores);
 4. train opt-1.3b at full width and depth in bf16 (4 x 2048 tokens, random
    weights from a seed) through ``repro_torch.train.trainer.train`` with
    the kernels for 8 steps, check the losses and that every attention
@@ -78,18 +80,24 @@ BF16_FLOP_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 H, K, D, BS, B = 28, 4, 128, 16, 8  # qwen2-7b attention; 8 engine slots
 TOL = {"float32": 2e-5, "bfloat16": 1e-4, "int8": 1e-4}
 LOGITS_TOL = 5e-2                  # the repo's int8/bf16 logits bar
-# FA-2 shapes (B, S, H, K, D, causal, window[, T]): the JAX package's
-# FA_CASES (tests/test_kernels.py) and a non-causal T != S case, then
-# opt-1.3b's attention at 4 x 2048 tokens
+# FA-2 shapes (B, S, H, K, D, causal, window[, T[, Dv]]; T None is S, Dv
+# absent is D): the JAX package's FA_CASES (tests/test_kernels.py) and a
+# non-causal T != S case; MLA's widths (deepseek-v3-671b-smoke's qk 96 /
+# v 64, here GQA with a ragged S, and the full model's 192 / 128); a width
+# the wrappers zero-pad to 96; then opt-1.3b's attention at 4 x 2048
+# tokens
 FA_CASES = [(2, 256, 4, 2, 64, True, 0), (1, 384, 4, 4, 128, True, 0),
             (2, 256, 8, 2, 64, True, 128), (1, 200, 2, 1, 64, False, 0),
-            (1, 130, 2, 2, 96, True, 0), (2, 100, 4, 2, 32, False, 0, 230)]
+            (1, 130, 2, 2, 96, True, 0), (2, 100, 4, 2, 32, False, 0, 230),
+            (2, 200, 4, 2, 96, True, 0, None, 64),
+            (2, 512, 16, 16, 192, True, 0, None, 128),
+            (1, 160, 4, 2, 80, True, 0)]
 OPT_FA = (4, 2048, 32, 32, 64, True, 0)
 # kernel vs plain, as a share of the reference's largest magnitude (at
 # least 1): both compute in fp32 from the same inputs and differ in
-# summation order only (the bf16 forward and dk/dv kernels multiply P and
-# dS on the tensor cores as hi + lo bf16 pairs, which keeps each product
-# within 2**-18 of fp32); a bf16 output may round to the neighbouring
+# summation order only (the bf16 kernels multiply P and dS on the tensor
+# cores as hi + lo bf16 pairs, which keeps each product within 2**-18 of
+# fp32); a bf16 output may round to the neighbouring
 # value, 2**-7 of it
 FA_TOL = {"float32": {"out": 1e-5, "lse": 1e-5, "grad": 1e-4},
           "bfloat16": {"out": 2.0 ** -7, "lse": 1e-5, "grad": 1e-4}}
@@ -488,43 +496,54 @@ def phase_engine(torch, np, device):
 # Phase 3: FA-2 kernels vs plain
 # --------------------------------------------------------------------------- #
 
+def fa_widths(case):
+    """(T, Dv) of an FA case: T defaults to S, Dv to D."""
+    S, D = case[1], case[4]
+    T = case[7] if len(case) > 7 and case[7] is not None else S
+    return T, (case[8] if len(case) > 8 else D)
+
+
 def fa_tensors(torch, case, dtype, device, seed):
-    """q (B,H,S,D), k/v (B,K,T,D), do: (B,H,S,D) views of (B,S,H,D)
-    tensors, the training layout the kernels read through strides."""
+    """q (B,H,S,D), k (B,K,T,D), v (B,K,T,Dv), do (B,H,S,Dv): views of
+    (B,S,H,·) tensors, the training layout the kernels read through
+    strides."""
     Bc, S, Hc, Kc, Dc = case[:5]
-    T = case[7] if len(case) > 7 else S
+    T, Dv = fa_widths(case)
     g = torch.Generator(device=device).manual_seed(seed)
-    q, do = (torch.randn((Bc, S, Hc, Dc), generator=g, device=device)
-             .to(dtype).transpose(1, 2) for _ in range(2))
-    k, v = (torch.randn((Bc, T, Kc, Dc), generator=g, device=device)
-            .to(dtype).transpose(1, 2) for _ in range(2))
-    return q, k, v, do
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype) \
+            .transpose(1, 2)
+    return (randn(Bc, S, Hc, Dc), randn(Bc, T, Kc, Dc), randn(Bc, T, Kc, Dv),
+            randn(Bc, S, Hc, Dv))
 
 
-# FLOP a kernel executes per FLOP of the function, in bf16: the forward
-# multiplies P as two bf16 halves (3 products where 2 are counted), dk/dv
-# P and dS (6 where 4 are counted); dq runs unsplit on the CUDA cores
-FA_EXECUTED = {"fwd": 1.5, "dq": 1.0, "dkdv": 1.5}
+# FLOP a kernel executes per FLOP of the function, in bf16 at D = Dv: the
+# forward multiplies P as two bf16 halves (3 products where 2 are
+# counted), dq dS (4 where 3 are counted), dk/dv P and dS (6 where 4 are)
+FA_EXECUTED = {"fwd": 1.5, "dq": 4 / 3, "dkdv": 1.5}
 
 
 def fa_work(case, q, k, v, do):
     """(FLOPs, bytes) of one call of each kernel on these inputs: every
-    visible (query, key) pair costs 2*D per product, and each input is
-    read and each output written once."""
+    visible (query, key) pair costs 2*D for q.k and ds.k (and ds.q), 2*Dv
+    for do.v and p.v (and p.do), and each input is read and each output
+    written once."""
     from repro_torch.kernels.flash_attention.ref import visible
-    Bc, S, Hc, Kc, Dc, causal, window = case
-    pairs = int(visible(S, S, causal=causal, window=window,
-                        device=q.device).sum())
+    Bc, S, Hc, Kc, Dc, causal, window = case[:7]
+    T, Dv = fa_widths(case)
+    pairs = int(visible(S, T, causal=causal, window=window,
+                        device=q.device).sum()) * Bc * Hc
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
     rows = Bc * Hc * S * 4                           # one fp32 row value
     qkv = nb(q, k, v)
-    f32 = lambda t: t.numel() * 4                     # noqa: E731
+    f32 = lambda *ts: sum(t.numel() * 4 for t in ts)  # noqa: E731
     return {
-        "fwd": (2 * 2 * Dc * pairs * Bc * Hc, qkv + nb(q) + rows),
-        "dq": (3 * 2 * Dc * pairs * Bc * Hc, qkv + nb(do) + 2 * rows
+        "fwd": (2 * (Dc + Dv) * pairs, qkv + nb(do) + rows),  # out: do's
+        "dq": (2 * (2 * Dc + Dv) * pairs, qkv + nb(do) + 2 * rows
                + f32(q)),
-        "dkdv": (4 * 2 * Dc * pairs * Bc * Hc, qkv + nb(do) + 2 * rows
-                 + 2 * f32(k)),
+        "dkdv": (4 * (Dc + Dv) * pairs, qkv + nb(do) + 2 * rows
+                 + f32(k, v)),
     }
 
 
@@ -616,8 +635,7 @@ def phase_fa(torch, device, timer):
             f"{nbytes/1e6:.1f} MB; bound by {timing[kern]['bound_by']}); "
             f"{flops / ms / 1e9:.1f} TFLOP/s counted, "
             f"{FA_EXECUTED[kern] * flops / ms / 1e9:.1f} TFLOP/s executed")
-        if kern in ("fwd", "dkdv") and \
-                FA_EXECUTED[kern] * flops / ms * 1e3 <= FP32_FLOP_PER_S:
+        if FA_EXECUTED[kern] * flops / ms * 1e3 <= FP32_FLOP_PER_S:
             fail(f"the bf16 {kern} kernel executed no more than the fp32 "
                  f"CUDA cores' {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: it is "
                  "not running on the tensor cores")
@@ -674,8 +692,8 @@ def profile_step(torch, step_fn, params, opt_state, batch, step_ms):
     for dev_us, key, _ in rows:
         kind = ("FA-2 kernels" if any(w in key for w in (
                     "fa_fwd_kernel<", "fa_fwd_tc_kernel<",
-                    "fa_bwd_dq_kernel<", "fa_bwd_dkdv_kernel<",
-                    "fa_bwd_dkdv_tc_kernel<")) else
+                    "fa_bwd_dq_kernel<", "fa_bwd_dq_tc_kernel<",
+                    "fa_bwd_dkdv_kernel<", "fa_bwd_dkdv_tc_kernel<")) else
                 "GEMMs" if any(w in key for w in ("nvjet", "gemm", "cutlass",
                                                   "sm90_xmma")) else
                 "reductions" if "reduce" in key else

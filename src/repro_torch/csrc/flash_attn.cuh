@@ -16,23 +16,28 @@
 // against ~70 MB of I/O at opt-1.3b's shape).
 //
 // Two designs live here:
-//  * bf16 inputs, forward and dk/dv: the products run on the tensor cores
+//  * bf16 inputs (all three kernels): the products run on the tensor cores
 //    (mma.sync m16n8k16, bf16 operands, fp32 accumulators).  4 warps, each
 //    owning 16 rows of the block's tile; tiles arrive as bf16 by cp.async
-//    (double-buffered, rows padded to D + 8 so ldmatrix meets no bank
+//    (double-buffered, rows padded to width + 8 so ldmatrix meets no bank
 //    conflict, rows past S / T zero-filled); the score accumulators are
 //    the A fragments of the next product, so P and dS never leave the
 //    registers.  P and dS are fp32 values: each is split into
 //    hi = bf16(x) and lo = bf16(x - hi) and both halves are multiplied,
 //    which keeps the products to the Pallas bodies' fp32 within 2^-18.
-//  * fp32 inputs, and the dq kernel: the products run on the CUDA cores in
-//    fp32.  256 threads as 16 x 16; thread (tx, ty) holds the 4 x 4
-//    micro-tile of rows ty*4 + i and columns tx + 16*j of every 64 x 64
-//    product; tiles are staged in shared memory as fp32 (bf16 converted
-//    on load), one operand transposed ([D][68]) and the other row-major
-//    with a padded stride ([64][D+1]).  Bound by the fp32 FMA rate and
-//    shared-memory loads (five loads for 16 FMAs in the inner loop).  No
-//    bf16 product can meet the fp32 bars, so fp32 stays here by design.
+//  * fp32 inputs: the products run on the CUDA cores in fp32.  256
+//    threads as 16 x 16; thread (tx, ty) holds the 4 x 4 micro-tile of
+//    rows ty*4 + i and columns tx + 16*j of every 64-column product; tiles
+//    are staged in shared memory as fp32, one operand transposed
+//    ([width][68]) and the other row-major with a padded stride
+//    ([64][width+1]).  Bound by the fp32 FMA rate and shared-memory loads
+//    (five loads for 16 FMAs in the inner loop).  No bf16 product can
+//    meet the fp32 bars, so fp32 stays here by design.
+//
+// Every kernel is templated on the head width D (q, k, dq, dk) and the
+// value width Dv (v, do, out, dv): q.k^T sums over D, do.v^T over Dv.
+// by_head_dims instantiates the pairs the configs use; the wrapper
+// zero-pads any other D <= 192, Dv <= 128 to the next pair.
 //
 // Tensors are addressed through (batch, head, row) strides with a
 // contiguous last dimension, so (B, S, H, D) activations are read and
@@ -70,16 +75,16 @@ struct Strides {
 struct Params {
   const void* q;       // (B, H, S, D)  T
   const void* k;       // (B, K, T, D)  T
-  const void* v;       // (B, K, T, D)  T
-  const void* dout;    // (B, H, S, D)  T   (backward)
-  void* out;           // (B, H, S, D)  T   (forward)
+  const void* v;       // (B, K, T, Dv)  T
+  const void* dout;    // (B, H, S, Dv)  T   (backward)
+  void* out;           // (B, H, S, Dv)  T   (forward)
   float* lse;          // (B, H, S)  written by the forward, read backward
   const float* delta;  // (B, H, S)  rowsum(do * out)     (backward)
   float* dq;           // (B, H, S, D) fp32                (backward)
   float* dk;           // (B, K, T, D) fp32, summed over the group
-  float* dv;           // (B, K, T, D) fp32, summed over the group
+  float* dv;           // (B, K, T, Dv) fp32, summed over the group
   Strides sq, sk, sv, sdo, so, sdq, sdk, sdv;
-  int B, H, K, S, T, group, causal, window;
+  int B, H, K, S, T, D, Dv, group, causal, window;
   float scale;
 };
 
@@ -349,17 +354,31 @@ __device__ __forceinline__ void mma_split_xb(float (&acc)[D / 8][4],
   }
 }
 
-// Calls f(std::integral_constant<int, D>{}) for head_dim D in 32, 64, 96,
-// 128; anything else is refused.
+// Calls f(std::integral_constant<int, D>{}, std::integral_constant<int,
+// Dv>{}) for the (D, Dv) pairs the configs use: D = Dv in 32, 64, 96,
+// 128 (the dense models), (96, 64) and (192, 128) (MLA's qk and v widths,
+// smoke and full); anything else is refused.
 template <typename F>
-cudaError_t by_head_dim(int head_dim, F f) {
-  switch (head_dim) {
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 96: return f(std::integral_constant<int, 96>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return cudaErrorInvalidValue;
+cudaError_t by_head_dims(int d, int dv, F f) {
+  using std::integral_constant;
+  if (d == dv) {
+    switch (d) {
+      case 32: return f(integral_constant<int, 32>{},
+                        integral_constant<int, 32>{});
+      case 64: return f(integral_constant<int, 64>{},
+                        integral_constant<int, 64>{});
+      case 96: return f(integral_constant<int, 96>{},
+                        integral_constant<int, 96>{});
+      case 128: return f(integral_constant<int, 128>{},
+                         integral_constant<int, 128>{});
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (d == 96 && dv == 64)
+    return f(integral_constant<int, 96>{}, integral_constant<int, 64>{});
+  if (d == 192 && dv == 128)
+    return f(integral_constant<int, 192>{}, integral_constant<int, 128>{});
+  return cudaErrorInvalidValue;
 }
 
 // Raise the dynamic shared memory limit when needed, launch, and return

@@ -5,7 +5,8 @@
 // (launched by _fwd_bhsd).  Same function: for each (b, h, 64-row query
 // tile) an online softmax over the key tiles of kv head h / group, with
 // the running max m, the running sum l and the output accumulator in fp32;
-// it writes out = acc / l in the input dtype and lse = m + log(l) in fp32.
+// it writes out = acc / l (Dv columns) in the input dtype and
+// lse = m + log(l) in fp32.
 //
 // At opt-1.3b's shape (B=4, S=2048, H=32, D=64, causal, bf16) the work is
 // 6.9e10 FLOP over ~68 MB of I/O: bound by operations on this card, so
@@ -22,9 +23,9 @@ namespace {
 
 using namespace fa;
 
-template <typename T, int D>
+template <typename T, int D, int Dv>
 __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
-  constexpr int DJ = D / 16;  // output columns tx + 16*jj per thread
+  constexpr int DJ = Dv / 16;  // output columns tx + 16*jj per thread
   const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / p.group;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -32,8 +33,8 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                      // [D][kLdT]      q^T
   float* ks = qt + D * kLdT;             // [kBlock][D+1]  k
-  float* vs = ks + kBlock * (D + 1);     // [kBlock][D+1]  v
-  float* pt = vs + kBlock * (D + 1);     // [kBlock][kLdT] p^T
+  float* vs = ks + kBlock * (D + 1);     // [kBlock][Dv+1] v
+  float* pt = vs + kBlock * (Dv + 1);    // [kBlock][kLdT] p^T
 
   const int q1 = min(p.S, q0 + kBlock);
   load_tile_t<T, D>(qt, p.q, p.sq, b, h, q0, q1 - q0);
@@ -53,7 +54,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
     __syncthreads();  // q loaded; the previous tile's readers are done
     const int rows = min(kBlock, p.T - k0);
     load_tile<T, D>(ks, p.k, p.sk, b, hk, k0, rows);
-    load_tile<T, D>(vs, p.v, p.sv, b, hk, k0, rows);
+    load_tile<T, Dv>(vs, p.v, p.sv, b, hk, k0, rows);
     __syncthreads();
 
     float s[4][4] = {};
@@ -93,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
       const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) {
-        const float vv = vs[c * (D + 1) + tx + 16 * jj];
+        const float vv = vs[c * (Dv + 1) + tx + 16 * jj];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pr[i], vv, acc[i][jj]);
       }
@@ -115,12 +116,13 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
 
 // bf16: one block of 4 warps per (b, h, 64-row query tile); warp w owns
 // query rows 16w .. 16w + 15 of the tile, and each thread rows g, g + 8 of
-// those (g = lane / 4).  At D <= 64 the registers are held to 128 a thread
-// so that four blocks share an SM.
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
+// those (g = lane / 4).  At D = Dv <= 64 the registers are held to 128 a
+// thread so that four blocks share an SM.
+template <int D, int Dv>
+__global__ void __launch_bounds__(kTcThreads, D + Dv <= 128 ? 4 : 1)
     fa_fwd_tc_kernel(const Params p) {
   constexpr int LD = D + 8, kTile = kBlock * LD;
+  constexpr int kStage = kTile + kBlock * (Dv + 8);  // one k and one v tile
   // causal: the last query tiles see the most keys, so they go first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
@@ -137,9 +139,9 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
   const int n = (k_end - k_begin + kBlock - 1) / kBlock;
   auto load_kv = [&](int i) {  // key tile i -> stage i % 2
     const int k0 = k_begin + i * kBlock, rows = min(kBlock, p.T - k0);
-    bf16* dst = kv + (i & 1) * 2 * kTile;
+    bf16* dst = kv + (i & 1) * kStage;
     cp_tile<D, kBlock>(dst, p.k, p.sk, b, hk, k0, rows);
-    cp_tile<D, kBlock>(dst + kTile, p.v, p.sv, b, hk, k0, rows);
+    cp_tile<Dv, kBlock>(dst + kTile, p.v, p.sv, b, hk, k0, rows);
   };
   cp_tile<D, kBlock>(qs, p.q, p.sq, b, h, q0, q1 - q0);
   if (n > 0) load_kv(0);
@@ -147,7 +149,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
 
   const float scale2 = p.scale * kLog2e;  // scores in log2 units
   const int row = q0 + warp * 16 + g;     // this thread's rows: row, row + 8
-  float o[D / 8][4] = {};
+  float o[Dv / 8][4] = {};
   float m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
 
   for (int i = 0; i < n; ++i) {
@@ -156,7 +158,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
     cp_async_wait<1>();  // tile i (and q) have landed
     __syncthreads();
     const int k0 = k_begin + i * kBlock;
-    const bf16* ks = kv + (i & 1) * 2 * kTile;
+    const bf16* ks = kv + (i & 1) * kStage;
 
     float s[kBlock / 8][4] = {};
     mma_abt<D, kBlock>(s, qs + warp * 16 * LD, ks, lane);
@@ -188,10 +190,10 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
         l[e >> 1] += s[j][e];  // this lane's part of the row sum
       }
 #pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn)
+    for (int nn = 0; nn < Dv / 8; ++nn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nn][e] *= alpha[e >> 1];
-    mma_split_xb<D, kBlock>(o, s, ks + kTile, lane);
+    mma_split_xb<Dv, kBlock>(o, s, ks + kTile, lane);
     __syncthreads();  // stage i % 2 is free for tile i + 2
   }
 
@@ -204,7 +206,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
     const float L = fmaxf(l[r], 1e-30f);
     bf16* orow = static_cast<bf16*>(p.out) + row_off(p.so, b, h, qp);
 #pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn)
+    for (int nn = 0; nn < Dv / 8; ++nn)
       *reinterpret_cast<__nv_bfloat162*>(orow + nn * 8 + 2 * t) =
           __floats2bfloat162_rn(o[nn][2 * r] / L, o[nn][2 * r + 1] / L);
     if (t == 0)
@@ -213,37 +215,40 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
   }
 }
 
-template <int D>
+template <int D, int Dv>
 cudaError_t run(const Params& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (D * kLdT + 2 * kBlock * (D + 1) + kBlock * kLdT);
+  const size_t smem = sizeof(float) * (D * kLdT + kBlock * (D + 1) +
+                                       kBlock * (Dv + 1) + kBlock * kLdT);
   const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
-  return launch(fa_fwd_kernel<float, D>, grid, smem, p, stream);
+  return launch(fa_fwd_kernel<float, D, Dv>, grid, smem, p, stream);
 }
 
-template <int D>
+template <int D, int Dv>
 cudaError_t run_tc(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 5 * kBlock * (D + 8);  // q, 2 x (k, v)
+  // q, then 2 stages x (k, v)
+  const size_t smem = sizeof(bf16) * kBlock * (3 * (D + 8) + 2 * (Dv + 8));
   const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
-  return launch(fa_fwd_tc_kernel<D>, grid, smem, p, stream, kTcThreads);
+  return launch(fa_fwd_tc_kernel<D, Dv>, grid, smem, p, stream, kTcThreads);
 }
 
 }  // namespace
 
-// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); head_dim 32,
-// 64, 96 or 128.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); (head_dim,
+// v_head_dim) one of by_head_dims' pairs.  Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int fa_fwd_launch(const fa::Params* p, int dtype, int head_dim,
-                             void* stream) {
+                             int v_head_dim, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
-        return run<decltype(d)::value>(*p, s);
+      return static_cast<int>(by_head_dims(head_dim, v_head_dim,
+                                           [&](auto d, auto dv) {
+        return run<decltype(d)::value, decltype(dv)::value>(*p, s);
       }));
     case 1:
-      return static_cast<int>(by_head_dim(head_dim, [&](auto d) {
-        return run_tc<decltype(d)::value>(*p, s);
+      return static_cast<int>(by_head_dims(head_dim, v_head_dim,
+                                           [&](auto d, auto dv) {
+        return run_tc<decltype(d)::value, decltype(dv)::value>(*p, s);
       }));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,8 +3,8 @@ wrappers, their plain PyTorch versions, and the autograd wiring.
 
 Port of ``repro.kernels.flash_attention.kernel``.  Its three Pallas TPU
 kernels become hand-written sm_90a kernels (see the notes at the top of
-``csrc/flash_attn.cuh``; bf16 forward and dk/dv run on the tensor cores,
-fp32 inputs and dq on the CUDA cores):
+``csrc/flash_attn.cuh``; bf16 inputs run on the tensor cores, fp32 inputs
+on the CUDA cores):
 
 * ``_fa_fwd_kernel``      -> ``csrc/flash_attn_fwd.cu``, wrapped by
   :func:`flash_attention_fwd` -> (out, lse);
@@ -16,13 +16,19 @@ fp32 inputs and dq on the CUDA cores):
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch
 in its ``.launches``), runs its plain version for CPU tensors, and raises
-for anything else.  Layout is (B, H, S, D) for q and (B, K, T, D) for k/v,
-as in the JAX package; any strides work as long as the last dimension is
-dense, so (B, S, H, D) activations go in through transposed views without
-a copy.  bf16 q, k, v and do must also start every row on 16 bytes
-(``data_ptr`` and the batch, head and row strides multiples of 8
-elements); the wrappers raise otherwise.  :class:`FlashAttention` replaces the ``_flash_core`` custom VJP:
-the forward saves (q, k, v, out, lse), the backward computes
+for anything else.  Layout is (B, H, S, D) for q, (B, K, T, D) for k and
+(B, K, T, Dv) for v, as in the JAX package; any strides work as long as
+the last dimension is dense, so (B, S, H, D) activations go in through
+transposed views without a copy.  The kernels are instantiated for the
+(D, Dv) pairs in :data:`HEAD_DIMS`; any other D <= 192, Dv <= 128 is
+zero-padded to the first pair that holds it (zero columns of q and k
+leave the scores as they are, zero columns of v and do give zero columns
+of out, dq, dk and dv, which the wrapper slices off; the scale stays
+1/sqrt(D)) and counted in ``.padded``; wider heads raise.  bf16 q, k, v
+and do must also start every row on 16 bytes (``data_ptr`` and the
+batch, head and row strides multiples of 8 elements); the wrappers raise
+otherwise.  :class:`FlashAttention` replaces the ``_flash_core`` custom
+VJP: the forward saves (q, k, v, out, lse), the backward computes
 Δ = rowsum(do ⊙ out) outside the kernels (as ``kernel.py:293`` did) and
 returns gradients in the primal dtypes.
 """
@@ -39,7 +45,10 @@ import torch
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention.ref import NEG_INF, visible
 
-HEAD_DIMS = (32, 64, 96, 128)
+# (D, Dv) pairs the kernels are instantiated for (by_head_dims in
+# csrc/flash_attn.cuh), cheapest first: the dense models' widths and MLA's
+# (96, 64) (smoke) and (192, 128); the last pair is the widths' limit
+HEAD_DIMS = ((32, 32), (64, 64), (96, 64), (96, 96), (128, 128), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -131,7 +140,8 @@ class _Params(ctypes.Structure):
                 + [(n, _Strides) for n in
                    ("sq", "sk", "sv", "sdo", "so", "sdq", "sdk", "sdv")]
                 + [(n, ctypes.c_int) for n in
-                   ("B", "H", "K", "S", "T", "group", "causal", "window")]
+                   ("B", "H", "K", "S", "T", "D", "Dv", "group", "causal",
+                    "window")]
                 + [("scale", ctypes.c_float)])
 
 
@@ -157,21 +167,43 @@ _STRIDE_FIELDS = {"q": "sq", "k": "sk", "v": "sv", "dout": "sdo",
                   "out": "so", "dq": "sdq", "dk": "sdk", "dv": "sdv"}
 
 
-def _params(q, k, v, causal, window, scale, **tensors) -> _Params:
-    """Validate (q, k, v) and fill the kernels' parameter block."""
+def padded_dims(D: int, Dv: int) -> Tuple[int, int]:
+    """The (D, Dv) pair of :data:`HEAD_DIMS` the kernels run widths
+    (D, Dv) at: the first that holds both.  Raises past the limit."""
+    for pair in HEAD_DIMS:
+        if D <= pair[0] and Dv <= pair[1]:
+            return pair
+    raise ValueError(
+        f"flash attention: head widths D={D}, Dv={Dv} are past the "
+        f"kernels' limit D <= {HEAD_DIMS[-1][0]}, Dv <= {HEAD_DIMS[-1][1]}")
+
+
+def _scale(scale: Optional[float], D: int) -> float:
+    return scale if scale is not None else 1.0 / D ** 0.5
+
+
+def _check_shapes(q, k, v) -> None:
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
-           f"q (B,H,S,D), k/v (B,K,T,D); got {tuple(q.shape)}, "
-           f"{tuple(k.shape)}, {tuple(v.shape)}")
+           f"q (B,H,S,D), k (B,K,T,D), v (B,K,T,Dv); got "
+           f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, D = q.shape
     _, K, T, _ = k.shape
-    _check(k.shape == (B, K, T, D) and v.shape == k.shape,
+    _check(k.shape == (B, K, T, D) and v.shape[:3] == k.shape[:3],
            f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q "
-           f"{tuple(q.shape)} (the kernels take Dv == D)")
+           f"{tuple(q.shape)}")
     _check(K > 0 and H % K == 0, f"{H} query heads over {K} kv heads")
-    _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _check(S > 0 and T > 0 and B > 0, "empty attention")
+
+
+def _params(q, k, v, causal, window, scale, **tensors) -> _Params:
+    """Validate (q, k, v) and fill the kernels' parameter block."""
+    _check_shapes(q, k, v)
+    B, H, S, D = q.shape
+    K, T, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    _check((D, Dv) in HEAD_DIMS,
+           f"(head_dim, v_head_dim) ({D}, {Dv}) not in {HEAD_DIMS}")
     _check(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; float32 or bfloat16")
-    _check(S > 0 and T > 0 and B > 0, "empty attention")
     ts = {"q": q, "k": k, "v": v, **tensors}
     _check(all(t.device == q.device for t in ts.values()),
            "all tensors must be on one device")
@@ -189,16 +221,50 @@ def _params(q, k, v, causal, window, scale, **tensors) -> _Params:
         if name in _STRIDE_FIELDS:
             setattr(p, _STRIDE_FIELDS[name], _Strides(*t.stride()[:3]))
     p.B, p.H, p.K, p.S, p.T, p.group = B, H, K, S, T, H // K
+    p.D, p.Dv = D, Dv
     p.causal, p.window = int(causal), int(window)
-    p.scale = float(scale if scale is not None else 1.0 / D ** 0.5)
+    p.scale = float(_scale(scale, D))
     return p
 
 
 def _launch(fn, p: _Params, q: torch.Tensor, name: str) -> None:
-    err = fn(ctypes.byref(p), _DTYPES[q.dtype], q.shape[-1],
+    err = fn(ctypes.byref(p), _DTYPES[q.dtype], p.D, p.Dv,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _pad(t: Optional[torch.Tensor], width: int) -> Optional[torch.Tensor]:
+    """t with a dense last dimension zero-padded to ``width``."""
+    if t is None:
+        return None
+    if t.shape[-1] != width:
+        return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+    return _dense_last(t)
+
+
+def _kernel_inputs(q, k, v, do=None):
+    """(q, k, v, do, D, Dv, padded): shapes checked, q and k zero-padded to
+    the kernels' D and v and do to their Dv (:func:`padded_dims`); D and
+    Dv are the real widths."""
+    _check_shapes(q, k, v)
+    D, Dv = q.shape[-1], v.shape[-1]
+    if do is not None:
+        _check(do.shape == q.shape[:3] + (Dv,),
+               f"do {tuple(do.shape)} vs q {tuple(q.shape)}, Dv {Dv}")
+    Dp, Dvp = padded_dims(D, Dv)
+    return (_pad(q, Dp), _pad(k, Dp), _pad(v, Dvp), _pad(do, Dvp), D, Dv,
+            (Dp, Dvp) != (D, Dv))
+
+
+def _empty_rows(t: torch.Tensor, width: int) -> torch.Tensor:
+    """An empty (B, H, S, width) tensor of t's dtype whose first three
+    dimensions are laid out in memory as t's are (a transposed (B, S, H,
+    D) input gets a transposed (B, S, H, width) output)."""
+    order = sorted(range(3), key=lambda i: -t.stride(i))
+    buf = torch.empty([t.shape[i] for i in order] + [width],
+                      dtype=t.dtype, device=t.device)
+    return buf.permute(*[order.index(i) for i in range(3)], 3)
 
 
 def _device(q: torch.Tensor) -> str:
@@ -211,30 +277,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """FA-2 forward.  q (B,H,S,D), k/v (B,K,T,D), fp32 or bf16.  Returns
-    (out in q's dtype and memory layout, lse (B,H,S) fp32)."""
+    """FA-2 forward.  q (B,H,S,D), k (B,K,T,D), v (B,K,T,Dv), fp32 or
+    bf16.  Returns (out (B,H,S,Dv) in q's dtype and memory layout, lse
+    (B,H,S) fp32)."""
     if _device(q) == "cpu":
         return attention_fwd_plain(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    q, k, v = _dense_last(q), _dense_last(k), _dense_last(v)
-    out = torch.empty_like(q)
+    q, k, v, _, D, Dv, padded = _kernel_inputs(q, k, v)
+    out = _empty_rows(q, v.shape[-1])
     B, H, S, _ = q.shape
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    p = _params(q, k, v, causal, window, scale, out=out, lse=lse)
+    p = _params(q, k, v, causal, window, _scale(scale, D), out=out,
+                lse=lse)
     _launch(_lib().fa_fwd_launch, p, q, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return out, lse
+    flash_attention_fwd.padded += padded
+    return (out[..., :Dv] if padded else out), lse
 
 
 def _bwd_inputs(q, k, v, do, lse, delta):
-    q, k, v = _dense_last(q), _dense_last(k), _dense_last(v)
-    do = _dense_last(do.to(q.dtype))
+    q, k, v, do, D, Dv, padded = _kernel_inputs(q, k, v, do.to(q.dtype))
     B, H, S, _ = q.shape
-    _check(do.shape == q.shape, f"do {tuple(do.shape)} vs q {tuple(q.shape)}")
     _check(lse.shape == (B, H, S) and delta.shape == (B, H, S)
            and lse.dtype == delta.dtype == torch.float32,
            "lse and delta must be (B,H,S) float32")
-    return q, k, v, do, lse.contiguous(), delta.contiguous()
+    return q, k, v, do, lse.contiguous(), delta.contiguous(), D, Dv, padded
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -244,36 +311,45 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     if _device(q) == "cpu":
         return attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
                                       window=window, scale=scale)
-    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    q, k, v, do, lse, delta, D, _, padded = _bwd_inputs(q, k, v, do, lse,
+                                                        delta)
     dq = torch.empty_like(q, dtype=torch.float32)
-    p = _params(q, k, v, causal, window, scale, dout=do, lse=lse,
+    p = _params(q, k, v, causal, window, _scale(scale, D), dout=do, lse=lse,
                 delta=delta, dq=dq)
     _launch(_lib().fa_bwd_dq_launch, p, q, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    flash_attention_bwd_dq.padded += padded
+    return dq[..., :D] if padded else dq
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
                              window: int = 0, scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) (B,K,T,D) fp32, each kv head's query group summed."""
+    """(dk (B,K,T,D), dv (B,K,T,Dv)) fp32, each kv head's query group
+    summed."""
     if _device(q) == "cpu":
         return attention_bwd_dkdv_plain(q, k, v, do, lse, delta,
                                         causal=causal, window=window,
                                         scale=scale)
-    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    q, k, v, do, lse, delta, D, Dv, padded = _bwd_inputs(q, k, v, do, lse,
+                                                         delta)
     dk = torch.empty_like(k, dtype=torch.float32)
     dv = torch.empty_like(v, dtype=torch.float32)
-    p = _params(q, k, v, causal, window, scale, dout=do, lse=lse,
+    p = _params(q, k, v, causal, window, _scale(scale, D), dout=do, lse=lse,
                 delta=delta, dk=dk, dv=dv)
     _launch(_lib().fa_bwd_dkdv_launch, p, q, "flash_attention_bwd_dkdv")
     flash_attention_bwd_dkdv.launches += 1
+    flash_attention_bwd_dkdv.padded += padded
+    if padded:
+        return dk[..., :D], dv[..., :Dv]
     return dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkdv.launches = 0
+for _fn in (flash_attention_fwd, flash_attention_bwd_dq,
+            flash_attention_bwd_dkdv):
+    _fn.launches = 0      # kernel launches
+    _fn.padded = 0        # of those, launches at zero-padded widths
+del _fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -287,7 +363,7 @@ def _lib() -> types.SimpleNamespace:
            "fa_bwd_dkdv_launch": bwd.fa_bwd_dkdv_launch}
     for fn in fns.values():
         fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return types.SimpleNamespace(**fns)
 
@@ -323,8 +399,8 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,H,S,D); k/v (B,K,T,D).  Returns (B,H,S,D); differentiable
-    through the FA-2 backward kernels."""
+    """q (B,H,S,D); k (B,K,T,D); v (B,K,T,Dv).  Returns (B,H,S,Dv);
+    differentiable through the FA-2 backward kernels."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     return FlashAttention.apply(q, k, v, causal, int(window), float(scale))

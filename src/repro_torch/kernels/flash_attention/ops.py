@@ -20,8 +20,8 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,S,H,D); k/v (B,T,K,D) with H % K == 0.  Returns (B,S,H,D) in
-    q's dtype."""
+    """q (B,S,H,D); k (B,T,K,D), v (B,T,K,Dv) with H % K == 0.  Returns
+    (B,S,H,Dv) in q's dtype."""
     out = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
                                window=window, scale=scale)

@@ -50,9 +50,10 @@ IDS = ["gqa", "mha-fresh", "gqa-window", "window<block", "chunk4",
        "empty-slot-chunk4-int8"]
 
 
-# B, S, H, K, D, causal, window[, T] — the JAX package's FA_CASES
+# B, S, H, K, D, causal, window[, T[, Dv]] — the JAX package's FA_CASES
 # (tests/test_kernels.py): GQA g=2 and 4, a 128 window, non-causal S=200,
-# S=130 with head_dim 96; then non-causal with T != S and head_dim 32
+# S=130 with head_dim 96; then non-causal with T != S and head_dim 32.
+# T None or absent is S, Dv absent is D
 FA_CASES = [
     (2, 256, 4, 2, 64, True, 0),
     (1, 384, 4, 4, 128, True, 0),
@@ -64,11 +65,19 @@ FA_CASES = [
 FA_IDS = ["gqa2", "mha-d128", "gqa4-window", "noncausal-200", "d96-s130",
           "cross-t230-d32"]
 # on the card also opt-1.3b's attention at 4 x 2048 tokens (the train
-# step's shape) and a GQA case at head_dim 128 with S not a multiple of 64
-# (dk/dv's 32-row query tiles, a ragged last tile)
+# step's shape), a GQA case at head_dim 128 with S not a multiple of 64
+# (dk/dv's 32-row query tiles, a ragged last tile), MLA's widths (qk 96,
+# v 64 as in deepseek-v3-671b-smoke, here with GQA and a ragged S; qk 192,
+# v 128 at full width), and widths the kernels take zero-padded (80 -> 96;
+# 48/40 -> 64/64, non-causal with T != S)
 CARD_FA_CASES = FA_CASES + [(4, 2048, 32, 32, 64, True, 0),
-                            (2, 333, 8, 2, 128, True, 0)]
-CARD_FA_IDS = FA_IDS + ["opt-1.3b", "gqa4-d128-s333"]
+                            (2, 333, 8, 2, 128, True, 0),
+                            (2, 200, 4, 2, 96, True, 0, None, 64),
+                            (1, 300, 2, 2, 192, True, 0, None, 128),
+                            (1, 160, 4, 2, 80, True, 0),
+                            (1, 100, 2, 1, 48, False, 0, 150, 40)]
+CARD_FA_IDS = FA_IDS + ["opt-1.3b", "gqa4-d128-s333", "mla-smoke-96-64",
+                        "mla-192-128", "padded-80", "padded-48-40-cross"]
 
 
 # (N, block): the JAX package's quant8 cases (tests/test_kernels.py), then
@@ -108,15 +117,23 @@ def ssd_inputs(b, s, h, g, p, n, seed=0):
             rs.randn(b, s, g, n).astype(np.float32))
 
 
+def fa_widths(case):
+    """(T, Dv) of an FA case: T defaults to S, Dv to D."""
+    S, D = case[1], case[4]
+    T = case[7] if len(case) > 7 and case[7] is not None else S
+    return T, (case[8] if len(case) > 8 else D)
+
+
 def fa_inputs(case, seed=0):
-    """numpy fp32 q (B,S,H,D), k/v (B,T,K,D) and an output cotangent."""
+    """numpy fp32 q (B,S,H,D), k (B,T,K,D), v (B,T,K,Dv) and an output
+    cotangent (B,S,H,Dv)."""
     B, S, H, K, D = case[:5]
-    T = case[7] if len(case) > 7 else S
+    T, Dv = fa_widths(case)
     rs = np.random.RandomState(seed)
     return (rs.randn(B, S, H, D).astype(np.float32),
             rs.randn(B, T, K, D).astype(np.float32),
-            rs.randn(B, T, K, D).astype(np.float32),
-            rs.randn(B, S, H, D).astype(np.float32))
+            rs.randn(B, T, K, Dv).astype(np.float32),
+            rs.randn(B, S, H, Dv).astype(np.float32))
 
 
 def inputs(H, K, D, bs, lens, C, quant, seed=0):
@@ -197,19 +214,21 @@ def test_cuda_fa2_kernels_match_plain_versions(case, dtype, cuda):
     q, k, v, do = (torch.from_numpy(x).to(cuda, dtype).transpose(1, 2)
                    for x in fa_inputs(case, seed=5))
     kw = dict(causal=causal, window=window)
-    counts = [f.launches for f in (FK.flash_attention_fwd,
-                                   FK.flash_attention_bwd_dq,
-                                   FK.flash_attention_bwd_dkdv)]
+    fns = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+           FK.flash_attention_bwd_dkdv)
+    counts = [(f.launches, f.padded) for f in fns]
+    D, Dv = case[4], fa_widths(case)[1]
+    padded = FK.padded_dims(D, Dv) != (D, Dv)
     out, lse = FK.flash_attention_fwd(q, k, v, **kw)
     ref_out, ref_lse = FK.attention_fwd_plain(q, k, v, **kw)
     delta = (do.float() * ref_out.float()).sum(-1)
     dq = FK.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **kw)
     dk, dv = FK.flash_attention_bwd_dkdv(q, k, v, do, ref_lse, delta, **kw)
     torch.cuda.synchronize()
-    assert [f.launches for f in (FK.flash_attention_fwd,
-                                 FK.flash_attention_bwd_dq,
-                                 FK.flash_attention_bwd_dkdv)] == \
-        [c + 1 for c in counts]
+    assert [(f.launches, f.padded) for f in fns] == \
+        [(n + 1, m + padded) for n, m in counts]
+    assert out.shape == ref_out.shape and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
     ref_dq = FK.attention_bwd_dq_plain(q, k, v, do, ref_lse, delta, **kw)
     ref_dk, ref_dv = FK.attention_bwd_dkdv_plain(q, k, v, do, ref_lse,
                                                  delta, **kw)
@@ -222,6 +241,30 @@ def test_cuda_fa2_kernels_match_plain_versions(case, dtype, cuda):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     for mine, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         torch.testing.assert_close(mine, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "fa_bwd_dq_tc_kernel<64, 64>"),
+    (torch.float32, "fa_bwd_dq_kernel<float, 64, 64>")])
+def test_cuda_dq_runs_the_kernel_of_its_dtype(dtype, kernel, cuda):
+    """At opt-1.3b's attention shape, bf16 dq runs on the tensor-core
+    kernel and fp32 dq on the CUDA-core one (kernel names as the profiler
+    sees them)."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = (torch.from_numpy(x).to(cuda, dtype).transpose(1, 2)
+                   for x in fa_inputs((4, 2048, 32, 32, 64, True, 0),
+                                      seed=6))
+    out, lse = FK.flash_attention_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    before = FK.flash_attention_bwd_dq.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        FK.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "fa_bwd_dq" in e.key]
+    assert FK.flash_attention_bwd_dq.launches == before + 1
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.cuda

@@ -1,17 +1,19 @@
-"""The numerical design of the bf16 FA-2 forward and dk/dv kernels
+"""The numerical design of the bf16 FA-2 forward, dq and dk/dv kernels
 (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``), checked on the
 CPU by emulating their rounding in plain PyTorch.
 
 The kernels run every product on the tensor cores, whose operands are
 bf16 and whose sums are fp32.  q, k, v and do are bf16 already, so
 q·kᵀ and do·vᵀ are exact products summed in fp32, as in the plain
-versions.  P (forward and dV) and dS (dK) are fp32 values; each is split
-into hi = bf16(x) and lo = bf16(x - hi) and both halves are multiplied,
-which leaves a residual of at most 2**-18 of x.  The emulation below
-holds that design to the bars the card test
+versions.  P (forward and dV) and dS (dQ and dK) are fp32 values; each is
+split into hi = bf16(x) and lo = bf16(x - hi) and both halves are
+multiplied, which leaves a residual of at most 2**-18 of x.  The
+emulation below holds that design to the bars the card test
 ``test_cuda_fa2_kernels_match_plain_versions`` applies to the kernels,
 and records that a single bf16 rounding of P and dS, as FA-2 does it,
-breaks them.
+breaks them.  For dq on ``FA_CASES`` the hi + lo split stays within
+2.6–4.5e-6 of dq's largest magnitude, while one rounding of dS puts dq
+1.7–2.6e-3 of it off, past the 1e-4 bar in every case.
 """
 
 import numpy as np
@@ -40,8 +42,9 @@ def _bf16_operand(x, split):
 
 
 def _emulated(q, k, v, do, lse, delta, causal, window, split):
-    """(out, dk, dv) with the kernels' roundings: fp32 scores and softmax,
-    P and dS through ``_bf16_operand``, products summed in fp32."""
+    """(out, dq, dk, dv) with the kernels' roundings: fp32 scores and
+    softmax, P and dS through ``_bf16_operand``, products summed in
+    fp32."""
     B, H, S, D = q.shape
     K, T = k.shape[1], k.shape[2]
     g, scale = H // K, 1.0 / D ** 0.5
@@ -60,8 +63,10 @@ def _emulated(q, k, v, do, lse, delta, causal, window, split):
     dp = torch.einsum("bkgsd,bktd->bkgst", dof, vf)
     ds = pb * (dp - delta.reshape(B, K, g, S, 1)) * scale
     dv = torch.einsum("bkgst,bkgsd->bktd", _bf16_operand(pb, split), dof)
-    dk = torch.einsum("bkgst,bkgsd->bktd", _bf16_operand(ds, split), qf)
-    return out.reshape(B, H, S, D).to(q.dtype), dk, dv
+    dsb = _bf16_operand(ds, split)
+    dq = torch.einsum("bkgst,bktd->bkgsd", dsb, kf).reshape(B, H, S, D)
+    dk = torch.einsum("bkgst,bkgsd->bktd", dsb, qf)
+    return out.reshape(B, H, S, D).to(q.dtype), dq, dk, dv
 
 
 def _within(a, b, rtol, atol):
@@ -77,19 +82,24 @@ def test_split_products_meet_the_card_bars(case, split):
     kw = dict(causal=causal, window=window)
     ref_out, lse = FK.attention_fwd_plain(q, k, v, **kw)
     delta = (do.float() * ref_out.float()).sum(-1)
+    ref_dq = FK.attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     ref_dk, ref_dv = FK.attention_bwd_dkdv_plain(q, k, v, do, lse, delta,
                                                  **kw)
-    out, dk, dv = _emulated(q, k, v, do, lse, delta, causal, window, split)
+    out, dq, dk, dv = _emulated(q, k, v, do, lse, delta, causal, window,
+                                split)
     ok = {"out": _within(out.float(), ref_out.float(), **OUT_TOL),
+          "dq": _within(dq, ref_dq, **GRAD_TOL),
           "dk": _within(dk, ref_dk, **GRAD_TOL),
           "dv": _within(dv, ref_dv, **GRAD_TOL)}
     if split == "hi_lo":
         assert all(ok.values()), ok
-        # P and dS kept to fp32 within the split's residual: dv's error
-        # is a few millionths of its largest magnitude
-        assert float((dv - ref_dv).abs().max()) \
-            <= 1e-5 * float(ref_dv.abs().max())
+        # P and dS kept to fp32 within the split's residual: dq's and
+        # dv's errors are a few millionths of their largest magnitudes
+        for mine, ref in ((dq, ref_dq), (dv, ref_dv)):
+            assert float((mine - ref).abs().max()) \
+                <= 1e-5 * float(ref.abs().max())
     else:
         # one bf16 rounding of P and dS is why the kernels split: the
-        # gradients leave their bars in every case
+        # gradients leave their bars in every case, dq among them
         assert not (ok["dk"] and ok["dv"]), ok
+        assert not ok["dq"], ok

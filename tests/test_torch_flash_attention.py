@@ -209,3 +209,107 @@ def test_bf16_params_need_rows_on_16_bytes():
                        dout=args["dout"])
     f32 = [t.float() for t in (off, padded)]
     TK._params(f32[0], f32[1], f32[1], True, 0, None)
+
+
+# MLA's head widths (qk D, v Dv): deepseek-v3-671b-smoke's 96 / 64, here
+# with GQA and S not a multiple of the 128-row Pallas blocks, and the full
+# model's 192 / 128
+MLA_CASES = [(1, 130, 4, 2, 96, True, 0, None, 64),
+             (1, 100, 2, 1, 192, True, 0, None, 128)]
+MLA_IDS = ["qk96-v64", "qk192-v128"]
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=MLA_IDS)
+def test_dv_unlike_d_matches_pallas_flash_core_and_vjp(case):
+    """Forward and VJP of :class:`FlashAttention` on the CPU against the
+    JAX ``_flash_core`` (Pallas in interpret mode) with Dv != D.  Both
+    compute in fp32 from the same inputs and differ in summation order
+    only: each output within 1e-5 of its largest magnitude."""
+    B, S, H, K, D, causal, window = case[:7]
+    Dv = case[8]
+    q, k, v, w = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                  for x in fa_inputs(case, seed=9))
+    scale = 1.0 / D ** 0.5
+
+    def jfwd(*a):
+        return JK._flash_core(*a, causal, window, scale, 128, 128, True)
+    jo, vjp = jax.vjp(jfwd, *(jnp.asarray(x) for x in (q, k, v)))
+    jg = vjp(jnp.asarray(w))
+    tx = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = TK.flash_attention_bhsd(*tx, causal=causal, window=window)
+    out.backward(torch.from_numpy(w))
+    assert out.shape == (B, H, S, Dv)
+    assert tx[2].grad.shape == (B, K, S, Dv)
+    for name, mine, ref in (("out", out.detach(), jo),
+                            *zip(("dq", "dk", "dv"),
+                                 (t.grad for t in tx), jg)):
+        ref = np.asarray(ref)
+        err = float(np.abs(mine.numpy() - ref).max())
+        assert err <= 1e-5 * float(np.abs(ref).max()), (name, err)
+
+
+def test_params_take_dv_unlike_d():
+    """The parameter block carries the value width beside the head width;
+    v must share k's (B, K, T) and do q's (B, H, S) with Dv columns."""
+    q = torch.zeros((2, 4, 50, 96))
+    k = torch.zeros((2, 2, 70, 96))
+    v = torch.zeros((2, 2, 70, 64))
+    do = torch.zeros((2, 4, 50, 64))
+    p = TK._params(q, k, v, True, 0, None, dout=do)
+    assert (p.D, p.Dv, p.group, p.S, p.T) == (96, 64, 2, 50, 70)
+    assert p.scale == pytest.approx(1.0 / 96 ** 0.5)
+    with pytest.raises(ValueError, match="k/v shapes"):
+        TK._params(q, k, v[:, :, :60], True, 0, None)
+    with pytest.raises(ValueError, match="do "):
+        TK._kernel_inputs(q, k, v, torch.zeros((2, 4, 50, 96)))
+    with pytest.raises(ValueError, match="not in"):
+        TK._params(q, k, torch.zeros((2, 2, 70, 80)), True, 0, None)
+
+
+@pytest.mark.parametrize("D,Dv", [(200, 128), (192, 136), (256, 256)])
+def test_widths_past_the_limit_raise_naming_it(D, Dv):
+    q, k = torch.zeros((1, 2, 8, D)), torch.zeros((1, 1, 8, D))
+    v = torch.zeros((1, 1, 8, Dv))
+    with pytest.raises(ValueError, match="limit D <= 192, Dv <= 128"):
+        TK.padded_dims(D, Dv)
+    with pytest.raises(ValueError, match="limit D <= 192, Dv <= 128"):
+        TK._kernel_inputs(q, k, v)
+
+
+# (case, the instantiated pair the wrapper pads it to)
+PAD_CASES = [((1, 70, 4, 2, 80, True, 0), (96, 96)),
+             ((2, 50, 2, 1, 48, False, 0, 90, 40), (64, 64)),
+             ((1, 66, 4, 2, 160, True, 0, None, 100), (192, 128)),
+             ((1, 40, 2, 2, 24, True, 16), (32, 32))]
+PAD_IDS = ["80-to-96", "cross-48-40-to-64", "160-100-to-192-128",
+           "window-24-to-32"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,pair", PAD_CASES, ids=PAD_IDS)
+def test_zero_padding_leaves_every_output_exact(case, pair, dtype):
+    """The wrapper's zero-padded q, k, v and do (the kernels' inputs at a
+    width with no instantiation) through the plain versions, sliced back,
+    equal the unpadded outputs exactly: the zero columns add exact zeros
+    to every score and produce zero columns of out, dq, dk and dv."""
+    q, k, v, do = (torch.from_numpy(x).to(TDT[dtype]).transpose(1, 2)
+                   for x in fa_inputs(case, seed=3))
+    qp, kp, vp, dop, D, Dv, padded = TK._kernel_inputs(q, k, v, do)
+    assert padded and (qp.shape[-1], vp.shape[-1]) == pair
+    assert kp.shape[-1] == pair[0] and dop.shape[-1] == pair[1]
+    assert TK.padded_dims(D, Dv) == pair
+    kw = dict(causal=case[5], window=case[6], scale=1.0 / D ** 0.5)
+    out, lse = TK.attention_fwd_plain(q, k, v, **kw)
+    outp, lsep = TK.attention_fwd_plain(qp, kp, vp, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = TK.attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dqp = TK.attention_bwd_dq_plain(qp, kp, vp, dop, lsep, delta, **kw)
+    dk, dv = TK.attention_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
+    dkp, dvp = TK.attention_bwd_dkdv_plain(qp, kp, vp, dop, lsep, delta,
+                                           **kw)
+    assert torch.equal(lse, lsep)
+    for name, a, b in (("out", out, outp), ("dq", dq, dqp), ("dk", dk, dkp),
+                       ("dv", dv, dvp)):
+        w = a.shape[-1]
+        assert torch.equal(a, b[..., :w]), name
+        assert not bool(b[..., w:].any()), name
