@@ -8,11 +8,13 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure exits nonzero):
 
 0. build every CUDA kernel in ``src/repro_torch/csrc`` with ``nvcc``;
-1. hold the flash-decode kernel against its plain PyTorch version
+1. hold the flash-decode kernels against their plain PyTorch version
    (``paged_attention_reference``) at qwen2-7b's attention shapes — ragged
    lengths, decode and chunked-prefill rows, fp32/bf16/int8 pages, a
-   sliding window — and time kernel, plain version, SDPA over the gathered
-   K/V, and the HBM bound;
+   sliding window — check that one call issues the split and merge
+   kernels and no other device operation, and time the whole call
+   (``ms``), its kernels alone (``device_ms``, torch.profiler), the plain
+   version, SDPA over the gathered K/V, and the HBM bound;
 2. serve qwen2-7b at full width and depth in bf16 (random weights from a
    seed) through ``ServeEngine`` with the kernel, check that every request
    completes and that every attention layer of every step launched the
@@ -47,14 +49,16 @@ Phases (any failure exits nonzero):
 7. at opt-1.3b width and 2 layers, check that async with quorum =
    replicas and staleness 0 equals sync, and that a run checkpointed
    every round restores and resumes from exactly what it saved;
-8. hold the SSD-scan kernel against its plain version in fp32 and bf16 on
-   the JAX package's SSD_CASES, a ragged case and mamba2-130m's shape at
-   8 x 4096 and 8 x 4000 tokens, and time kernel, plain version and the
-   bound at 8 x 4096;
+8. hold the SSD-scan kernels against their plain version in fp32 and
+   bf16 on the JAX package's SSD_CASES, a ragged case and mamba2-130m's
+   shape at 8 x 4096 and 8 x 4000 tokens, check that a call issues its
+   three kernels and no other device operation, and time the whole call
+   (``ms``), its three kernels alone (``device_ms``), the plain version
+   and the bound at 8 x 4096;
 9. serve mamba2-130m at full width and depth in bf16 (random weights from
    a seed): (a) ``serve.step.make_prefill`` over 8 x 4096 tokens through
-   the kernel — finite logits, 24 launches a forward, tokens/s, peak
-   memory, the kernel's share of device time, and the logits against the
+   the kernels — finite logits, 24 calls a forward, tokens/s, peak
+   memory, the scan kernels' share of device time, and the logits against the
    ``ssd_reference`` path in bf16 and fp32; (b) ``greedy_generate`` of 8
    prompts of 64 tokens + 32 new ones through the dense cache; (c) with
    fp32 weights, ``decode_step`` token by token against the kernel
@@ -141,6 +145,11 @@ PREFILL_TOL = {"float32": 1e-3, "argmax_slack": 0.01}
 # new tokens); decode-vs-prefill agreement (batch, tokens: two full
 # chunks of 128 and a ragged one)
 MAMBA_PREFILL, MAMBA_DECODE, MAMBA_AGREE = (8, 4096), (8, 64, 32), (2, 300)
+# the kernels a call launches, by a part of each name: flash-decode's
+# split kernel, and its merge kernel when a call has more than one split;
+# the SSD scan's three when s spans more than one chunk
+DECODE_KERNELS = ("flash_decode_split", "flash_decode_merge")
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
 
 
 def log(msg: str) -> None:
@@ -184,6 +193,58 @@ class Timer:
         self.spread = (times[0], times[-1])
         return times[len(times) // 2]
 
+    # the flush's own kernel (``zero_`` of int32), launched once a call
+    FLUSH_KERNEL = "FillFunctor<int>"
+
+    def device_ms(self, fn, kernels, iters: int = 20) -> float:
+        """Device time a call of ``fn`` spends in its kernels, each named
+        by a part of its name in ``kernels`` and launched once a call:
+        torch.profiler over ``iters`` calls with the L2 cache flushed
+        before each, so the kernels alone, without the host's dispatch
+        or the gaps between launches.  The sum over those kernels of each
+        one's mean time a launch, should the profiler drop some launches'
+        records.  Fails if it saw no launch of one of ``kernels``, or
+        more than one a call.  Leaves [(name, launches seen a call, ms a
+        launch)] of those kernels in ``kernels``, and [(name, launches a
+        call)] of every other device operation of the calls (the flush's
+        excepted) in ``others``."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, schedule
+        torch = self.torch
+        # a warm-up step first: records of the launches made as a session
+        # starts tracing can be lost, those of the flush's kernel too
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            self.flush.zero_()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        seen = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and ev.count > 0
+                and not ev.key.startswith("ProfilerStep")]
+        mine = [ev for ev in seen if any(k in ev.key for k in kernels)]
+        missing = [k for k in kernels if not any(k in ev.key for ev in mine)]
+        if missing or any(ev.count > iters for ev in mine):
+            fail(f"the profiler saw no launch of {missing}, or a kernel "
+                 f"launched more than once a call: "
+                 f"{[(ev.key, ev.count) for ev in seen]}")
+        self.kernels = [(ev.key, ev.count / iters,
+                         ev.device_time_total / 1e3 / ev.count)
+                        for ev in mine]
+        self.others = []
+        for ev in seen:
+            n = ev.count - (iters if self.FLUSH_KERNEL in ev.key else 0)
+            if ev not in mine and n > 0:
+                self.others.append((ev.key, n / iters))
+        return sum(ms for _, _, ms in self.kernels)
+
 
 # --------------------------------------------------------------------------- #
 # Phase 1: kernel vs plain
@@ -218,19 +279,22 @@ def make_pages(torch, lens, C, dtype, device, seed):
             sl.to(device), {k: v.to(device) for k, v in scales.items()})
 
 
-def live_bytes(lens, C, dtype, q, m_bytes):
+def live_bytes(lens, C, dtype, q):
+    """Bytes a call must move: every live K/V token (and int8 scale) read
+    once, q read once, the fp32 output (q's shape) written once."""
     item = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
     per_tok = K * 2 * (D * item + (4 if dtype == "int8" else 0))
     toks = sum(L + C - 1 for L in lens if L + C - 1 > 0)
-    return toks * per_tok + q.numel() * 4 + m_bytes
+    return toks * per_tok + 2 * q.numel() * 4
 
 
 def phase_kernel(torch, device, timer):
     from repro_torch.kernels.flash_attention.decode import (
-        DEFAULT_PAGES_PER_SPLIT, flash_decode_paged,
-        paged_attention_reference)
-    ragged = [0, 1, BS, BS * DEFAULT_PAGES_PER_SPLIT, 2048, 17,
-              BS * DEFAULT_PAGES_PER_SPLIT + 1, 1000]
+        decode_splits, flash_decode_paged, paged_attention_reference)
+    # two lengths on a split's edge and one past it, at the planned split
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    edge, _ = decode_splits(B, K, -(-2048 // BS), sms)
+    ragged = [0, 1, BS, BS * edge, 2048, 17, BS * edge + 1, 1000]
     cases = [(dt, C, 0) for dt in ("float32", "bfloat16", "int8")
              for C in (1, 8)] + [("bfloat16", 8, 100), ("int8", 1, 300)]
     worst = 0.0
@@ -260,9 +324,19 @@ def phase_kernel(torch, device, timer):
     lens = [2048] * B
     q, kp, vp, bt, sl, _ = make_pages(torch, lens, 1, "bfloat16", device,
                                       seed=99)
-    ms = timer.ms(lambda: flash_decode_paged(q, kp, vp, bt, sl))
+    call = lambda: flash_decode_paged(q, kp, vp, bt, sl)  # noqa: E731
+    ms = timer.ms(call)
     log(f"kernel_ms spread over 20 calls: min {timer.spread[0]:.4f} "
         f"max {timer.spread[1]:.4f}")
+    pps, splits = decode_splits(B, K, bt.shape[1], sms)
+    device_ms = timer.device_ms(call, DECODE_KERNELS[:1 + (splits > 1)])
+    log(f"one call ({splits} splits of {pps} pages, {sms} SMs): its "
+        f"kernels (launches seen a call, ms a launch) "
+        + "; ".join(f"{k} x{n:g} {t:.4f}" for k, n, t in timer.kernels)
+        + f"; other device operations {timer.others}")
+    if timer.others:
+        fail(f"a flash_decode_paged call issued more than its two kernels: "
+             f"{timer.others}")
     plain_ms = timer.ms(lambda: paged_attention_reference(q, kp, vp, bt, sl))
     kd = kp[bt.long()].reshape(B, -1, K, D).transpose(1, 2)
     vd = vp[bt.long()].reshape(B, -1, K, D).transpose(1, 2)
@@ -271,28 +345,30 @@ def phase_kernel(torch, device, timer):
     qd = q.to(torch.bfloat16)[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = timer.ms(lambda: sdpa(qd, kd, vd))
-    nb = bt.shape[1]
-    splits = -(-nb // min(DEFAULT_PAGES_PER_SPLIT, nb))
-    part_bytes = B * K * splits * (H // K) * (2 + D) * 4
-    nbytes = live_bytes(lens, 1, "bfloat16", q, part_bytes)
+    nbytes = live_bytes(lens, 1, "bfloat16", q)
     flops = 2 * 2 * D * H * sum(lens)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(t_bytes, t_ops),
+    timing = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     log(f"timing B={B} x 2048 tokens bf16 decode: kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms(SDPA on gathered K/V) "
-        f"{library_ms:.4f} bound_ms {timing['bound_ms']:.4f} "
-        f"({nbytes/1e6:.1f} MB, bound by {timing['bound_by']})")
+        f"(the whole call) device_ms {device_ms:.4f} (its kernels alone, "
+        f"profiler) plain_ms {plain_ms:.4f} library_ms(SDPA on gathered "
+        f"K/V) {library_ms:.4f} bound_ms {timing['bound_ms']:.4f} "
+        f"({nbytes/1e6:.2f} MB, bound by {timing['bound_by']}); "
+        f"{nbytes / device_ms / 1e6:.0f} GB/s over the kernels' time")
 
     # an engine-shaped chunked-prefill call: 8 slots, C=8, ~128 tokens
     elens = [16, 48, 32, 64, 80, 96, 112, 128]
     q, kp, vp, bt, sl, _ = make_pages(torch, elens, 8, "bfloat16", device,
                                       seed=98)
-    eng_ms = timer.ms(lambda: flash_decode_paged(q, kp, vp, bt, sl))
+    call = lambda: flash_decode_paged(q, kp, vp, bt, sl)  # noqa: E731
+    eng_ms = timer.ms(call)
+    _, splits = decode_splits(B, K, bt.shape[1], sms)
+    eng_device_ms = timer.device_ms(call, DECODE_KERNELS[:1 + (splits > 1)])
     log(f"timing engine-shaped chunk (C=8, lens {elens}): kernel_ms "
-        f"{eng_ms:.4f}")
+        f"{eng_ms:.4f} device_ms {eng_device_ms:.4f}")
     log(f"kernels held against their plain version: "
         f"[flash_decode_paged] worst max_abs_err {worst:.3e}")
     return worst, timing
@@ -1166,24 +1242,34 @@ def phase_ssd(torch, device, timer):
     case = MAMBA_SSD[0]
     args = ssd_tensors(torch, case, torch.bfloat16, device, seed=99)
     y = ssd_bhcq(*args, chunk=case[-1])
-    ms = timer.ms(lambda: ssd_bhcq(*args, chunk=case[-1]))
+    call = lambda: ssd_bhcq(*args, chunk=case[-1])  # noqa: E731
+    ms = timer.ms(call)
     spread = timer.spread
+    device_ms = timer.device_ms(call, SSD_KERNELS)
+    log("the SSD call's kernels (launches seen a call, ms a launch): "
+        + "; ".join(f"{k} x{n:g} {t:.4f}" for k, n, t in timer.kernels)
+        + f"; other device operations {timer.others}")
+    if timer.others:
+        fail(f"an ssd_bhcq call issued more than its three kernels: "
+             f"{timer.others}")
     plain_ms = timer.ms(lambda: ssd_bhcq_plain(*args, chunk=case[-1]))
     flops, nbytes = ssd_work(case, args, y)
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-              "bound_ms": max(t_ops, t_bytes),
+    timing = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+              "library_ms": None, "bound_ms": max(t_ops, t_bytes),
               "bound_by": "operations" if t_ops > t_bytes else "bytes"}
     log(f"timing SSD scan at mamba2-130m's shape {case} bf16: kernel_ms "
-        f"{ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}) plain_ms "
+        f"{ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}; the whole "
+        f"call) device_ms {device_ms:.4f} (its kernels alone, profiler) "
+        f"plain_ms "
         f"{plain_ms:.4f} library_ms none (no single PyTorch call computes "
         f"the scan) bound_ms {timing['bound_ms']:.4f} ({flops:.4e} FLOP = "
         f"{t_ops:.4f} ms at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
         f"{nbytes:,} B = {t_bytes:.4f} ms; bound by {timing['bound_by']}; "
         f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the "
         f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s of fp32 CUDA cores); "
-        f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+        f"{flops / device_ms / 1e9:.2f} TFLOP/s over the kernels' time")
     log(f"SSD kernel held against its plain version: worst max_abs_err "
         f"{worst:.3e}")
     return worst, timing
@@ -1291,8 +1377,8 @@ def phase_mamba(torch, np, device):
         f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}% of "
         f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
         f"{peak / 1e9:.2f} GB")
-    profile_fn(torch, lambda: prefill(params, batch), ms, 1,
-               "ssd_scan_kernel", unit="forward")
+    profile_fn(torch, lambda: prefill(params, batch), ms, 1, "ssd_",
+               unit="forward")
 
     live = slice(0, cfg.vocab_size)
     with torch.inference_mode():
@@ -1354,7 +1440,7 @@ def phase_mamba(torch, np, device):
         f"{gen_ms / steps:.3f} ms a step, {Bd * new / (gen_ms / 1e3):.1f} "
         f"new tokens/s ({Bd * (Sd + new - 1) / (gen_ms / 1e3):.1f} tokens "
         f"through the step a second); every id < {cfg.vocab_size}")
-    profile_fn(torch, gen, gen_ms / steps, steps, "ssd_scan_kernel")
+    profile_fn(torch, gen, gen_ms / steps, steps, "ssd_")
 
     # (c) decode_step token by token == the kernel prefill, fp32 weights
     Bc, Sc = MAMBA_AGREE

@@ -105,6 +105,10 @@ SSD_CASES = [(2, 256, 4, 1, 64, 32, 64), (1, 128, 8, 2, 32, 128, 32),
              (1, 300, 4, 2, 128, 128, 128), (2, 390, 24, 1, 64, 128, 128)]
 SSD_IDS = ["g1-c64", "g2-n128", "g4-ragged100", "p128-c128",
            "ragged300-p128-n128", "mamba2-130m-s390"]
+# on the card also mamba2-130m's prefill at 8 x 4000 tokens (chip_smoke's
+# ragged MAMBA_SSD shape: 31 full chunks and one of 32 rows)
+CARD_SSD_CASES = SSD_CASES + [(8, 4000, 24, 1, 64, 128, 128)]
+CARD_SSD_IDS = SSD_IDS + ["mamba2-130m-8x4000"]
 
 
 def ssd_inputs(b, s, h, g, p, n, seed=0):
@@ -179,6 +183,153 @@ def test_cuda_kernel_matches_plain_version(case, cuda):
     ref = paged_attention_reference(*dev, window=window, **dsc)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+# many more pages than splits: the planner's split count (from the
+# shapes alone) leaves each split dozens of pages, several stages of the
+# kernel's cp.async ring; H, K, D, bs, lens, window, C, int8 as in CASES
+LONG_CASES = [(28, 4, 128, 16, (2048, 1999, 17, 0, 1500, 700, 33, 2047),
+               0, 1, False),
+              (8, 4, 64, 8, (3000, 2900, 1, 2999, 100, 2500, 1234, 5),
+               0, 8, True),
+              (28, 4, 128, 16, (2048, 1024, 512, 2000, 64, 1800, 900, 3),
+               300, 8, False)]
+LONG_IDS = ["qwen2-decode-bf16", "chunk8-int8-bs8", "chunk8-window300"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LONG_CASES, ids=LONG_IDS)
+def test_cuda_kernel_many_pages_a_split(case, cuda):
+    from repro_torch.kernels.flash_attention.decode import decode_splits
+    H, K, D, bs, lens, window, C, quant = case
+    q, kp, vp, bt, sl, sc = inputs(H, K, D, bs, lens, C, quant)
+    dev = [torch.from_numpy(x).to(cuda) for x in (q, kp, vp, bt, sl)]
+    dev[2] = dev[2].to(torch.bfloat16) if not quant else dev[2]
+    dev[1] = dev[1].to(torch.bfloat16) if not quant else dev[1]
+    dsc = {k: torch.from_numpy(v).to(cuda) for k, v in sc.items()}
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pps, splits = decode_splits(len(lens), K, bt.shape[1], sms)
+    assert bt.shape[1] >= 8 * splits and pps >= 8
+    out = flash_decode_paged(*dev, window=window, **dsc)
+    ref = paged_attention_reference(*dev, window=window, **dsc)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def _decode_call(lens, C):
+    """A flash_decode_paged call at the engine's shape (B 8, H 28, K 4,
+    D 128, bf16 pages, block 16) over sequences of ``lens`` tokens."""
+    q, kp, vp, bt, sl, _ = inputs(28, 4, 128, 16, tuple(lens), C, False)
+    dev = torch.device("cuda")
+    q = torch.from_numpy(q).to(dev)
+    kp, vp = (torch.from_numpy(x).to(dev, torch.bfloat16) for x in (kp, vp))
+    bt, sl = torch.from_numpy(bt).to(dev), torch.from_numpy(sl).to(dev)
+    return lambda: flash_decode_paged(q, kp, vp, bt, sl)
+
+
+def _width_inputs(D, Dv):
+    """q (2, 3, 8, D) fp32, bf16 pages with K 2 heads of widths D and Dv,
+    block 16, over sequences of 70 and 5 tokens, on the card."""
+    rs = np.random.RandomState(7)
+    B, C, H, K, bs, nb = 2, 3, 8, 2, 16, 6
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rs.randn(B, C, H, D).astype(np.float32)).to(dev)
+    kp = torch.from_numpy(rs.randn(B * nb + 1, bs, K, D).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    vp = torch.from_numpy(rs.randn(B * nb + 1, bs, K, Dv).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    bt = torch.from_numpy((1 + rs.permutation(B * nb)).astype(
+        np.int32).reshape(B, nb)).to(dev)
+    sl = torch.tensor([70, 5], dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, sl
+
+
+def _width_call(D, Dv):
+    args = _width_inputs(D, Dv)
+    return lambda: flash_decode_paged(*args)
+
+
+def _profile_one_call(builder, args):
+    """[(name, launches)] of every device operation the profiler sees in
+    one call of ``builder(*args)``'s call, after a first call that builds,
+    loads and warms its kernels, and a second in the session's warm-up
+    step: the profiler can lose the records of the launches made as a
+    session starts tracing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    call = globals()[builder](*args)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def profiled_kernels(builder, *args):
+    """``_profile_one_call(builder, args)`` in a fresh interpreter.  In one
+    process with these checks, `test_cuda_dq_runs_the_kernel_of_its_dtype`
+    (a one-call session without a warm-up step) has seen no kernel, so
+    each of them runs in a process of its own."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    path = [str(here.parent / "src"), str(here),
+            os.environ.get("PYTHONPATH", "")]
+    code = ("import json, test_torch_cuda as T; print(json.dumps("
+            f"T._profile_one_call({builder!r}, {list(args)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=900,
+                         env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                             p for p in path if p)))
+    assert out.returncode == 0, out.stderr[-4000:]
+    return [tuple(op) for op in json.loads(out.stdout.splitlines()[-1])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens,C", [((2048,) * 8, 1), ((5,) * 8, 8),
+                                    ((2048,) * 8, 8)],
+                         ids=["decode-2048", "one-split", "chunk8-2048"])
+def test_cuda_decode_call_is_at_most_two_kernels(lens, C, cuda):
+    """One flash_decode_paged call at the engine's shape (B 8, H 28, K 4,
+    D 128, bf16 pages) runs the split kernel and, with more than one
+    split, the merge kernel, and no other device operation (profiler
+    count over the call)."""
+    ops = profiled_kernels("_decode_call", list(lens), C)
+    names = [k for k, _ in ops]
+    assert sum(c for _, c in ops) <= 2, ops
+    assert any("flash_decode_split" in k for k in names), ops
+    assert all("flash_decode" in k for k in names), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv,kernel", [
+    (128, 128, "flash_decode_split_tc_kernel<1, 128>"),
+    (64, 32, "flash_decode_split_tc_kernel<1, 64>"),
+    (192, 128, "flash_decode_split_kernel<__nv_bfloat16, 2>")])
+def test_cuda_bf16_pages_run_the_kernel_of_their_width(D, Dv, kernel, cuda):
+    """bf16 pages with heads up to 128 wide run on the tensor-core split
+    kernel (widths zero-padded to 32, 64 or 128), wider heads on the
+    CUDA-core one; both meet the fp32 bar (kernel names as the profiler
+    sees them)."""
+    q, kp, vp, bt, sl = _width_inputs(D, Dv)
+    out = flash_decode_paged(q, kp, vp, bt, sl)
+    ref = paged_attention_reference(q, kp, vp, bt, sl)
+    assert out.shape == (2, 3, 8, Dv)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    names = [k for k, _ in profiled_kernels("_width_call", D, Dv)
+             if "flash_decode_split" in k]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.cuda
@@ -379,7 +530,7 @@ def test_cuda_local_sgd_int8_runs_the_kernels_and_async_equals_sync(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", SSD_CASES, ids=SSD_IDS)
+@pytest.mark.parametrize("case", CARD_SSD_CASES, ids=CARD_SSD_IDS)
 def test_cuda_ssd_kernel_matches_plain_version(case, dtype, cuda):
     b, s, h, g, p, n, chunk = case
     x, dt, A, B, C = (torch.from_numpy(a).to(cuda)
