@@ -38,7 +38,9 @@ Phases (any failure exits nonzero):
    versions (codes, scales and values equal) on the JAX package's quant8
    cases, ragged tails, an all-zero block, bf16 input and opt-1.3b's
    largest leaf, and time kernel, plain version, ``torch.mul`` and the
-   bound there;
+   bound there, with dequantize's GB/s beside a ``fill_`` of the same
+   output (the card's write rate, a yardstick); then time dequantize over
+   all 17 opt-1.3b leaves, what one replica spends on it a round;
 6. train opt-1.3b at full width through
    ``repro_torch.train.local_sgd.train_local_sgd``: 2 replicas x 4 inner
    steps of 2 x 2048 tokens, 2 rounds, int8-compressed pseudo-gradients
@@ -911,6 +913,34 @@ def quant_check(torch, x, block, dtype):
     return err
 
 
+def opt_leaf_sizes():
+    """Element counts of opt-1.3b's parameter leaves, as the local-SGD
+    round compresses them."""
+    import math
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import model_spec
+    return [math.prod(s.shape)
+            for _, s in flatten(model_spec(get_config("opt-1.3b")))]
+
+
+def dequantize_leaves(torch, device, timer):
+    """Dequantize (block 256, fp32 out) summed over opt-1.3b's leaves:
+    the median of each leaf's calls with the L2 flushed, as one replica's
+    pseudo-gradient pass meets them.  Returns (ms, bytes moved)."""
+    from repro_torch.kernels.quant8.kernel import dequantize_blocks
+    g = torch.Generator(device=device).manual_seed(6)
+    total_ms, total_bytes = 0.0, 0
+    for n in opt_leaf_sizes():
+        rows = -(-n // 256)
+        q = torch.randint(-127, 128, (rows * 256,), dtype=torch.int8,
+                          device=device, generator=g)
+        s = torch.rand(rows, device=device, generator=g)
+        total_ms += timer.ms(lambda: dequantize_blocks(q, s))
+        total_bytes += rows * 256 * 5 + rows * 4
+    return total_ms, total_bytes
+
+
 def phase_quant8(torch, device, timer):
     from repro_torch.kernels.quant8 import ops
     from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
@@ -967,12 +997,25 @@ def phase_quant8(torch, device, timer):
                             "library_ms": library_ms,
                             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                             "bound_by": "bytes"}
+    out = torch.empty(n, device=device)
+    fill_ms = timer.ms(lambda: out.fill_(1.0))
+    del out
+    log(f"dequantize at the largest leaf: {nbytes / ms / 1e6:.0f} GB/s "
+        f"(kernel), {nbytes / library_ms / 1e6:.0f} GB/s (torch.mul); "
+        f"yardstick, not the bound: fill_ of the same {n * 4 / 1e9:.3f} GB "
+        f"fp32 output {fill_ms:.4f} ms, {n * 4 / fill_ms / 1e6:.0f} GB/s "
+        f"written")
     log(f"timing dequantize at the largest leaf: kernel_ms {ms:.4f} (min "
         f"{spread[0]:.4f} max {spread[1]:.4f}) plain_ms {plain_ms:.4f} "
         f"library_ms {library_ms:.4f} (torch.mul(q.view(rows, block), "
         f"s[:, None])) bound_ms {timing['dequantize']['bound_ms']:.4f} "
-        f"({nbytes / 1e9:.3f} GB, bound by bytes); "
-        f"{nbytes / ms / 1e6:.0f} GB/s achieved")
+        f"({nbytes / 1e9:.3f} GB, bound by bytes)")
+    del q, s, x
+    leaves_ms, leaves_bytes = dequantize_leaves(torch, device, timer)
+    log(f"dequantize over opt-1.3b's {len(opt_leaf_sizes())} leaves (what one "
+        f"replica spends a round): {leaves_ms:.4f} ms, "
+        f"{leaves_bytes / 1e9:.3f} GB, {leaves_bytes / leaves_ms / 1e6:.0f} "
+        f"GB/s; bound {leaves_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     log(f"quant8 kernels held against their plain versions: worst "
         f"difference {worst:.3e}")
     return worst, timing
@@ -1035,8 +1078,6 @@ def phase_local_sgd(torch, np, device):
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
                                                    quantize_blocks)
-    from repro_torch.bridge import flatten
-    from repro_torch.models.params import model_spec
     from repro_torch.optim import adamw
     from repro_torch.optim.compress import CompressConfig
     from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
@@ -1051,7 +1092,7 @@ def phase_local_sgd(torch, np, device):
                         compress=CompressConfig(method="int8"))
     opt_cfg = adamw.OptConfig(learning_rate=3e-3, warmup_steps=5,
                               decay_steps=tc.steps)
-    sizes = [int(np.prod(s.shape)) for _, s in flatten(model_spec(cfg))]
+    sizes = opt_leaf_sizes()
     wire = sum(n + 4 * (n // 256 + 1) for n in sizes)
     log(f"local SGD, opt-1.3b full width: {len(sizes)} leaves, "
         f"{sum(sizes):,} params; R={R} replicas x K={K} inner steps of "

@@ -24,9 +24,13 @@
 // it does a handful of fp32 operations, far below the card's ridge.  At
 // opt-1.3b's largest leaf (402,653,184 fp32 elements, block 256) each
 // kernel moves 2.020 GB: at least 0.603 ms at 3.35 TB/s.  Neither kernel
-// uses the tensor cores.
+// uses the tensor cores.  Dequantize moves 80 % of its bytes as writes,
+// so how its stores reach memory sets its pace: a warp store instruction
+// that covers half of each of 32 sectors (16 bytes a lane, lanes 64 bytes
+// apart) ran it at 1.3 TB/s, against 2.7 TB/s with each instruction
+// writing 512 contiguous bytes (PERF.md has the runs).
 //
-// Design (simple first):
+// Design:
 //  * quantize: one warp per row, rows walked grid-stride; each lane owns
 //    block/32 consecutive elements, read with 16-byte (or, for bf16 at
 //    block 128, 8-byte) vector loads and written back as one packed vector
@@ -34,35 +38,29 @@
 //    last row takes guarded scalar loads.  The TPU kernel tiled 256 rows
 //    per grid step and had to fall back to a plain function for row counts
 //    the tile did not divide; the grid-stride loop takes any row count.
-//  * dequantize: each thread turns 16 codes (one 16-byte load; block is a
-//    multiple of 128, so they share one row and one scale) into 16 outputs
-//    written as 16-byte vectors, grid-stride over the padded length.
-// Left for later: more than one row in flight per warp, and fusing the
-// round trip (quantize -> dequantize -> error feedback) into one pass.
+//  * dequantize: warp-contiguous 16-byte streaming stores, several runs a
+//    warp in flight, one wave of blocks sized from the SM count (see the
+//    kernel).  A bulk-copy pipeline through shared memory (cp.async.bulk
+//    in and out) ran no faster on the card, so the simpler loop was kept.
+// Left for later: more than one row in flight per quantize warp, and
+// fusing the round trip (quantize -> dequantize -> error feedback) into
+// one pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kMaxBlocks = 132 * 16;  // quantize's grid cap
+constexpr int kDeqRuns = 4;           // dequantize's runs a warp trip
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // Copies of N bytes through the widest vector the size allows (N is 4, 8,
@@ -123,23 +121,78 @@ __global__ void __launch_bounds__(kThreads) quant8_quantize_kernel(
   }
 }
 
-template <typename T>
+// Dequantize: warp-contiguous stores.  A lane converts V codes (V = 4 for
+// fp32 output, 8 for bf16) into 16 output bytes, and lane l of a warp
+// takes codes [run + V l, run + V l + V) of a run of 32 V codes, so one
+// warp store instruction writes 512 contiguous bytes and one warp load
+// reads 32 V contiguous codes.  A warp takes kDeqRuns runs a trip and
+// issues all their loads before its first store.  Codes and scales are
+// read through the read-only path (ld.global.nc), the output written with
+// the streaming hint (st.global.cs): it is too large to stay in the L2.
+// BLOCK is a multiple of 16, so a lane's V codes lie in one row and take
+// one scale (at bf16 and block 128 a run's halves take two rows' scales).
+// n = rows * BLOCK is a multiple of V, so a lane's V codes lie wholly
+// before n or wholly past it.
+__device__ __forceinline__ float code_at(uint32_t word, int i) {
+  return static_cast<float>(static_cast<int8_t>(word >> (8 * i)));
+}
+
+// a in the low half, b in the high half (memory order a, b)
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+             << 16;
+}
+
+// 4 codes -> 4 fp32, one 16-byte streaming store
+__device__ __forceinline__ void dequant16(uint32_t w, float scale,
+                                          float* out) {
+  __stcs(reinterpret_cast<float4*>(out),
+         make_float4(code_at(w, 0) * scale, code_at(w, 1) * scale,
+                     code_at(w, 2) * scale, code_at(w, 3) * scale));
+}
+
+// 8 codes -> 8 bf16, one 16-byte streaming store; each value is the fp32
+// product rounded once, to nearest even
+__device__ __forceinline__ void dequant16(uint2 w, float scale,
+                                          __nv_bfloat16* out) {
+  uint4 v;
+  v.x = bf16_pair(code_at(w.x, 0) * scale, code_at(w.x, 1) * scale);
+  v.y = bf16_pair(code_at(w.x, 2) * scale, code_at(w.x, 3) * scale);
+  v.z = bf16_pair(code_at(w.y, 0) * scale, code_at(w.y, 1) * scale);
+  v.w = bf16_pair(code_at(w.y, 2) * scale, code_at(w.y, 3) * scale);
+  __stcs(reinterpret_cast<uint4*>(out), v);
+}
+
+template <typename T, int BLOCK>
 __global__ void __launch_bounds__(kThreads) quant8_dequantize_kernel(
     const int8_t* __restrict__ q, const float* __restrict__ s,
-    T* __restrict__ out, long long chunks, int block) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long c = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       c < chunks; c += stride) {
-    const long long base = c * 16;
-    alignas(16) int8_t codes[16];
-    copy_bytes<16>(codes, q + base);
-    const float scale = s[base / block];
-    alignas(16) T vals[16];
+    T* __restrict__ out, long long n) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  constexpr long long kRun = 32LL * V;
+  using Codes = std::conditional_t<V == 4, uint32_t, uint2>;
+  const int lane = threadIdx.x & 31;
+  const long long warp = (static_cast<long long>(blockIdx.x) * kThreads +
+                          threadIdx.x) >> 5;
+  const long long stride =
+      ((static_cast<long long>(gridDim.x) * kThreads) >> 5) * kRun * kDeqRuns;
+  for (long long base = warp * kRun * kDeqRuns + lane * V; base < n;
+       base += stride) {
+    Codes c[kDeqRuns];
+    float scale[kDeqRuns];
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      vals[i] = from_float<T>(static_cast<float>(codes[i]) * scale);
-    copy_bytes<static_cast<int>(16 * sizeof(T))>(out + base, vals);
+    for (int r = 0; r < kDeqRuns; ++r) {
+      const long long at = base + r * kRun;
+      if (at < n) {
+        c[r] = __ldg(reinterpret_cast<const Codes*>(q + at));
+        scale[r] = __ldg(s + at / BLOCK);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kDeqRuns; ++r) {
+      const long long at = base + r * kRun;
+      if (at < n) dequant16(c[r], scale[r], out + at);
+    }
   }
 }
 
@@ -172,6 +225,42 @@ int quantize_as(const void* x, int8_t* q, float* s, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One wave: as many blocks as are resident on all SMs at once (the card's
+// SM count times the kernel's occupancy), fewer when the runs fill fewer,
+// so a leaf of 2,048 codes launches one block.
+template <typename T, int BLOCK>
+int dequantize_with(const int8_t* q, const float* s, void* out, long long n,
+                    cudaStream_t stream) {
+  const auto kernel = quant8_dequantize_kernel<T, BLOCK>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  constexpr long long kBlockCodes = (kThreads / 32) * kDeqRuns * 32LL *
+                                    (16 / static_cast<int>(sizeof(T)));
+  const long long want = (n + kBlockCodes - 1) / kBlockCodes;
+  const long long wave =
+      static_cast<long long>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  const int grid = static_cast<int>(want < wave ? want : wave);
+  kernel<<<grid, kThreads, 0, stream>>>(q, s, static_cast<T*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dequantize_as(const int8_t* q, const float* s, void* out, long long n,
+                  int block, cudaStream_t stream) {
+  switch (block) {
+    case 128:
+      return dequantize_with<T, 128>(q, s, out, n, stream);
+    case 256:
+      return dequantize_with<T, 256>(q, s, out, n, stream);
+    case 512:
+      return dequantize_with<T, 512>(q, s, out, n, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // x: n elements, fp32 (dtype 0) or bf16 (dtype 1); q: rows * block int8;
@@ -194,28 +283,21 @@ extern "C" int quant8_quantize_launch(const void* x, void* q, void* s,
 }
 
 // q: rows * block int8; s: rows fp32; out: rows * block, fp32 (dtype 0)
-// or bf16 (dtype 1); block a multiple of 16 (128, 256 or 512 here).
+// or bf16 (dtype 1); block 128, 256 or 512.
 extern "C" int quant8_dequantize_launch(const void* q, const void* s,
                                         void* out, long long rows, int block,
                                         int dtype, void* stream) {
   if (rows <= 0) return 0;
-  if (block % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long chunks = rows * block / 16;
-  const int grid = grid_for(chunks);
   const int8_t* qp = static_cast<const int8_t*>(q);
   const float* sp = static_cast<const float*>(s);
   switch (dtype) {
     case 0:
-      quant8_dequantize_kernel<float><<<grid, kThreads, 0, st>>>(
-          qp, sp, static_cast<float*>(out), chunks, block);
-      break;
+      return dequantize_as<float>(qp, sp, out, rows * block, block, st);
     case 1:
-      quant8_dequantize_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          qp, sp, static_cast<__nv_bfloat16*>(out), chunks, block);
-      break;
+      return dequantize_as<__nv_bfloat16>(qp, sp, out, rows * block, block,
+                                          st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -496,6 +496,50 @@ def test_cuda_quant8_kernels_equal_plain_versions(n, block, dtype, cuda):
     assert torch.equal(out, QR.dequantize_reference(rq, rs, block, dtype))
 
 
+# row counts for the dequantize kernel: one row, a few, one past a power
+# of two, one that ends part way through a block's trip (4,096 fp32 or
+# 8,192 bf16 codes) at every block, and one that gives each block of the
+# one-wave grid several trips
+DEQUANT_ROWS = [1, 3, 257, 4173, 40001]
+
+
+def _dequant_inputs(rows, block, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randint(-127, 128, (rows * block,), dtype=torch.int8,
+                      device=device, generator=g)
+    s = torch.rand(rows, device=device, generator=g) * 1e-2 + 1e-7
+    return q, s
+
+
+def _dequant_equals_plain(q, s, block, dtype):
+    before = QK.dequantize_blocks.launches
+    out = QK.dequantize_blocks(q, s, block=block, dtype=dtype)
+    torch.cuda.synchronize()
+    assert QK.dequantize_blocks.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.equal(out, QR.dequantize_reference(q, s, block, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 256, 512])
+@pytest.mark.parametrize("rows", DEQUANT_ROWS)
+def test_cuda_dequantize_equals_plain_version(rows, block, dtype, cuda):
+    q, s = _dequant_inputs(rows, block, cuda, seed=rows + block)
+    _dequant_equals_plain(q, s, block, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dequantize_past_two_gib_of_output(dtype, cuda):
+    """More than 2**31 bytes of output: every offset past the 32-bit
+    range must be computed in 64 bits."""
+    rows = (2 ** 31 // (256 * dtype.itemsize)) + 3
+    q, s = _dequant_inputs(rows, 256, cuda, seed=7)
+    assert q.numel() * dtype.itemsize > 2 ** 31
+    _dequant_equals_plain(q, s, 256, dtype)
+
+
 @pytest.mark.cuda
 def test_cuda_quant8_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="block"):

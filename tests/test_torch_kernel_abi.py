@@ -55,3 +55,76 @@ def test_ctypes_mirror_matches_the_struct(source, namespace, mirror):
     got = [(name, _KIND.get(kind, kind.__name__.lstrip("_")))
            for name, kind in mirror._fields_]
     assert got == want
+
+
+class _FakeLibrary:
+    """Stands in for a built library: each entry point the wrapper asks
+    for is an object that keeps the ``argtypes`` and ``restype`` set on
+    it, recorded by name in ``seen``."""
+
+    def __init__(self, seen):
+        self._seen = seen
+
+    def __getattr__(self, name):
+        return self._seen.setdefault(name, type(name, (), {})())
+
+
+def _wrapper_entry_points(monkeypatch):
+    """{entry point name: the object its wrapper set argtypes on}, from
+    every wrapper's library getter run against a fake library."""
+    from repro_torch.kernels.quant8 import kernel as q8
+    seen = {}
+    for mod in (q8, decode, fa, ssd):
+        monkeypatch.setattr(mod, "load_library",
+                            lambda name: _FakeLibrary(seen))
+    q8._launchers.__wrapped__()
+    decode._library.__wrapped__()
+    fa._lib.__wrapped__()
+    ssd._launcher.__wrapped__()
+    return seen
+
+
+def c_launchers():
+    """[(source, name, [kind])] of every ``extern "C"`` function in
+    ``csrc/*.cu``: kind ptr, i64, i32 or f32 for each parameter."""
+    out = []
+    for path in sorted(CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{',
+                                       path.read_text(), re.S):
+            kinds = []
+            for p in " ".join(params.split()).split(","):
+                kinds.append("ptr" if "*" in p else
+                             "i64" if "long long" in p else
+                             "f32" if p.split()[0] == "float" else "i32")
+            out.append((path.name, name, kinds))
+    return out
+
+
+LAUNCHERS = c_launchers()
+
+
+def _ctypes_kind(t):
+    if t is ctypes.c_void_p or issubclass(t, ctypes._Pointer):
+        return "ptr"
+    return _KIND[t]
+
+
+@pytest.mark.parametrize("source,name,kinds", LAUNCHERS,
+                         ids=[n for _, n, _ in LAUNCHERS])
+def test_ctypes_argtypes_match_the_c_launcher(source, name, kinds,
+                                              monkeypatch):
+    """Each C entry point's parameters against the argtypes its wrapper
+    sets: a pointer or a 64-bit count passed as a 32-bit int is cut
+    without a word, which only the card would show."""
+    fn = _wrapper_entry_points(monkeypatch).get(name)
+    assert fn is not None, f"no wrapper sets argtypes for {source}::{name}"
+    assert [_ctypes_kind(t) for t in fn.argtypes] == kinds
+    assert fn.restype is ctypes.c_int
+
+
+def test_every_c_launcher_is_checked():
+    names = [n for _, n, _ in LAUNCHERS]
+    assert sorted(names) == sorted(
+        ["quant8_quantize_launch", "quant8_dequantize_launch",
+         "flash_decode_paged_launch", "fa_fwd_launch", "fa_bwd_dq_launch",
+         "fa_bwd_dkdv_launch", "ssd_scan_launch"])
