@@ -64,7 +64,18 @@ Phases (any failure exits nonzero):
    ``ssd_reference`` path in bf16 and fp32; (b) ``greedy_generate`` of 8
    prompts of 64 tokens + 32 new ones through the dense cache; (c) with
    fp32 weights, ``decode_step`` token by token against the kernel
-   prefill's logits at every position of 2 x 300 tokens.
+   prefill's logits at every position of 2 x 300 tokens;
+10. serve mixtral-8x7b at full width and 16 of its 32 layers in bf16
+   (random weights from a seed; full depth is 93.4 GB of bf16, past the
+   card's 80 GB): phase 2's engine and requests, with every request
+   completing, flash-decode launched by each of the 16 layers every step
+   and prefix hits; a profiled run's device time by kind (MoE dispatch,
+   expert FFNs, flash-decode, other); phase 2's mixed step, kernel vs
+   gather, gated in fp32 compute only (in bf16 a one-ulp difference can
+   flip a token's top-2 experts in a later layer); a 1 x 8192-token
+   ``forward_logits`` through the FA-2 forward (16 launches a forward,
+   the 4096-token window cutting in), and layer 0's attention there
+   against ``attention_fwd_plain`` at phase 3's bf16 bar.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``; before that a
@@ -147,6 +158,11 @@ PREFILL_TOL = {"float32": 1e-3, "argmax_slack": 0.01}
 # new tokens); decode-vs-prefill agreement (batch, tokens: two full
 # chunks of 128 and a ragged one)
 MAMBA_PREFILL, MAMBA_DECODE, MAMBA_AGREE = (8, 4096), (8, 64, 32), (2, 300)
+# phase 10: mixtral-8x7b's depth on one card (16 of 32 layers: 46.96 GB of
+# bf16 weights), the prefill's tokens (past the 4096 window), and the KV
+# groups of layer 0's attention held to the plain version (its fp32
+# (S x S) scores for 2 of 8 groups take 2.1 GB)
+MIXTRAL_LAYERS, MIXTRAL_PREFILL, MIXTRAL_GROUPS = 16, 8192, 2
 # the kernels a call launches, by a part of each name: flash-decode's
 # split kernel, and its merge kernel when a call has more than one split;
 # the SSD scan's three when s spans more than one chunk
@@ -399,9 +415,10 @@ def engine_requests(cfg, np, seed=0):
 def mixed_step_diff(torch, np, M, params, cfg, device):
     """One mixed step (decode slots, prefill chunks, an idle slot) from
     identical pages through the kernel and the plain gather path, in the
-    serving dtype (bf16) and with the weights upcast to fp32 (pages stay
-    bf16).  Returns {compute dtype: max |logits(kernel) - logits(gather)|}
-    and the largest |logit|."""
+    serving dtype (bf16) and in fp32 compute (pages stay bf16; each op
+    casts its bf16 weights to fp32, so no fp32 copy of the model is
+    held).  Returns {compute dtype: max |logits(kernel) -
+    logits(gather)|} and the largest |logit|."""
     import dataclasses
 
     from repro_torch.models.params import tree_map
@@ -457,13 +474,10 @@ def mixed_step_diff(torch, np, M, params, cfg, device):
     diffs["bfloat16"] = float((lk[live] - lg[live]).abs().max())
     peak = float(lk[live].abs().max())
     del lk, lg
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
-    p32 = tree_map(lambda t: t.float(), params)
-    lk = step(feeds, "kernel", twin(), p32, cfg32)
-    lg = step(feeds, "gather", twin(), p32, cfg32)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    lk = step(feeds, "kernel", twin(), params, cfg32)
+    lg = step(feeds, "gather", twin(), params, cfg32)
     diffs["float32"] = float((lk[live] - lg[live]).abs().max())
-    del p32
     torch.cuda.synchronize()
     return diffs, peak, feeds
 
@@ -1511,6 +1525,259 @@ def phase_mamba(torch, np, device):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 10: serving mixtral-8x7b at full width, 16 layers
+# --------------------------------------------------------------------------- #
+
+# the MoE layer's functions whose device time the profiled run reads, by
+# the range each is wrapped in while it runs: the dispatch and combine
+# (sort, scatters, gathers; they call the expert FFNs, whose time is
+# taken out) and the expert FFNs (three bmm and SiLU times the gate)
+MOE_RANGES = {"_dispatch_combine": "moe_dispatch_combine",
+              "_expert_ffn": "moe_expert_ffn"}
+
+
+def profile_moe_run(torch, eng, reqs, step_ms):
+    """Device time a step by kind over a profiled engine run of ``reqs``:
+    MoE dispatch (its functions' ranges less the expert FFNs'), the
+    expert FFNs, flash-decode (its kernels by name) and everything else;
+    the busy share against the unprofiled run's wall time a step.  The
+    ranges are ``record_function`` wrappers put around the MoE module's
+    functions for this run only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
+    orig = {name: getattr(moe, name) for name in MOE_RANGES}
+
+    def ranged(fn, label):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return call
+    try:
+        for name, label in MOE_RANGES.items():
+            setattr(moe, name, ranged(orig[name], label))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(reqs)
+    finally:
+        for name, fn in orig.items():
+            setattr(moe, name, fn)
+    steps = max(eng.steps, 1)
+    avg = prof.key_averages()
+    labels = set(MOE_RANGES.values())
+    kernels = [ev for ev in avg if ev.device_type == DeviceType.CUDA
+               and ev.device_time_total > 0 and ev.key not in labels]
+    ranges = {ev.key: ev.device_time_total for ev in avg
+              if ev.device_type == DeviceType.CPU and ev.key in labels}
+    busy = sum(ev.device_time_total for ev in kernels) / 1e3 / steps
+    kinds = {
+        "flash-decode": sum(ev.device_time_total for ev in kernels
+                            if any(k in ev.key for k in DECODE_KERNELS)),
+        "expert FFNs (3 bmm, SiLU x gate)": ranges.get("moe_expert_ffn", 0),
+        "MoE dispatch and combine (sort, scatters, gathers)":
+            ranges.get("moe_dispatch_combine", 0)
+            - ranges.get("moe_expert_ffn", 0),
+    }
+    kinds = {k: v / 1e3 / steps for k, v in kinds.items()}
+    kinds["other (attention projections, router, norms, head)"] = \
+        busy - sum(kinds.values())
+    log(f"profiled run: {eng.steps} steps, device busy {busy:.3f} ms a "
+        f"step vs {step_ms:.3f} ms a step unprofiled: busy "
+        f"{100 * busy / step_ms:.1f}%, idle {100 - 100 * busy / step_ms:.1f}%")
+    log("  by kind (ms a step): " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / max(busy, 1e-9):.1f}%)"
+        for k, v in kinds.items()))
+    for ev in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
+        log(f"  device {ev.device_time_total / 1e3 / steps:8.3f} ms/step "
+            f"x{ev.count:6d}  {ev.key[:90]}")
+
+
+def layer0_attention_check(torch, M, params, cfg, tokens):
+    """Layer 0's attention at the prefill's own q/k/v (rotary applied, the
+    window cutting in): the FA-2 forward over every head against
+    ``attention_fwd_plain`` over the first ``MIXTRAL_GROUPS`` KV groups,
+    at phase 3's bf16 bars.  Returns (out error, its bound, lse error,
+    its bound)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models.layers import _project_qkv, norm, positional
+    from repro_torch.models.params import tree_map
+    p0 = tree_map(lambda a: a[0], params["decoder"]["g0"]["s0_attn"])
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        x = M.embed_tokens(params, cfg, tokens)
+        q, k, v = _project_qkv(p0, norm(p0["norm"], x, cfg), cfg)
+        pos = torch.arange(S, device=x.device)[None]
+        q, k = positional(q, pos, cfg), positional(k, pos, cfg)
+        # (B, S, H, D) -> (B, H, S, D) views, the layout the model passes
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        kw = dict(causal=True, window=cfg.sliding_window)
+        out, lse = FK.flash_attention_fwd(q, k, v, **kw)
+        g = MIXTRAL_GROUPS
+        hq = g * cfg.num_heads // cfg.num_kv_heads
+        ref, ref_lse = FK.attention_fwd_plain(q[:, :hq], k[:, :g], v[:, :g],
+                                              **kw)
+        torch.cuda.synchronize()
+    tol = FA_TOL["bfloat16"]
+    err = float((out[:, :hq].float() - ref.float()).abs().max())
+    bound = tol["out"] * max(1.0, float(ref.float().abs().max()))
+    lse_err = float((lse[:, :hq] - ref_lse).abs().max())
+    lse_bound = tol["lse"] * max(1.0, float(ref_lse.abs().max()))
+    if not bool(torch.isfinite(out).all()):
+        fail("non-finite FA-2 output at layer 0 of the mixtral prefill")
+    return err, bound, lse_err, lse_bound
+
+
+def phase_mixtral(torch, np, device):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.decode import flash_decode_paged
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import (EngineConfig, Request,
+                                          ServeEngine)
+
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    m = cfg.moe
+    t0 = t_phase = time.perf_counter()
+    params = init_params(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"mixtral-8x7b full width, {cfg.num_layers} of {full.num_layers} "
+        f"layers (full depth: {full.param_count():,} params, "
+        f"{2 * full.param_count() / 1e9:.1f} GB of bf16, past the card's "
+        f"80 GB): d {cfg.d_model}, {cfg.num_heads} heads x "
+        f"{cfg.resolved_head_dim} (GQA kv {cfg.num_kv_heads}), "
+        f"{m.num_experts} experts top-{m.experts_per_token} x d_ff "
+        f"{m.d_ff_expert}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}; {cfg.param_count():,} params "
+        f"({cfg.active_param_count():,} active a token), {nbytes/1e9:.2f} "
+        f"GB bf16, init {time.perf_counter() - t0:.2f} s")
+
+    # (a) the engine on phase 2's requests
+    ecfg = EngineConfig(max_slots=B, block_size=BS, num_blocks=512,
+                        max_blocks_per_seq=16, attn_impl="kernel",
+                        cache_dtype="bfloat16", prefill_chunk=8)
+    eng = ServeEngine(params, cfg, ecfg, torch_device=device)
+    t0 = time.perf_counter()
+    eng.warmup()
+    system, reqs = engine_requests(cfg, np)
+    eng.run([Request(uid="prime", prompt=system, max_new=1)])
+    eng.reset_stats()
+    log(f"warmup + prefix priming {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    flash_decode_paged.launches = 0
+    out = eng.run(reqs)
+    launches = flash_decode_paged.launches
+    peak = torch.cuda.max_memory_allocated()
+    s = eng.stats()
+    step_ms = eng.wall_s / eng.steps * 1e3
+    log(f"engine run: {int(s['tokens_generated'])} tokens, "
+        f"{int(s['steps'])} steps, {eng.wall_s:.3f} s, {step_ms:.3f} ms a "
+        f"step, {s['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{s.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, prefix hit "
+        f"tokens {int(s['prefix_hit_tokens'])}, peak memory "
+        f"{peak / 1e9:.2f} GB")
+    if set(out) != {r.uid for r in reqs} or any(
+            len(out[r.uid].tokens) != 16 or out[r.uid].failed for r in reqs):
+        fail("mixtral: not every request completed with 16 tokens")
+    if launches != cfg.num_layers * eng.steps or launches == 0:
+        fail(f"mixtral: flash-decode launches {launches} != "
+             f"{cfg.num_layers} x {eng.steps} steps")
+    if s["prefix_hit_tokens"] <= 0:
+        fail("mixtral: no prefix hits on the shared system prompt")
+    del eng
+    parts = {"init and engine run": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    eng = ServeEngine(params, cfg, ecfg, torch_device=device)
+    eng.warmup()
+    eng.run([Request(uid="prime", prompt=system, max_new=1)])
+    eng.reset_stats()
+    profile_moe_run(torch, eng, engine_requests(cfg, np)[1], step_ms)
+    del eng
+    torch.cuda.empty_cache()
+    parts["profiled run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (b) one mixed step, kernel vs gather
+    diffs, peak_logit, feeds = mixed_step_diff(torch, np, M, params, cfg,
+                                               device)
+    log(f"mixed step (feeds {feeds}) kernel vs gather logits max_abs_diff: "
+        f"fp32 compute over the same bf16 pages {diffs['float32']:.3e} "
+        f"(bound {LOGITS_TOL:.0e}); bf16 compute {diffs['bfloat16']:.3e} "
+        f"(largest |logit| {peak_logit:.2f}; not gated: a one-ulp change "
+        f"of a bf16 attention output can flip a token's top-2 experts in "
+        f"a later layer)")
+    if not diffs["float32"] <= LOGITS_TOL:
+        fail(f"mixtral: kernel and gather logits differ by "
+             f"{diffs['float32']} in fp32 compute")
+
+    parts["mixed step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (c) prefill of 1 x 8192 tokens through the FA-2 forward
+    S = MIXTRAL_PREFILL
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, S))).to(device)
+
+    def prefill():
+        with torch.inference_mode():
+            return M.forward_logits(params, cfg, {"tokens": tokens},
+                                    attn_impl="kernel")
+    prefill()                                           # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention_fwd.launches = 0
+    logits = prefill()
+    torch.cuda.synchronize()
+    fa_launches = FK.flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (1, S, cfg.padded_vocab_size) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        fail(f"mixtral prefill logits malformed: {tuple(logits.shape)}")
+    if fa_launches != cfg.num_layers:
+        fail(f"a mixtral prefill forward launched the FA-2 forward "
+             f"{fa_launches} times, not {cfg.num_layers}")
+    del logits
+    ms, times = wall_ms(torch, prefill, 5)
+    flops = F.fwd_flops(cfg, 1, S)
+    tflops = flops / (ms / 1e3) / 1e12
+    log(f"prefill 1 x {S} tokens, bf16, FA-2 forward x {fa_launches}: "
+        f"{ms:.2f} ms a forward (median of 5; min {times[0]:.2f}; "
+        f"{', '.join(f'{x:.2f}' for x in times)}), "
+        f"{S / (ms / 1e3):,.0f} tokens/s (max {S / (times[0] / 1e3):,.0f}); "
+        f"fwd_flops {flops:.4e} / time = {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    parts["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    err, bound, lse_err, lse_bound = layer0_attention_check(
+        torch, M, params, cfg, tokens)
+    parts["layer 0 check"] = time.perf_counter() - t0
+    log(f"layer 0 attention at the prefill's q/k/v (B 1, S {S}, H "
+        f"{cfg.num_heads}, K {cfg.num_kv_heads}, D "
+        f"{cfg.resolved_head_dim}, window {cfg.sliding_window}; KV groups "
+        f"0-{MIXTRAL_GROUPS - 1} against attention_fwd_plain): out "
+        f"max_abs_err {err:.3e} (bound {bound:.3e}), lse {lse_err:.3e} "
+        f"(bound {lse_bound:.3e})")
+    if err > bound or lse_err > lse_bound:
+        fail(f"mixtral layer 0: FA-2 forward disagrees with its plain "
+             f"version: out {err} > {bound} or lse {lse_err} > {lse_bound}")
+    log(f"mixtral launches: flash_decode_paged {launches} in the engine "
+        f"run, flash_attention_fwd {fa_launches} a prefill forward")
+    log("phase 10 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    del params
+    torch.cuda.empty_cache()
+    return launches, fa_launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1561,6 +1828,8 @@ def main() -> int:
     ssd_worst, ssd_timing = phase_ssd(torch, device, timer)
     del timer
     ssd_launches = phase_mamba(torch, np, device)
+    torch.cuda.empty_cache()
+    phase_mixtral(torch, np, device)
 
     fa = "src/repro/kernels/flash_attention/kernel.py"
     rows = [{"name": "flash_decode_paged", "route": "cuda",

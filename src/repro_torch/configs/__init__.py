@@ -1,5 +1,5 @@
-"""Architecture registry: qwen2-7b, the paper's OPT series and
-mamba2-130m."""
+"""Architecture registry: qwen2-7b, the paper's OPT series, mamba2-130m
+and mixtral-8x7b."""
 
 from repro_torch.configs.registry import ARCHS, get_config, list_archs
 

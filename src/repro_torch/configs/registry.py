@@ -1,18 +1,20 @@
 """Registry: ``--arch <id>`` lookup for the families the port serves
-(qwen2-7b, the OPT series and mamba2-130m), with the ``-smoke`` reduced
-variants."""
+(qwen2-7b, the OPT series, mamba2-130m and mixtral-8x7b), with the
+``-smoke`` reduced variants."""
 
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2_130m
+from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral_8x7b
 from repro_torch.configs.opt import OPT_NAMES, opt_config
 from repro_torch.configs.qwen2_7b import CONFIG as _qwen2_7b
 from repro_torch.models.config import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {"qwen2-7b": _qwen2_7b,
-                                  "mamba2-130m": _mamba2_130m}
+                                  "mamba2-130m": _mamba2_130m,
+                                  "mixtral-8x7b": _mixtral_8x7b}
 for _n in OPT_NAMES:
     ARCHS[_n] = opt_config(_n)
 

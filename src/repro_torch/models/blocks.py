@@ -1,9 +1,9 @@
 """Stacked-group execution: the train/prefill forward, the dense-cache
 decode step and the paged decode step.
 
-Port of ``repro.models.blocks`` for attn, mlp and ssm (Mamba2) units.  A
-:class:`~repro_torch.models.params.ScanGroup` stacks ``depth`` identical
-units on a leading ``layers`` axis; where the JAX package ran the unit
+Port of ``repro.models.blocks`` for attn, mlp, moe and ssm (Mamba2)
+units.  A :class:`~repro_torch.models.params.ScanGroup` stacks ``depth``
+identical units on a leading ``layers`` axis; where the JAX package ran the unit
 under ``lax.scan``, the port loops over that axis in Python, taking views
 of each layer's parameters (and caches, which the decode steps update in
 place through those views).  ``ctx`` threads ``attn_impl``, ``remat`` and
@@ -20,7 +20,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attn_decode, attn_decode_paged,
                                        attn_forward, mlp_forward)
@@ -77,12 +77,15 @@ def _sublayer_train(kind: str, p: PyTree, x: torch.Tensor,
                             impl=ctx.get("attn_impl", "kernel")), aux
     if kind == "mlp":
         return mlp_forward(p, x, cfg), aux
+    if kind == "moe":
+        y, l = moe.moe_forward(p, x, cfg)
+        return y, aux + l
     if kind == "ssm":
         return mamba2.ssm_forward(p, x, cfg,
                                   use_kernel=ctx.get("use_kernel", False)), aux
-    raise NotImplementedError(f"{kind!r} sublayers are not ported yet (MoE, "
-                              "MLA and cross-attention wait for the other "
-                              "model families' slice)")
+    raise NotImplementedError(f"{kind!r} sublayers are not ported yet (MLA "
+                              "and cross-attention wait for the other model "
+                              "families' slices)")
 
 
 def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
@@ -112,15 +115,15 @@ def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
 # Decode (single token, dense cache — the launcher's fallback path)
 # --------------------------------------------------------------------------- #
 
-DENSE_SUBLAYERS = ("attn", "ssm", "mlp")
+DENSE_SUBLAYERS = ("attn", "ssm", "mlp", "moe")
 
 
 def _dense_only(kind: str) -> None:
     if kind not in DENSE_SUBLAYERS:
         raise NotImplementedError(
             f"dense decode supports sublayers {DENSE_SUBLAYERS}, got "
-            f"{kind!r} (MoE, MLA and cross-attention wait for the other "
-            "model families' slice)")
+            f"{kind!r} (MLA and cross-attention wait for the other model "
+            "families' slices)")
 
 
 def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
@@ -128,7 +131,7 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
                         device: DeviceLike = None) -> PyTree:
     """One sublayer's dense cache: (B, T, K, D) K/V for attn, the fp32
     recurrent state and conv buffers for ssm (whatever ``dtype`` is, as
-    in the JAX package), nothing for mlp.  On the card unless
+    in the JAX package), nothing for mlp and moe.  On the card unless
     ``device="cpu"`` is asked for."""
     _dense_only(kind)
     device = resolve_device(device)
@@ -139,7 +142,7 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind == "ssm":
         return mamba2.init_ssm_cache(cfg, batch, device=device)
-    return {}                                      # stateless: mlp
+    return {}                                      # stateless: mlp / moe
 
 
 def _sublayer_decode(kind: str, p: PyTree, x: torch.Tensor, cache: PyTree,
@@ -152,6 +155,8 @@ def _sublayer_decode(kind: str, p: PyTree, x: torch.Tensor, cache: PyTree,
         return y, {"k": ck, "v": cv}
     if kind == "ssm":
         return mamba2.ssm_decode(p, x, cfg, cache=cache)
+    if kind == "moe":
+        return moe.moe_forward(p, x, cfg)[0], cache    # aux dropped
     return mlp_forward(p, x, cfg), cache
 
 
@@ -237,8 +242,12 @@ def _sublayer_decode_paged(kind: str, p: PyTree, x: torch.Tensor,
             impl=ctx.get("attn_impl", "kernel"))
     if kind == "mlp":
         return mlp_forward(p, x, cfg), cache
-    raise NotImplementedError(f"paged decode of {kind!r} sublayers is not "
-                              "ported yet")
+    if kind == "moe":
+        return moe.moe_forward(p, x, cfg)[0], cache    # aux dropped
+    raise NotImplementedError(
+        f"paged decode supports sublayers {PAGED_SUBLAYERS}, got {kind!r} "
+        "(MLA and cross-attention wait for the other model families' "
+        "slices)")
 
 
 def group_decode_paged(gparams: PyTree, group: ScanGroup, x: torch.Tensor,

@@ -1,8 +1,9 @@
 """Parameter specs, initialization and counting for the decoders the port
 runs.
 
-Port of ``repro.models.params`` for attn + mlp decoders and the Mamba2
-(``ssm``) stack.  The parameter tree keeps the JAX layout exactly —
+Port of ``repro.models.params`` for attn + mlp decoders, their
+mixture-of-experts variant (``moe``) and the Mamba2 (``ssm``) stack.
+The parameter tree keeps the JAX layout exactly —
 ``wq`` (d, H, hd), group keys ``g0/s0_attn/s1_mlp`` or ``g0/s0_ssm``, a
 leading ``layers`` axis on stacked groups — so weights bridged from the
 JAX package (``repro_torch.bridge``) drop straight in.  The SSM decay
@@ -104,6 +105,27 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Any]:
     return s
 
 
+def moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, m = cfg.d_model, cfg.moe
+    f = m.d_ff_expert or cfg.d_ff
+    s: Dict[str, Any] = {"norm": _norm_spec(cfg, d)}
+    s["router"] = ParamSpec((d, m.num_experts), ("embed", "experts"))
+    s["wi"] = ParamSpec((m.num_experts, d, f), ("experts", "embed", "mlp"),
+                        fan_in_dims=(1,))
+    if cfg.mlp_activation == "silu":
+        s["wg"] = ParamSpec((m.num_experts, d, f), ("experts", "embed", "mlp"),
+                            fan_in_dims=(1,))
+    s["wo"] = ParamSpec((m.num_experts, f, d), ("experts", "mlp", "embed"),
+                        fan_in_dims=(1,))
+    if m.num_shared_experts > 0:
+        fs = f * m.num_shared_experts
+        s["shared_wi"] = ParamSpec((d, fs), ("embed", "mlp"))
+        if cfg.mlp_activation == "silu":
+            s["shared_wg"] = ParamSpec((d, fs), ("embed", "mlp"))
+        s["shared_wo"] = ParamSpec((fs, d), ("mlp", "embed"))
+    return s
+
+
 def ssm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, ssm = cfg.d_model, cfg.ssm
     di = ssm.d_inner(d)
@@ -127,7 +149,8 @@ def ssm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return s
 
 
-SUBLAYER_BUILDERS = {"attn": attn_specs, "mlp": mlp_specs, "ssm": ssm_specs}
+SUBLAYER_BUILDERS = {"attn": attn_specs, "mlp": mlp_specs, "moe": moe_specs,
+                     "ssm": ssm_specs}
 # leaves drawn and kept in fp32 whatever ``param_dtype`` is
 FP32_INITS = ("ssm_a", "dt_bias")
 
@@ -282,7 +305,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Parameter count.  The ported families (attn + mlp, Mamba2) have no
-    routed experts, so every parameter is active for every token and
-    ``active_only`` changes nothing."""
-    return sum(leaf.size() for leaf in tree_leaves(model_spec(cfg)))
+    """Total (or per-token-active) parameter count.
+
+    ``active_only`` scales every leaf with an ``experts`` axis (the routed
+    experts and the router) by top-k/num_experts — the MoE 6·N_active·D
+    convention, as in the JAX package."""
+    m = cfg.moe
+    total = 0
+    for leaf in tree_leaves(model_spec(cfg)):
+        sz = leaf.size()
+        if active_only and m.enabled and "experts" in leaf.axes:
+            sz = int(sz * m.experts_per_token / m.num_experts)
+        total += sz
+    return total

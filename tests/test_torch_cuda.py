@@ -2,9 +2,9 @@
 kernels against their plain PyTorch versions, the engine through the
 kernel against the engine through the plain gather path, a train step
 through the FA-2 kernels against one through the chunked path, local SGD
-with int8-compressed sync through the kernels, and Mamba2's kernel
-prefill against its oracle path and its dense decode.  Every test here
-skips without CUDA.
+with int8-compressed sync through the kernels, Mamba2's kernel
+prefill against its oracle path and its dense decode, and the MoE layer
+on the card against the CPU.  Every test here skips without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -634,3 +634,41 @@ def test_cuda_mamba2_prefill_kernel_matches_oracle_and_decode(cuda):
     torch.testing.assert_close(kern, ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(torch.stack(outs, 1), kern, rtol=2e-3,
                                atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(2, 32), (20, 1)], ids=["per-row", "flat"])
+def test_cuda_moe_forward_matches_cpu_with_drops(B, S, cuda):
+    """``moe_forward`` on the card against the same call on the CPU, fp32,
+    with expert 0 preferred by every token so that it overflows its
+    capacity: the same assignments kept, outputs within 1e-5 of the
+    largest |y|."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(get_config("mixtral-8x7b-smoke"),
+                              param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg, device="cpu", seed=0)
+    p = tree_map(lambda a: a[0].clone(), params["decoder"]["g0"]["s1_moe"])
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        B, S, cfg.d_model).astype(np.float32))
+    x[..., 0] += 10.0                      # read by expert 0's router only
+    p["router"][0] = 0.0
+    p["router"][0, 0] = 1.0
+    pc = tree_map(lambda a: a.to(cuda), p)
+    keeps, ys = [], []
+    for dev, pp in (("cpu", p), (cuda, pc)):
+        xd = x.to(dev)
+        with torch.no_grad():
+            y, _ = moe.moe_forward(pp, xd, cfg)
+            h = moe.norm(pp["norm"], xd, cfg)
+            _, _, top_i = moe.router_probs(pp, h, cfg)
+        top_i = top_i.reshape(1, B, -1) if S == 1 else top_i
+        C = moe.capacity(B if S == 1 else S, cfg)
+        keeps.append(moe.dispatch_plan(top_i, C, cfg.moe.num_experts)[1]
+                     .cpu())
+        ys.append((y - xd).cpu())
+    k = cfg.moe.experts_per_token
+    assert torch.equal(keeps[0], keeps[1])
+    assert int(keeps[0].sum()) < B * S * k            # some were dropped
+    torch.testing.assert_close(ys[1], ys[0], rtol=0,
+                               atol=1e-5 * float(ys[0].abs().max()))

@@ -1,6 +1,7 @@
 """The port's ``ServeEngine`` against the JAX package's: the same bridged
 weights and requests give the same greedy completions token for token
-and the same deterministic stats, with nothing leaked."""
+and the same deterministic stats, with nothing leaked, for a dense
+(qwen2) and a mixture-of-experts (mixtral) model."""
 
 import dataclasses
 
@@ -29,9 +30,18 @@ SETUPS = {
 }
 
 
-@pytest.fixture(scope="module")
-def model():
-    jcfg, tcfg = configs("qwen2-7b", num_kv_heads=2)
+# (arch, patch): GQA g=2 with QKV bias; the MoE family (4 experts, top-2,
+# a 6-token window), whose decode steps dispatch over the flat batch and
+# whose chunk steps per row, idle slots and padding rows included
+MODELS = {"qwen2-g2": ("qwen2-7b", dict(num_kv_heads=2)),
+          "mixtral": ("mixtral-8x7b", dict(num_kv_heads=2,
+                                           sliding_window=6))}
+
+
+@pytest.fixture(scope="module", params=list(MODELS))
+def model(request):
+    arch, patch = MODELS[request.param]
+    jcfg, tcfg = configs(arch, **patch)
     jp, tp = bridged(jcfg, tcfg)
     return jcfg, tcfg, jp, tp
 

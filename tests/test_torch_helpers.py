@@ -59,8 +59,10 @@ def test_config_copies_agree(arch, patch):
     assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "opt-125m", "opt-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "opt-125m", "opt-1.3b",
+                                  "mixtral-8x7b"])
 def test_full_configs_and_param_counts_agree(arch):
     jcfg, tcfg = jax_config(arch), torch_config(arch)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()

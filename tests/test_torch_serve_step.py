@@ -98,8 +98,8 @@ def test_dense_decode_refuses_unported_sublayers():
     with pytest.raises(NotImplementedError, match="other model families"):
         blocks.init_sublayer_cache("mla", tcfg, 1, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="other model families"):
-        blocks._sublayer_decode("moe", {}, torch.zeros(1, 1, 4), {}, tcfg,
-                                {})
+        blocks._sublayer_decode("xattn", {}, torch.zeros(1, 1, 4), {},
+                                tcfg, {})
     mla = dataclasses.replace(tcfg, attention="mla")
     with pytest.raises(NotImplementedError, match="MLA"):
         TM.P.model_spec(mla)
