@@ -23,9 +23,12 @@ Phases (any failure exits nonzero):
 3. hold the three FA-2 kernels (forward, dq, dk/dv) against their plain
    PyTorch versions in fp32 and bf16 on the JAX package's FA_CASES shapes,
    MLA's head widths (qk 96 / v 64 and 192 / 128), a width the wrappers
-   zero-pad, and opt-1.3b's attention shape, and time kernel, plain
-   version, SDPA (forward, and its backward for the dq + dk/dv pair) and
-   the bound at opt-1.3b's shape; the bf16 forward, dq and dk/dv must
+   zero-pad, opt-1.3b's attention shape and mixtral-8x7b's training
+   attention (GQA 32/8, D 128, a window that cuts in) at 2048 tokens, and
+   time kernel, plain version, SDPA (forward, and its backward for the
+   dq + dk/dv pair) and the bound at opt-1.3b's shape and at mixtral's
+   1 x 8192 tokens with the 4096 window (where the bf16 kernels are also
+   held to their plain versions); the bf16 forward, dq and dk/dv must
    execute more than the fp32 CUDA cores' 67 TFLOP/s (they run on the
    tensor cores);
 4. train opt-1.3b at full width and depth in bf16 (4 x 2048 tokens, random
@@ -52,11 +55,12 @@ Phases (any failure exits nonzero):
    replicas and staleness 0 equals sync, and that a run checkpointed
    every round restores and resumes from exactly what it saved;
 8. hold the SSD-scan kernels against their plain version in fp32 and
-   bf16 on the JAX package's SSD_CASES, a ragged case and mamba2-130m's
-   shape at 8 x 4096 and 8 x 4000 tokens, check that a call issues its
-   three kernels and no other device operation, and time the whole call
+   bf16 on the JAX package's SSD_CASES, a ragged case, mamba2-130m's
+   shape at 8 x 4096 and 8 x 4000 tokens and jamba's mixers (128 heads,
+   p 64, state 16) at 4 x 2048, check that a call issues its three
+   kernels and no other device operation, and time the whole call
    (``ms``), its three kernels alone (``device_ms``), the plain version
-   and the bound at 8 x 4096;
+   and the bound at mamba2-130m's 8 x 4096 and at jamba's 4 x 2048;
 9. serve mamba2-130m at full width and depth in bf16 (random weights from
    a seed): (a) ``serve.step.make_prefill`` over 8 x 4096 tokens through
    the kernels — finite logits, 24 calls a forward, tokens/s, peak
@@ -75,11 +79,37 @@ Phases (any failure exits nonzero):
    flip a token's top-2 experts in a later layer); a 1 x 8192-token
    ``forward_logits`` through the FA-2 forward (16 launches a forward,
    the 4096-token window cutting in), and layer 0's attention there
-   against ``attention_fwd_plain`` at phase 3's bf16 bar.
+   against ``attention_fwd_plain`` at phase 3's bf16 bar;
+11. train mixtral-8x7b at full width and 2 of its 32 layers in bf16
+   (random weights from a seed; bf16 weights and gradients and fp32 AdamW
+   moments of 3 layers would pass 80 GB with the activations) through
+   ``repro_torch.train.trainer.train``: 4 steps of 1 x 8192 tokens, the
+   first left out of the timing, through the FA-2 kernels with GQA 32/8,
+   D 128 and the 4096 window cutting in (each kernel launched once a
+   layer a step); ms a step, tokens/s, ``train_flops`` (top-2 of the
+   experts) / step time against 989 TFLOP/s, peak memory; the loss must
+   fall; a profiled step's device time by kind (FA-2 kernels, expert
+   ``bmm``, dense GEMMs, MoE dispatch and combine, the rest) and idle
+   share; then at fp32 compute the kernel path's gradients against the
+   plain chunked path's, leaf by leaf, at phase 3's gradient bar (the
+   bf16 step is not gated: a one-ulp change can flip a token's experts);
+12. train mamba2-130m at full width and depth in bf16, 4 steps of 8 x 2048
+   tokens (its ssm layers through the plain ``ssd_reference``, as in the
+   JAX package): ms a step, tokens/s, peak memory;
+13. jamba-v0.1-52b at full width and 8 of its 32 layers (one whole
+   period: attention at layer 4, MoE at 1, 3, 5, 7, seven SSD mixers),
+   bf16: a 4 x 2048-token prefill through the SSD kernels (7 calls a
+   forward, state 16) and the FA-2 forward (one, no positional
+   encoding), dense decode of 8 x (64 + 32) tokens over the attn + ssm +
+   moe caches, and ``decode_step`` token by token against the kernel
+   prefill at fp32 compute (the bf16 weights cast op by op) at phase 9's
+   bar.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it the
-card's name and power limit from ``nvidia-smi``; before that a
-``{"kernels": [...]}`` line.  Needs CUDA and the repository around it.
+``--phases 3,11`` runs only those phases (after the build) and prints no
+kernels line and no final line.  The last line is ``{"ok": true,
+"device": {...}}``; the line before it the card's name and power limit
+from ``nvidia-smi``; before that a ``{"kernels": [...]}`` line.  Needs
+CUDA and the repository around it.
 """
 
 from __future__ import annotations
@@ -108,8 +138,13 @@ FA_CASES = [(2, 256, 4, 2, 64, True, 0), (1, 384, 4, 4, 128, True, 0),
             (1, 130, 2, 2, 96, True, 0), (2, 100, 4, 2, 32, False, 0, 230),
             (2, 200, 4, 2, 96, True, 0, None, 64),
             (2, 512, 16, 16, 192, True, 0, None, 128),
-            (1, 160, 4, 2, 80, True, 0)]
+            (1, 160, 4, 2, 80, True, 0), (1, 2048, 32, 8, 128, True, 1024)]
 OPT_FA = (4, 2048, 32, 32, 64, True, 0)
+# mixtral-8x7b's training attention (phase 11: 1 x 8192 tokens, GQA 32/8,
+# D 128, the 4096 window cutting in), where the kernels are timed and,
+# in bf16, held to their plain versions (whose fp32 (S x T) scores take
+# 8.6 GB a tensor); FA_CASES holds it at 2048 tokens in both dtypes
+MIXTRAL_FA = (1, 8192, 32, 8, 128, True, 4096)
 # kernel vs plain, as a share of the reference's largest magnitude (at
 # least 1): both compute in fp32 from the same inputs and differ in
 # summation order only (the bf16 kernels multiply P and dS on the tensor
@@ -136,6 +171,10 @@ SSD_CASES = [(2, 256, 4, 1, 64, 32, 64), (1, 128, 8, 2, 32, 128, 32),
              (2, 100, 4, 4, 64, 16, 32), (1, 512, 2, 1, 128, 64, 128),
              (1, 300, 4, 2, 128, 128, 128)]
 MAMBA_SSD = [(8, 4096, 24, 1, 64, 128, 128), (8, 4000, 24, 1, 64, 128, 128)]
+# jamba-v0.1-52b's mixers at phase 13's prefill (4 x 2048 tokens, 128
+# heads x p 64, state 16: the kernels' n <= 32 tiles, half of them
+# padding), held in both dtypes and timed
+JAMBA_SSD = (4, 2048, 128, 1, 64, 16, 128)
 # kernel vs plain, as a share of the plain version's largest magnitude (at
 # least 1): both compute in fp32 from the same inputs with the same cumsum
 # and differ in the order of the products' sums only; a bf16 output may
@@ -163,10 +202,36 @@ MAMBA_PREFILL, MAMBA_DECODE, MAMBA_AGREE = (8, 4096), (8, 64, 32), (2, 300)
 # groups of layer 0's attention held to the plain version (its fp32
 # (S x S) scores for 2 of 8 groups take 2.1 GB)
 MIXTRAL_LAYERS, MIXTRAL_PREFILL, MIXTRAL_GROUPS = 16, 8192, 2
+# phase 11: mixtral-8x7b trained at full width on one card.  2 of 32
+# layers: 3,164,688,384 params, whose bf16 weights and gradients take
+# 12.7 GB and fp32 AdamW moments 25.3 GB, 38.0 GB of state, and about
+# 10 GB of activations at 8192 tokens (the expert products (8, 2560,
+# 14336) in bf16 are 0.59 GB each, several a layer, and fp32 logits 1 GB);
+# 3 layers would come to about 67 GB, and the fp32 gradient gate holds an
+# fp32 copy of the weights and two sets of fp32 gradients (38 GB at 2
+# layers).  One row of 8192 tokens, so that the 4096 window cuts in; 4
+# steps, the first left out of the timing
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN, MIXTRAL_TRAIN_STEPS = 2, (1, 8192), 4
+# phase 12: mamba2-130m trained at full width and depth, 8 x 2048 tokens,
+# each layer rematerialized in the backward: without it the stack's saved
+# activations (the ssd_reference's (b, h, chunks, Q, Q) decay and score
+# tensors among them, about 2 GB a layer) ran out of the card's 80 GB
+MAMBA_TRAIN, MAMBA_TRAIN_STEPS, MAMBA_TRAIN_REMAT = (8, 2048), 4, "full"
+# phase 13: jamba-v0.1-52b at full width and 8 of its 32 layers, one whole
+# period (attention at layer 4, MoE at 1, 3, 5, 7, seven SSD mixers):
+# 13,267,598,848 params, 26.5 GB of bf16 (full depth is 51.46 B params,
+# 103 GB).  Prefill (batch, tokens); dense decode (batch, prompt, new);
+# decode-vs-prefill agreement at fp32 compute (batch, tokens: a full chunk
+# of 128 and a ragged one)
+JAMBA_LAYERS, JAMBA_PREFILL, JAMBA_DECODE, JAMBA_AGREE = \
+    8, (4, 2048), (8, 64, 32), (2, 160)
 # the kernels a call launches, by a part of each name: flash-decode's
 # split kernel, and its merge kernel when a call has more than one split;
 # the SSD scan's three when s spans more than one chunk
 DECODE_KERNELS = ("flash_decode_split", "flash_decode_merge")
+FA_KERNEL_NAMES = ("fa_fwd_kernel<", "fa_fwd_tc_kernel<", "fa_bwd_dq_kernel<",
+                   "fa_bwd_dq_tc_kernel<", "fa_bwd_dkdv_kernel<",
+                   "fa_bwd_dkdv_tc_kernel<")
 SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
 
 
@@ -683,33 +748,85 @@ def phase_fa(torch, device, timer):
             del ref_dq, ref_dk, ref_dv
             torch.cuda.empty_cache()
 
-    # timing at opt-1.3b's shape, bf16, as the train step calls them
-    q, k, v, do = fa_tensors(torch, OPT_FA, torch.bfloat16, device, seed=99)
-    out, lse = FK.flash_attention_fwd(q, k, v)
+    timing = time_fa(torch, device, timer, OPT_FA, "opt-1.3b", worst)
+    timing["mixtral"] = time_fa(torch, device, timer, MIXTRAL_FA,
+                                "mixtral-8x7b train", worst)
+    log("FA-2 kernels held against their plain versions: worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst, timing
+
+
+def time_fa(torch, device, timer, case, label, worst):
+    """Kernel, plain version, SDPA and bound of each FA-2 kernel at
+    ``case`` in bf16, as the train step calls them; at a windowed case
+    the kernels are also held to their plain versions there (``worst``
+    is updated).  Returns {kernel: timing}."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import visible
+    S, Hc, Kc = case[1:4]
+    kw = dict(causal=case[5], window=case[6])
+    q, k, v, do = fa_tensors(torch, case, torch.bfloat16, device, seed=99)
+    out, lse = FK.flash_attention_fwd(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(-1)
+    if case[6]:
+        tol = FA_TOL["bfloat16"]
+        ref_out, ref_lse = FK.attention_fwd_plain(q, k, v, **kw)
+        checks = [("fwd", "out", out, ref_out, tol["out"]),
+                  ("fwd", "lse", lse, ref_lse, tol["lse"])]
+        del ref_out
+        ref_dq = FK.attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+        checks.append(("dq", "dq", FK.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw), ref_dq, tol["grad"]))
+        del ref_dq
+        torch.cuda.empty_cache()
+        ref_dk, ref_dv = FK.attention_bwd_dkdv_plain(q, k, v, do, lse,
+                                                     delta, **kw)
+        dk, dv = FK.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+        checks += [("dkdv", "dk", dk, ref_dk, tol["grad"]),
+                   ("dkdv", "dv", dv, ref_dv, tol["grad"])]
+        msg = []
+        for kern, name, a, b, t in checks:
+            err = float((a.float() - b.float()).abs().max())
+            bound = t * max(1.0, float(b.float().abs().max()))
+            worst[kern] = max(worst[kern], err)
+            msg.append(f"{name} {err:.2e}/{bound:.1e}")
+            if not err <= bound:
+                fail(f"{kern} kernel disagrees with its plain version on "
+                     f"{name} at {label}'s shape {case}: {err} > {bound}")
+        log(f"FA case {case} bfloat16 ({label}): max_abs_err/bound "
+            + ", ".join(msg))
+        del checks, dk, dv, ref_dk, ref_dv
+        torch.cuda.empty_cache()
+    # SDPA: the window as a boolean mask, over K/V repeated to every
+    # query head outside the timed call
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-    sdpa_out = sdpa(qg, kg, vg, is_causal=True)
+    lib = dict(attn_mask=visible(S, S, device=device, **kw)) if case[6] \
+        else dict(is_causal=True)
+    kx, vx = (t.repeat_interleave(Hc // Kc, dim=1) for t in (k, v))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, kx, vx))
+    sdpa_out = sdpa(qg, kg, vg, **lib)
     calls = {
-        "fwd": (lambda: FK.flash_attention_fwd(q, k, v),
-                lambda: FK.attention_fwd_plain(q, k, v),
-                lambda: sdpa(q, k, v, is_causal=True)),
-        "dq": (lambda: FK.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-               lambda: FK.attention_bwd_dq_plain(q, k, v, do, lse, delta),
+        "fwd": (lambda: FK.flash_attention_fwd(q, k, v, **kw),
+                lambda: FK.attention_fwd_plain(q, k, v, **kw),
+                lambda: sdpa(q, kx, vx, **lib)),
+        "dq": (lambda: FK.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                 **kw),
+               lambda: FK.attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                 **kw),
                lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
                                            retain_graph=True)),
         "dkdv": (lambda: FK.flash_attention_bwd_dkdv(q, k, v, do, lse,
-                                                     delta),
+                                                     delta, **kw),
                  lambda: FK.attention_bwd_dkdv_plain(q, k, v, do, lse,
-                                                     delta),
+                                                     delta, **kw),
                  None),
     }
-    work = fa_work(OPT_FA, q, k, v, do)
+    work = fa_work(case, q, k, v, do)
     timing = {}
     for kern, (kfn, pfn, lfn) in calls.items():
         ms = timer.ms(kfn)
         spread = timer.spread
-        plain_ms = timer.ms(pfn)
+        plain_ms = timer.ms(pfn, iters=5 if case[6] else 20)
         library_ms = timer.ms(lfn) if lfn else timing["dq"]["library_ms"]
         flops, nbytes = work[kern]
         t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -719,10 +836,12 @@ def phase_fa(torch, device, timer):
                         "bound_ms": max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes
                         else "bytes"}
-        log(f"timing {kern} at opt-1.3b shape {OPT_FA} bf16: kernel_ms "
+        log(f"timing {kern} at {label} shape {case} bf16: kernel_ms "
             f"{ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}) plain_ms "
             f"{plain_ms:.4f} library_ms {library_ms:.4f} "
-            f"({'SDPA backward, dq+dk+dv together' if kern != 'fwd' else 'SDPA forward'}) "
+            f"({'SDPA backward, dq+dk+dv together' if kern != 'fwd' else 'SDPA forward'}"
+            f"{', window as a mask' if case[6] else ''}"
+            f"{', K/V repeated to H heads' if Kc != Hc else ''}) "
             f"bound_ms {timing[kern]['bound_ms']:.4f} ({flops:.3e} FLOP, "
             f"{nbytes/1e6:.1f} MB; bound by {timing[kern]['bound_by']}); "
             f"{flops / ms / 1e9:.1f} TFLOP/s counted, "
@@ -732,12 +851,12 @@ def phase_fa(torch, device, timer):
                  f"CUDA cores' {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: it is "
                  "not running on the tensor cores")
     bwd_ms = timing["dq"]["ms"] + timing["dkdv"]["ms"]
-    log(f"backward at opt-1.3b shape: dq + dk/dv {bwd_ms:.4f} ms vs SDPA's "
+    log(f"backward at {label} shape: dq + dk/dv {bwd_ms:.4f} ms vs SDPA's "
         f"whole backward {timing['dq']['library_ms']:.4f} ms "
         f"({bwd_ms / timing['dq']['library_ms']:.2f}x)")
-    log("FA-2 kernels held against their plain versions: worst "
-        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
-    return worst, timing
+    del q, k, v, do, out, lse, delta, kx, vx, qg, kg, vg, sdpa_out
+    torch.cuda.empty_cache()
+    return timing
 
 
 # --------------------------------------------------------------------------- #
@@ -782,10 +901,7 @@ def profile_step(torch, step_fn, params, opt_state, batch, step_ms):
         f"{100 - 100 * dev_ms / step_ms:.1f}%")
     groups = {}
     for dev_us, key, _ in rows:
-        kind = ("FA-2 kernels" if any(w in key for w in (
-                    "fa_fwd_kernel<", "fa_fwd_tc_kernel<",
-                    "fa_bwd_dq_kernel<", "fa_bwd_dq_tc_kernel<",
-                    "fa_bwd_dkdv_kernel<", "fa_bwd_dkdv_tc_kernel<")) else
+        kind = ("FA-2 kernels" if any(w in key for w in FA_KERNEL_NAMES) else
                 "GEMMs" if any(w in key for w in ("nvjet", "gemm", "cutlass",
                                                   "sm90_xmma")) else
                 "reductions" if "reduce" in key else
@@ -1271,7 +1387,7 @@ def ssd_work(case, args, y):
 def phase_ssd(torch, device, timer):
     from repro_torch.kernels.ssd_scan.kernel import ssd_bhcq, ssd_bhcq_plain
     worst = 0.0
-    for i, case in enumerate(SSD_CASES + MAMBA_SSD):
+    for i, case in enumerate(SSD_CASES + MAMBA_SSD + [JAMBA_SSD]):
         dts = ("bfloat16",) if case == MAMBA_SSD[0] else \
             ("float32", "bfloat16")
         for dt in dts:
@@ -1293,8 +1409,19 @@ def phase_ssd(torch, device, timer):
             del args, y, ref
     torch.cuda.empty_cache()
 
-    # timing at mamba2-130m's prefill shape, bf16, as the model calls it
-    case = MAMBA_SSD[0]
+    timing = time_ssd(torch, device, timer, MAMBA_SSD[0], "mamba2-130m")
+    timing["jamba"] = time_ssd(torch, device, timer, JAMBA_SSD,
+                               "jamba-v0.1-52b")
+    log(f"SSD kernel held against its plain version: worst max_abs_err "
+        f"{worst:.3e}")
+    return worst, timing
+
+
+def time_ssd(torch, device, timer, case, label):
+    """The SSD call (``ms``), its three kernels alone (``device_ms``), its
+    plain version and its bound at ``case`` in bf16, as the model calls
+    it; fails if a call issues any other device operation."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bhcq, ssd_bhcq_plain
     args = ssd_tensors(torch, case, torch.bfloat16, device, seed=99)
     y = ssd_bhcq(*args, chunk=case[-1])
     call = lambda: ssd_bhcq(*args, chunk=case[-1])  # noqa: E731
@@ -1314,7 +1441,7 @@ def phase_ssd(torch, device, timer):
     timing = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
               "library_ms": None, "bound_ms": max(t_ops, t_bytes),
               "bound_by": "operations" if t_ops > t_bytes else "bytes"}
-    log(f"timing SSD scan at mamba2-130m's shape {case} bf16: kernel_ms "
+    log(f"timing SSD scan at {label}'s shape {case} bf16: kernel_ms "
         f"{ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}; the whole "
         f"call) device_ms {device_ms:.4f} (its kernels alone, profiler) "
         f"plain_ms "
@@ -1325,9 +1452,9 @@ def phase_ssd(torch, device, timer):
         f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the "
         f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s of fp32 CUDA cores); "
         f"{flops / device_ms / 1e9:.2f} TFLOP/s over the kernels' time")
-    log(f"SSD kernel held against its plain version: worst max_abs_err "
-        f"{worst:.3e}")
-    return worst, timing
+    del args, y
+    torch.cuda.empty_cache()
+    return timing
 
 
 # --------------------------------------------------------------------------- #
@@ -1778,6 +1905,379 @@ def phase_mixtral(torch, np, device):
     return launches, fa_launches
 
 
+
+# --------------------------------------------------------------------------- #
+# Phase 11: training mixtral-8x7b at full width, 2 layers
+# --------------------------------------------------------------------------- #
+
+# the operators whose own device time (their kernels, not their
+# children's) a profiled train step reads by kind: the expert products
+# are the model's only bmm (forward and backward); the dense projections,
+# router and head run as mm/addmm; the MoE dispatch and combine are the
+# gathers, scatters, sorts and counts (the embedding lookup and the
+# cross-entropy gather are among them, a small share)
+TRAIN_OP_KINDS = {
+    "expert bmm": ("aten::bmm",),
+    "dense GEMMs (projections, router, head)": ("aten::mm", "aten::addmm"),
+    "MoE dispatch and combine (gathers, scatters, sorts)": (
+        "aten::index", "aten::index_put_", "aten::_index_put_impl_",
+        "aten::index_add_", "aten::index_select", "aten::gather",
+        "aten::scatter_add_", "aten::scatter", "aten::sort",
+        "aten::argsort", "aten::cumsum", "aten::one_hot",
+        "aten::embedding_dense_backward"),
+}
+
+
+def profile_train_step(torch, fn, step_ms):
+    """Device time by kind over one profiled call of ``fn`` (a train
+    step): the FA-2 kernels by name, the kinds of ``TRAIN_OP_KINDS`` by
+    the operators that launched them, and the rest (elementwise passes,
+    copies, reductions, AdamW); busy and idle shares against the
+    unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    kernels = [ev for ev in avg if ev.device_type == DeviceType.CUDA
+               and ev.device_time_total > 0]
+    busy = sum(ev.device_time_total for ev in kernels) / 1e3
+    kinds = {"FA-2 kernels": sum(
+        ev.device_time_total for ev in kernels
+        if any(n in ev.key for n in FA_KERNEL_NAMES)) / 1e3}
+    for kind, ops in TRAIN_OP_KINDS.items():
+        kinds[kind] = sum(ev.self_device_time_total for ev in avg
+                          if ev.device_type == DeviceType.CPU
+                          and ev.key in ops) / 1e3
+    kinds["elementwise, copies, reductions and the rest"] = \
+        busy - sum(kinds.values())
+    log(f"  profiled step: device busy {busy:.3f} ms vs {step_ms:.3f} ms a "
+        f"step unprofiled: busy {100 * busy / step_ms:.1f}%, idle "
+        f"{100 - 100 * busy / step_ms:.1f}%")
+    log("  by kind: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
+        for k, v in kinds.items()))
+    for ev in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
+        log(f"  device {ev.device_time_total / 1e3:9.3f} ms x{ev.count:5d}  "
+            f"{ev.key[:90]}")
+    return busy, kinds
+
+
+def grads_of(torch, M, params, cfg, batch, impl):
+    """(loss, [gradient of each leaf]) of one forward/backward."""
+    from repro_torch.models.params import tree_leaves
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = M.forward_train(params, cfg, batch, attn_impl=impl)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), list(grads)
+
+
+def phase_mixtral_train(torch, np, device):
+    import dataclasses
+
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_TRAIN_LAYERS)
+    Bt, St = MIXTRAL_TRAIN
+    steps = MIXTRAL_TRAIN_STEPS
+    m = cfg.moe
+    log(f"mixtral-8x7b training at full width, {cfg.num_layers} of "
+        f"{full.num_layers} layers: d {cfg.d_model}, {cfg.num_heads} heads x "
+        f"{cfg.resolved_head_dim} (GQA kv {cfg.num_kv_heads}), "
+        f"{m.num_experts} experts top-{m.experts_per_token} x d_ff "
+        f"{m.d_ff_expert}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}; {cfg.param_count():,} params "
+        f"({cfg.active_param_count():,} active a token), bf16 weights, fp32 "
+        f"AdamW moments, {Bt} x {St} tokens a step, remat none")
+    parts = {}
+    t0 = time.perf_counter()
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv)
+    # AdamW's first steps move every weight by about the learning rate
+    # (their size is the sign of the gradient), so each d-wide product
+    # moves with lr x d: 3e-4 at d 4096 overshot (the loss went 10.60 ->
+    # 16.89 after the first step on the card).  2e-5 at d 4096 moves the
+    # products as 3e-4 does at d 256, where the smoke config's loss falls
+    opt_cfg = adamw.OptConfig(learning_rate=2e-5, warmup_steps=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
+                                   attn_impl="kernel", log_every=1, seed=0),
+                opt_cfg, device=device)
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = 1.0 / res.steady_steps_per_s
+    flops = F.train_flops(cfg, Bt, St, remat=False)
+    tflops = flops / step_s / 1e12
+    log(f"mixtral train: losses {[round(x, 4) for x in res.losses]}; first "
+        f"step {res.compile_time_s:.3f} s; then {1e3 * step_s:.1f} ms a step, "
+        f"{Bt * St / step_s:.0f} tokens/s; train_flops {flops:.4e} (top-"
+        f"{m.experts_per_token} of the experts) / step time = {tflops:.1f} "
+        f"TFLOP/s = {100 * tflops * 1e12 / BF16_FLOP_PER_S:.1f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    n = cfg.num_layers * steps
+    log(f"mixtral train FA-2 launches {launches}, expected {cfg.num_layers} "
+        f"a step x {steps} steps = {n} each")
+    if len(res.losses) != steps or not all(np.isfinite(res.losses)):
+        fail(f"mixtral train: non-finite or missing losses {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"mixtral train: the loss did not fall over {steps} steps: "
+             f"{res.losses}")
+    if any(v != n for v in launches.values()):
+        fail(f"mixtral train: FA-2 kernel launches {launches} != {n} each")
+    del res
+    torch.cuda.empty_cache()
+    parts["trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # one profiled step by kind (the timed steps are not profiled)
+    params = init_params(cfg, device=device, seed=0)
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             next(make_batch_fn(cfg, Bt, St, seed=0)).items()}
+    step_fn = make_train_step(cfg, opt_cfg, attn_impl="kernel")
+    step_fn(params, opt_state, batch)                       # warm
+    busy, kinds = profile_train_step(
+        torch, lambda: step_fn(params, opt_state, batch), 1e3 * step_s)
+    parts["profiled step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # the gate: at fp32 compute (an fp32 copy of the weights), the kernel
+    # path's gradients against the plain chunked path's at phase 3's bars
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    before = [f.launches for f in kernels]
+    lk, gk = grads_of(torch, M, p32, cfg32, batch, "kernel")
+    ran = [f.launches - b for f, b in zip(kernels, before)]
+    lc, gc = grads_of(torch, M, p32, cfg32, batch, "chunked")
+    if ran != [cfg.num_layers] * 3:
+        fail(f"mixtral fp32 gate: the kernel path launched the FA-2 "
+             f"kernels {ran} times, not {cfg.num_layers} each")
+    keys = [k for k, _ in flatten(p32)]
+    tol = FA_TOL["float32"]["grad"]
+    errs = {}
+    for key, a, b in zip(keys, gk, gc):
+        err = float((a - b).abs().max())
+        bound = tol * max(1.0, float(b.abs().max()))
+        errs[key] = err
+        if not err <= bound:
+            fail(f"mixtral fp32 gate: the kernel path's gradient of {key} "
+                 f"differs from the chunked path's by {err} > {bound}")
+    log(f"fp32 gradients, kernel vs chunked attention ({len(keys)} leaves, "
+        f"{Bt} x {St} tokens, window {cfg.sliding_window}): loss "
+        f"{lk:.6f} vs {lc:.6f}; max_abs_err by leaf " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (bound {tol:.0e} x max(1, largest |grad|) per leaf); every "
+        f"leaf inside its bound")
+    del p32, gk, gc, batch
+    torch.cuda.empty_cache()
+    parts["fp32 gate"] = time.perf_counter() - t0
+    log("phase 11 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 12: training mamba2-130m at full width and depth
+# --------------------------------------------------------------------------- #
+
+def phase_mamba_train(torch, np, device):
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    cfg = get_config("mamba2-130m")
+    Bt, St = MAMBA_TRAIN
+    steps = MAMBA_TRAIN_STEPS
+    log(f"mamba2-130m training at full width and depth: {cfg.num_layers} "
+        f"layers, d {cfg.d_model}, {cfg.param_count():,} params, bf16, fp32 "
+        f"AdamW moments, {Bt} x {St} tokens a step, remat "
+        f"{MAMBA_TRAIN_REMAT}; the ssm layers train through the plain "
+        f"ssd_reference (the JAX package has no SSD backward kernel)")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
+                                   remat=MAMBA_TRAIN_REMAT, log_every=1,
+                                   seed=0), device=device)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = 1.0 / res.steady_steps_per_s
+    # the model's work (3 x forward), not the recompute
+    tflops = F.train_flops(cfg, Bt, St, remat=False) / step_s / 1e12
+    log(f"mamba2 train: losses {[round(x, 4) for x in res.losses]}; first "
+        f"step {res.compile_time_s:.3f} s; then {1e3 * step_s:.1f} ms a step, "
+        f"{Bt * St / step_s:.0f} tokens/s; train_flops (no recompute) / step "
+        f"time {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    if len(res.losses) != steps or not all(np.isfinite(res.losses)):
+        fail(f"mamba2 train: non-finite or missing losses {res.losses}")
+    del res
+    torch.cuda.empty_cache()
+    log(f"phase 12 wall time (s): {time.perf_counter() - t0:.1f}")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 13: the jamba hybrid at full width, 8 layers
+# --------------------------------------------------------------------------- #
+
+def phase_jamba(torch, np, device):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bhcq
+    from repro_torch.models import model as M
+    from repro_torch.models.params import decoder_groups, init_params
+    from repro_torch.serve.step import greedy_generate
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    ssm, m = cfg.ssm, cfg.moe
+    n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.num_layers))
+    n_attn = cfg.num_layers - n_ssm
+    parts = {}
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"jamba-v0.1-52b full width, {cfg.num_layers} of {full.num_layers} "
+        f"layers (full depth: {full.param_count():,} params, "
+        f"{2 * full.param_count() / 1e9:.1f} GB of bf16): d {cfg.d_model}; "
+        f"{n_ssm} SSD mixers ({ssm.num_heads(cfg.d_model)} heads x p "
+        f"{ssm.head_dim}, state {ssm.d_state}, chunk {ssm.chunk_size}), "
+        f"{n_attn} attention ({cfg.num_heads} heads, GQA kv "
+        f"{cfg.num_kv_heads}, D {cfg.resolved_head_dim}, no positional "
+        f"encoding), MoE {m.num_experts} experts top-{m.experts_per_token} "
+        f"x d_ff {m.d_ff_expert} every other layer; groups "
+        f"{[(g.sublayers, g.depth) for g in decoder_groups(cfg)]}; "
+        f"{cfg.param_count():,} params ({cfg.active_param_count():,} active "
+        f"a token), {nbytes / 1e9:.2f} GB bf16, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    parts["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (a) prefill through the SSD and FA-2 forward kernels
+    Bp, Sp = JAMBA_PREFILL
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bp, Sp))
+                              ).to(device)
+
+    def prefill():
+        with torch.inference_mode():
+            return M.forward_logits(params, cfg, {"tokens": tokens},
+                                    attn_impl="kernel")
+    prefill()                                            # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_bhcq.launches = FK.flash_attention_fwd.launches = 0
+    logits = prefill()
+    torch.cuda.synchronize()
+    launches = {"ssd_scan": ssd_bhcq.launches,
+                "flash_attention_fwd": FK.flash_attention_fwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (Bp, Sp, cfg.padded_vocab_size) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        fail(f"jamba prefill logits malformed: {tuple(logits.shape)}")
+    if launches != {"ssd_scan": n_ssm, "flash_attention_fwd": n_attn}:
+        fail(f"a jamba prefill forward launched {launches}, not {n_ssm} SSD "
+             f"scans and {n_attn} FA-2 forwards")
+    del logits
+    ms, times = wall_ms(torch, prefill, 5)
+    flops = F.fwd_flops(cfg, Bp, Sp)
+    tflops = flops / (ms / 1e3) / 1e12
+    log(f"jamba prefill {Bp} x {Sp} tokens, bf16: {launches}; {ms:.2f} ms a "
+        f"forward (median of 5; {', '.join(f'{x:.2f}' for x in times)}), "
+        f"{Bp * Sp / (ms / 1e3):,.0f} tokens/s; fwd_flops {flops:.4e} / time "
+        f"= {tflops:.1f} TFLOP/s = {100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}"
+        f"% of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    profile_fn(torch, prefill, ms, 1, "ssd_", unit="forward")
+    parts["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (b) dense decode over the attn + ssm + moe caches
+    Bd, Sd, new = JAMBA_DECODE
+    prompt = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bd, Sd))
+                              ).to(device)
+    greedy_generate(params, cfg, prompt, 2, cache_len=Sd + new)   # warm
+    out = None
+
+    def gen():
+        nonlocal out
+        out = greedy_generate(params, cfg, prompt, new)
+    gen_ms, _ = wall_ms(torch, gen, 1)
+    steps = Sd + new - 1
+    if tuple(out.shape) != (Bd, Sd + new) or int(out.max()) >= \
+            cfg.vocab_size or not torch.equal(out[:, :Sd], prompt):
+        fail(f"jamba greedy_generate output malformed: {tuple(out.shape)}")
+    log(f"jamba greedy_generate {Bd} x ({Sd} prompt + {new} new) tokens, "
+        f"bf16, dense cache: {gen_ms:.1f} ms, {steps} decode steps, "
+        f"{gen_ms / steps:.3f} ms a step, {Bd * new / (gen_ms / 1e3):.1f} new "
+        f"tokens/s; every id < {cfg.vocab_size}")
+    parts["dense decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (c) decode_step token by token == the kernel prefill, fp32 compute
+    # over the bf16 weights cast op by op (an fp32 copy, 53 GB, does not
+    # fit beside them); the capacity holds every assignment, as the
+    # decode's flat dispatch does, so that neither side drops a token
+    Bc, Sc = JAMBA_AGREE
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                moe=dataclasses.replace(
+                                    m, capacity_factor=float(m.num_experts)))
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bc, Sc))
+                            ).to(device)
+    live = slice(0, cfg.vocab_size)
+    with torch.inference_mode():
+        full_logits = M.forward_logits(params, cfg32, {"tokens": toks},
+                                       attn_impl="kernel")[..., live]
+        cache = M.init_cache(cfg32, Bc, Sc, dtype=torch.float32,
+                             device=device)
+        outs = []
+        for i in range(Sc):
+            lg, cache = M.decode_step(params, cfg32, cache,
+                                      toks[:, i:i + 1], i)
+            outs.append(lg[..., live])
+        dec = torch.stack(outs, dim=1)
+    scale = max(1.0, float(full_logits.abs().max()))
+    diff = float((dec - full_logits).abs().max())
+    excess = float(((dec - full_logits).abs()
+                    - 2e-3 * full_logits.abs()).max())
+    log(f"jamba decode_step x {Sc} vs the kernel prefill ({Bc} x {Sc} "
+        f"tokens, fp32 compute, chunks of {ssm.chunk_size}: one full and a "
+        f"ragged one): max_abs_diff {diff:.3e}; largest |diff| - 2e-3 "
+        f"|logit| = {excess:.3e} (bound atol 2e-4 x largest |logit| "
+        f"{scale:.3f} = {2e-4 * scale:.3e})")
+    if not excess <= 2e-4 * scale:
+        fail("jamba dense decode and the kernel prefill disagree")
+    parts["decode = prefill"] = time.perf_counter() - t0
+    log("phase 13 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    del params, cache, dec, full_logits
+    torch.cuda.empty_cache()
+    return launches
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1786,7 +2286,15 @@ def _leaves(tree):
         yield tree
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers to run (phase 0, "
+                         "the build, always runs); all by default.  A "
+                         "partial run prints no kernels line and no final "
+                         "JSON line")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1800,8 +2308,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)} ({smi[0]})")
+    wanted = (set(range(1, 14)) if args.phases is None
+              else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
     for name, out in build_all().items():
@@ -1810,41 +2324,79 @@ def main() -> int:
         log(f"built {name}.cu: {' | '.join(info) or out.strip()}")
     log(f"build {time.perf_counter() - t0:.1f} s")
 
-    timer = Timer(torch, device)
-    worst, timing = phase_kernel(torch, device, timer)
-    torch.cuda.empty_cache()
-    launches = phase_engine(torch, np, device)
-    torch.cuda.empty_cache()
-    fa_worst, fa_timing = phase_fa(torch, device, timer)
-    q_worst, q_timing = phase_quant8(torch, device, timer)
-    del timer
-    torch.cuda.empty_cache()
-    fa_launches = phase_train(torch, np, device)
-    torch.cuda.empty_cache()
-    ls_launches, c_worst = phase_local_sgd(torch, np, device)
-    phase_local_sgd_reduced(torch, np, device)
-    torch.cuda.empty_cache()
-    timer = Timer(torch, device)
-    ssd_worst, ssd_timing = phase_ssd(torch, device, timer)
-    del timer
-    ssd_launches = phase_mamba(torch, np, device)
-    torch.cuda.empty_cache()
-    phase_mixtral(torch, np, device)
+    got = {}
+    walls = {}
 
+    def run(n, fn, *a):
+        if n in wanted:
+            t = time.perf_counter()
+            got[n] = fn(*a)
+            walls[n] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+
+    timer = Timer(torch, device)
+    run(1, phase_kernel, torch, device, timer)
+    run(2, phase_engine, torch, np, device)
+    run(3, phase_fa, torch, device, timer)
+    run(5, phase_quant8, torch, device, timer)
+    del timer
+    torch.cuda.empty_cache()
+    run(4, phase_train, torch, np, device)
+    run(6, phase_local_sgd, torch, np, device)
+    run(7, phase_local_sgd_reduced, torch, np, device)
+    timer = Timer(torch, device)
+    run(8, phase_ssd, torch, device, timer)
+    del timer
+    run(9, phase_mamba, torch, np, device)
+    run(10, phase_mixtral, torch, np, device)
+    run(11, phase_mixtral_train, torch, np, device)
+    run(12, phase_mamba_train, torch, np, device)
+    run(13, phase_jamba, torch, np, device)
+    log("wall time by phase (s): " + ", ".join(
+        f"{n} {walls[n]:.1f}" for n in sorted(walls)))
+    if wanted != set(range(1, 14)):
+        log(f"partial run: phases {sorted(wanted)} passed")
+        return 0
+
+    # the kernels line: launches and timing on this slice's paths where a
+    # kernel lies on one (the FA-2 kernels: phase 11's mixtral train step;
+    # the SSD scan: phase 13's jamba prefill), else on the path that runs
+    # it; each row also keeps the earlier paths' launches and timing
+    worst, timing = got[1]
+    fa_worst, fa_timing = got[3]
+    q_worst, q_timing = got[5]
+    ls_launches, c_worst = got[6]
+    ssd_worst, ssd_timing = got[8]
+    train_launches = got[11]
     fa = "src/repro/kernels/flash_attention/kernel.py"
     rows = [{"name": "flash_decode_paged", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_attention/decode.py:132",
-             "launches": launches, "max_abs_err": worst, **timing}]
+             "launches": got[2], "max_abs_err": worst, **timing,
+             "launches_by_path": {"qwen2-7b engine (phase 2)": got[2],
+                                  "mixtral-8x7b engine (phase 10)":
+                                      got[10][0]}}]
     for name, kern, src, line in (
             ("flash_attention_fwd", "fwd", "flash_attn_fwd.cu", 86),
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
+        by_path = {"mixtral-8x7b train, 4 steps (phase 11)":
+                   train_launches[name],
+                   "opt-1.3b train, 8 steps (phase 4)": got[4][name]}
+        if kern == "fwd":
+            by_path["mixtral-8x7b prefill (phase 10)"] = got[10][1]
+            by_path["jamba prefill (phase 13)"] = \
+                got[13]["flash_attention_fwd"]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": fa_launches[name],
-                     "max_abs_err": fa_worst[kern], **fa_timing[kern]})
+                     "launches": train_launches[name],
+                     "max_abs_err": fa_worst[kern],
+                     **fa_timing["mixtral"][kern],
+                     "shape": "mixtral-8x7b train " + str(MIXTRAL_FA),
+                     "at_opt_1.3b": {"shape": str(OPT_FA),
+                                     **fa_timing[kern]},
+                     "launches_by_path": by_path})
     for name, kern, line in (("quantize_blocks", "quantize", 21),
                              ("dequantize_blocks", "dequantize", 30)):
         rows.append({"name": name, "route": "cuda",
@@ -1853,16 +2405,19 @@ def main() -> int:
                      "launches": ls_launches[name],
                      "max_abs_err": max(q_worst, c_worst),
                      **q_timing[kern]})
+    mamba = {k: v for k, v in ssd_timing.items() if k != "jamba"}
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan/kernel.py:31",
-                 "launches": ssd_launches, "max_abs_err": ssd_worst,
-                 **ssd_timing})
+                 "launches": got[13]["ssd_scan"],
+                 "max_abs_err": ssd_worst, **ssd_timing["jamba"],
+                 "shape": "jamba-v0.1-52b prefill " + str(JAMBA_SSD),
+                 "at_mamba2_130m": {"shape": str(MAMBA_SSD[0]), **mamba},
+                 "launches_by_path": {"jamba prefill (phase 13)":
+                                      got[13]["ssd_scan"],
+                                      "mamba2-130m prefill (phase 9)":
+                                      got[9]}})
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
     print(smi[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

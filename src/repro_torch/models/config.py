@@ -1,5 +1,6 @@
 """Model configuration for every architecture family in the zoo (a copy of
-``repro.models.config``; the port serves the dense attn+mlp families).
+``repro.models.config``; the port runs the dense, MoE, SSM and hybrid
+families).
 
 A single frozen dataclass describes dense, MoE, SSM (Mamba2), hybrid (Jamba),
 encoder-decoder (Whisper) and VLM-backbone (Qwen2-VL) models.  Family-specific

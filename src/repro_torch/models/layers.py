@@ -83,10 +83,9 @@ def positional(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     if cfg.pos_embedding == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
-    if cfg.pos_embedding == "learned":
-        return x                     # added at the embedding layer
-    raise NotImplementedError(f"positional embedding {cfg.pos_embedding!r} "
-                              "is not ported")
+    if cfg.pos_embedding == "mrope":
+        raise NotImplementedError("M-RoPE waits for the Qwen2-VL slice")
+    return x     # learned / sinusoidal: at the embedding layer; none: none
 
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Full-model passes: the train loss, full-sequence logits, the dense-cache
 decode step and the paged decode step (port of ``repro.models.model`` for
-attn + mlp decoders, their mixture-of-experts variant and the Mamba2
-stack).
+attn + mlp decoders, their mixture-of-experts variant, the Mamba2 stack
+and the jamba hybrid of all three).
 
 Batch dict keys: ``tokens`` (B, S) int decoder input ids; ``labels``
 (B, S) int next-token targets, -1 masked; ``positions`` (B, S) optional.

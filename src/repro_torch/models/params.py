@@ -2,7 +2,8 @@
 runs.
 
 Port of ``repro.models.params`` for attn + mlp decoders, their
-mixture-of-experts variant (``moe``) and the Mamba2 (``ssm``) stack.
+mixture-of-experts variant (``moe``), the Mamba2 (``ssm``) stack and the
+jamba hybrid, whose 8-layer period stacks as one group of 16 sublayers.
 The parameter tree keeps the JAX layout exactly —
 ``wq`` (d, H, hd), group keys ``g0/s0_attn/s1_mlp`` or ``g0/s0_ssm``, a
 leading ``layers`` axis on stacked groups — so weights bridged from the

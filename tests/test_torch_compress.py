@@ -134,28 +134,42 @@ def test_wire_bytes_equal_jax(method):
             JC.wire_bytes_count(n, None, dtype_bytes=2)
 
 
-# The step's gradients agree across the packages to within about 1e-3 of
-# an int8 code step (opt L2/d128, fp32).  An element whose gradient lies
-# closer than TIE_BAND to a rounding boundary may therefore be rounded the
-# other way by the other package: an int8 code on a half-integer, or a
-# top-k magnitude at the leaf's threshold (relative band).  Outside the
+# The step's gradients agree across the packages to within about 2e-4 of
+# an int8 code step (opt L2/d128, fp32), and are held to GRAD_TOL.  An
+# element whose gradient lies closer to a rounding boundary than the two
+# packages' gradients lie apart may be rounded the other way by the other
+# package: an int8 code on a half-integer, or a top-k magnitude at the
+# leaf's threshold.  The band around each boundary is TIE_BAND (of a code
+# step, or of the threshold), or the largest measured difference between
+# the two gradients (in the element's quantization block, or the leaf for
+# top-k) where that is wider: a process whose CPU fp32 exp is off by up
+# to 1e-4 in its first call (seen in processes that ran JAX) moves them
+# up to 8e-3 of a code step apart, still within GRAD_TOL.  Outside the
 # band both packages send the same values.
 TIE_BAND = 5e-3
 
 
-def _tie_band(g: torch.Tensor, method: str, cfg) -> np.ndarray:
-    """Elements of the gradient ``g`` that lie within TIE_BAND of a
-    rounding boundary of ``method``."""
+def _tie_band(g: torch.Tensor, ref: np.ndarray, method: str,
+              cfg) -> np.ndarray:
+    """Elements of the port's gradient ``g`` that lie within the band of
+    a rounding boundary of ``method``; ``ref`` is the JAX gradient."""
     flat = g.detach().reshape(-1).numpy()
+    apart = np.abs(flat - ref.reshape(-1))
     if method == "topk":
         k = max(1, int(flat.size * cfg.topk_fraction))
         thresh = np.sort(np.abs(flat))[-k]
-        near = np.abs(np.abs(flat) - thresh) <= TIE_BAND * thresh
+        near = np.abs(np.abs(flat) - thresh) <= max(TIE_BAND * thresh,
+                                                    apart.max())
         return near.reshape(g.shape)
     _, s, _ = q8.quantize(g.detach(), cfg.block)
     rows = np.repeat(s.numpy(), cfg.block)[:flat.size]
+    # the measured difference, the largest of each quantization block
+    pad = np.zeros(-flat.size % cfg.block, apart.dtype)
+    apart = np.repeat(np.concatenate([apart, pad]).reshape(
+        -1, cfg.block).max(1), cfg.block)[:flat.size]
     u = flat / rows
-    near = np.abs(u - np.floor(u) - 0.5) <= TIE_BAND
+    near = np.abs(u - np.floor(u) - 0.5) <= np.maximum(TIE_BAND,
+                                                       apart / rows)
     return near.reshape(g.shape)
 
 
@@ -199,7 +213,9 @@ def test_train_step_compress_hook_matches_jax(method):
             assert float(g.abs().max()) <= 1e-6 * biggest
             assert np.abs(jg[key]).max() <= 1e-6 * biggest
             continue
-        band[key] = _tie_band(g, method, tccfg)
+        np.testing.assert_allclose(g.detach().numpy(), jg[key], **GRAD_TOL,
+                                   err_msg=key)
+        band[key] = _tie_band(g, jg[key], method, tccfg)
         mine, ref = tsent[key].detach().numpy(), np.asarray(jsent[key])
         # int8 sends the same codes times scales equal to the last bits;
         # top-k sends the gradients themselves, held to the gradient bar

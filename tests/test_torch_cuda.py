@@ -3,8 +3,10 @@ kernels against their plain PyTorch versions, the engine through the
 kernel against the engine through the plain gather path, a train step
 through the FA-2 kernels against one through the chunked path, local SGD
 with int8-compressed sync through the kernels, Mamba2's kernel
-prefill against its oracle path and its dense decode, and the MoE layer
-on the card against the CPU.  Every test here skips without CUDA.
+prefill against its oracle path and its dense decode, the MoE layer
+on the card against the CPU, and two mixtral-smoke train steps on the
+card against the same steps on the CPU.  Every test here skips without
+CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -69,15 +71,19 @@ FA_IDS = ["gqa2", "mha-d128", "gqa4-window", "noncausal-200", "d96-s130",
 # (dk/dv's 32-row query tiles, a ragged last tile), MLA's widths (qk 96,
 # v 64 as in deepseek-v3-671b-smoke, here with GQA and a ragged S; qk 192,
 # v 128 at full width), and widths the kernels take zero-padded (80 -> 96;
-# 48/40 -> 64/64, non-causal with T != S)
+# 48/40 -> 64/64, non-causal with T != S), and mixtral-8x7b's training
+# attention (H 32, K 8, D 128) at 1 x 1024 tokens with a window of 384
+# that cuts in, as its 4096 window does at 8192 tokens
 CARD_FA_CASES = FA_CASES + [(4, 2048, 32, 32, 64, True, 0),
                             (2, 333, 8, 2, 128, True, 0),
                             (2, 200, 4, 2, 96, True, 0, None, 64),
                             (1, 300, 2, 2, 192, True, 0, None, 128),
                             (1, 160, 4, 2, 80, True, 0),
-                            (1, 100, 2, 1, 48, False, 0, 150, 40)]
+                            (1, 100, 2, 1, 48, False, 0, 150, 40),
+                            (1, 1024, 32, 8, 128, True, 384)]
 CARD_FA_IDS = FA_IDS + ["opt-1.3b", "gqa4-d128-s333", "mla-smoke-96-64",
-                        "mla-192-128", "padded-80", "padded-48-40-cross"]
+                        "mla-192-128", "padded-80", "padded-48-40-cross",
+                        "mixtral-gqa4-d128-window"]
 
 
 # (N, block): the JAX package's quant8 cases (tests/test_kernels.py), then
@@ -106,9 +112,12 @@ SSD_CASES = [(2, 256, 4, 1, 64, 32, 64), (1, 128, 8, 2, 32, 128, 32),
 SSD_IDS = ["g1-c64", "g2-n128", "g4-ragged100", "p128-c128",
            "ragged300-p128-n128", "mamba2-130m-s390"]
 # on the card also mamba2-130m's prefill at 8 x 4000 tokens (chip_smoke's
-# ragged MAMBA_SSD shape: 31 full chunks and one of 32 rows)
-CARD_SSD_CASES = SSD_CASES + [(8, 4000, 24, 1, 64, 128, 128)]
-CARD_SSD_IDS = SSD_IDS + ["mamba2-130m-8x4000"]
+# ragged MAMBA_SSD shape: 31 full chunks and one of 32 rows), and
+# jamba-v0.1-52b's mixer (128 heads, p 64, state 16, chunk 128) at
+# 2 x 700 tokens (five full chunks and one of 60 rows)
+CARD_SSD_CASES = SSD_CASES + [(8, 4000, 24, 1, 64, 128, 128),
+                              (2, 700, 128, 1, 64, 16, 128)]
+CARD_SSD_IDS = SSD_IDS + ["mamba2-130m-8x4000", "jamba-p64-n16-s700"]
 
 
 def ssd_inputs(b, s, h, g, p, n, seed=0):
@@ -672,3 +681,46 @@ def test_cuda_moe_forward_matches_cpu_with_drops(B, S, cuda):
     assert int(keeps[0].sum()) < B * S * k            # some were dropped
     torch.testing.assert_close(ys[1], ys[0], rtol=0,
                                atol=1e-5 * float(ys[0].abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_mixtral_smoke_train_steps_equal_the_cpu(cuda):
+    """Two train steps of mixtral-8x7b-smoke (fp32, the FA-2 kernels with
+    GQA and a window of 6 at 48 tokens, the MoE dispatch with drops) on
+    the card against the same steps on the CPU: losses, grad norms and
+    the parameters after them."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(get_config("mixtral-8x7b-smoke"),
+                              param_dtype="float32", compute_dtype="float32",
+                              sliding_window=6)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    ocfg = adamw.OptConfig(learning_rate=1e-3, warmup_steps=1,
+                           decay_steps=4, eps=1e-3)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 49)))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda a: a.to(dev),
+                          init_params(cfg, device="cpu", seed=0))
+        state = adamw.init_opt_state(params, ocfg)
+        step = make_train_step(cfg, ocfg, attn_impl="kernel")
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        before = FK.flash_attention_bwd_dkdv.launches
+        mets = []
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        launched = FK.flash_attention_bwd_dkdv.launches - before
+        out[str(dev)] = (mets, [p.detach().cpu() for p in
+                                tree_leaves(params)], launched)
+    (cm, cp, cl), (gm, gp, gl) = out["cpu"], out[str(cuda)]
+    assert cl == 0 and gl == 2 * cfg.num_layers
+    for (cl_, cg), (gl_, gg) in zip(cm, gm):
+        assert gl_ == pytest.approx(cl_, rel=1e-5)
+        assert gg == pytest.approx(cg, rel=1e-4)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

@@ -60,7 +60,7 @@ def test_config_copies_agree(arch, patch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "opt-125m", "opt-1.3b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "jamba-v0.1-52b"])
 def test_full_configs_and_param_counts_agree(arch):
     jcfg, tcfg = jax_config(arch), torch_config(arch)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)

@@ -27,7 +27,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
-@pytest.mark.parametrize("arch,patch", PARITY_ARCHS, ids=ARCH_IDS)
+# the dense parity archs, and the jamba hybrid's ssm + mlp + attn + moe
+# leaves (its smoke config: an SSD mixer with an MLP, then attention and a
+# 4-expert MoE)
+@pytest.mark.parametrize("arch,patch", PARITY_ARCHS + [("jamba-v0.1-52b", {})],
+                         ids=ARCH_IDS + ["jamba"])
 def test_bridge_round_trips_exactly_and_keys_match_keystr(arch, patch):
     jcfg, tcfg = configs(arch, **patch)
     jp, tp = bridged(jcfg, tcfg)
@@ -68,6 +72,11 @@ def test_package_imports_with_jax_blocked():
     mods = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    # every module of the port, the newest slices' included
+    for m in ("repro_torch.models.moe", "repro_torch.models.mamba2",
+              "repro_torch.configs.mixtral_8x7b",
+              "repro_torch.configs.jamba_v01_52b"):
+        assert m in mods, m
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\nimport importlib\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
