@@ -14,7 +14,8 @@ Phases (any failure exits nonzero):
    sliding window — check that one call issues the split and merge
    kernels and no other device operation, and time the whole call
    (``ms``), its kernels alone (``device_ms``, torch.profiler), the plain
-   version, SDPA over the gathered K/V, and the HBM bound;
+   version, SDPA over the gathered K/V, and the HBM bound, there and at
+   granite-3-2b's attention (H 32, K 8, D 64);
 2. serve qwen2-7b at full width and depth in bf16 (random weights from a
    seed) through ``ServeEngine`` with the kernel, check that every request
    completes and that every attention layer of every step launched the
@@ -26,9 +27,11 @@ Phases (any failure exits nonzero):
    zero-pad, opt-1.3b's attention shape and mixtral-8x7b's training
    attention (GQA 32/8, D 128, a window that cuts in) at 2048 tokens, and
    time kernel, plain version, SDPA (forward, and its backward for the
-   dq + dk/dv pair) and the bound at opt-1.3b's shape and at mixtral's
-   1 x 8192 tokens with the 4096 window (where the bf16 kernels are also
-   held to their plain versions); the bf16 forward, dq and dk/dv must
+   dq + dk/dv pair) and the bound at opt-1.3b's shape, at mixtral's
+   1 x 8192 tokens with the 4096 window and at deepseek-v3-671b's
+   training attention (1 x 2048 tokens, 128 heads at (192, 128)), the
+   last two also held to their plain versions in bf16; the bf16 forward,
+   dq and dk/dv must
    execute more than the fp32 CUDA cores' 67 TFLOP/s (they run on the
    tensor cores);
 4. train opt-1.3b at full width and depth in bf16 (4 x 2048 tokens, random
@@ -103,7 +106,28 @@ Phases (any failure exits nonzero):
    encoding), dense decode of 8 x (64 + 32) tokens over the attn + ssm +
    moe caches, and ``decode_step`` token by token against the kernel
    prefill at fp32 compute (the bf16 weights cast op by op) at phase 9's
-   bar.
+   bar;
+14. serve deepseek-v3-671b at full width and 5 of its 61 layers (the 3
+   dense ones and 2 of 256 experts top-8 with a shared one; MLA with 128
+   heads, q-LoRA 1536, latent 512), bf16: a 2 x 4096-token
+   ``forward_logits`` through the FA-2 forward at (192, 128) (one launch
+   a layer) with layer 0's attention held to ``attention_fwd_plain``;
+   the serve launcher's dense path, ``greedy_generate`` of 8 x (64 + 32)
+   tokens over the latent cache; ``decode_step`` (the absorbed form)
+   token by token against the kernel prefill (the expanded form) at fp32
+   compute on 4 of the layers, at phase 9's bar, held on the dense layers
+   only should a top-8 near-tie route a token apart on the two paths;
+15. train deepseek-v3-671b's 3 dense layers and its MTP block at full
+   width in bf16 through ``repro_torch.train.trainer.train``: 4 steps of
+   1 x 2048 tokens, each FA-2 kernel launched 4 times a step at
+   (192, 128), the loss and the MTP loss falling, a profiled step by
+   kind, and the fp32 gradients of the kernel path against the chunked
+   path leaf by leaf at phase 3's gradient bar;
+16. granite-3-2b at full width and depth (40 layers, GQA 32/8, D 64,
+   vocab 49155): 8 train steps of 2 x 2048 tokens, then phase 2's engine
+   and requests with flash-decode's tensor-core split kernel at width 64
+   launched by every layer every step, no padded vocab id chosen, and
+   the mixed step kernel vs gather in fp32.
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -225,6 +249,35 @@ MAMBA_TRAIN, MAMBA_TRAIN_STEPS, MAMBA_TRAIN_REMAT = (8, 2048), 4, "full"
 # of 128 and a ragged one)
 JAMBA_LAYERS, JAMBA_PREFILL, JAMBA_DECODE, JAMBA_AGREE = \
     8, (4, 2048), (8, 64, 32), (2, 160)
+# deepseek-v3-671b's training attention (phase 15: 1 x 2048 tokens, MLA's
+# 128 heads at (qk, v) = (192, 128), causal), timed in phase 3 and held
+# there to the plain versions in bf16
+DEEPSEEK_FA = (1, 2048, 128, 128, 192, True, 0, None, 128)
+# phase 14: deepseek-v3-671b served at full width and 5 of its 61 layers,
+# the 3 dense ones and 2 MoE ones: 27,304,645,632 params, 54.6 GB of bf16
+# (full depth is 671.7 B).  Prefill (batch, tokens); dense decode (batch,
+# prompt, new); decode-vs-prefill agreement at fp32 compute (batch,
+# tokens), on 4 of the layers: the fp32 casts of one MoE layer's expert
+# stacks (3 x 15 GB, two alive at once) do not fit beside 5 layers.  The
+# KV groups (heads, at H = K) of layer 0's attention held to the plain
+# version: its fp32 (S x S) scores over 2 x 4096 tokens take 134 MB a
+# head, several tensors of them
+DEEPSEEK_LAYERS, DEEPSEEK_PREFILL, DEEPSEEK_DECODE, DEEPSEEK_AGREE = \
+    5, (2, 4096), (8, 64, 32), (2, 160)
+DEEPSEEK_AGREE_LAYERS, DEEPSEEK_HEADS = 4, 8
+# phase 15: deepseek-v3-671b trained at full width on the dense prefix
+# (num_layers = first_dense_layers = 3: 4,290,073,600 params with the MTP
+# block; bf16 weights and gradients 17.2 GB, fp32 AdamW moments 34.3 GB).
+# One MoE layer is 11.5 B params, about 138 GB of training state.  One
+# row of 2048 tokens, 4 steps, the first left out of the timing
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN, DEEPSEEK_TRAIN_STEPS = 3, (1, 2048), 4
+# phase 16: granite-3-2b at full width and depth (40 layers, GQA 32/8,
+# D 64): a train step (batch, tokens, steps; bf16 weights and gradients
+# and fp32 moments about 30 GB, remat none), then phase 2's engine and
+# requests.  GRANITE_DECODE is its attention (query heads, KV heads,
+# width), where phase 1 also times flash-decode
+GRANITE_TRAIN, GRANITE_TRAIN_STEPS = (2, 2048), 8
+GRANITE_DECODE = (32, 8, 64)
 # the kernels a call launches, by a part of each name: flash-decode's
 # split kernel, and its merge kernel when a call has more than one split;
 # the SSD scan's three when s spans more than one chunk
@@ -333,10 +386,12 @@ class Timer:
 # Phase 1: kernel vs plain
 # --------------------------------------------------------------------------- #
 
-def make_pages(torch, lens, C, dtype, device, seed):
+def make_pages(torch, lens, C, dtype, device, seed, shape=(H, K, D)):
     """Disjoint shuffled block tables over a pool holding each sequence's
-    live pages; table entries past them point at the null page 0."""
+    live pages; table entries past them point at the null page 0.
+    ``shape`` is (query heads, KV heads, head width)."""
     from repro_torch.kernels.quant8.ops import quantize_kv
+    H, K, D = shape
     g = torch.Generator(device="cpu").manual_seed(seed)
     need = [-(-(L + C - 1) // BS) for L in lens]
     nb = max(need)
@@ -362,9 +417,10 @@ def make_pages(torch, lens, C, dtype, device, seed):
             sl.to(device), {k: v.to(device) for k, v in scales.items()})
 
 
-def live_bytes(lens, C, dtype, q):
+def live_bytes(lens, C, dtype, q, shape=(H, K, D)):
     """Bytes a call must move: every live K/V token (and int8 scale) read
     once, q read once, the fp32 output (q's shape) written once."""
+    _, K, D = shape
     item = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
     per_tok = K * 2 * (D * item + (4 if dtype == "int8" else 0))
     toks = sum(L + C - 1 for L in lens if L + C - 1 > 0)
@@ -403,44 +459,11 @@ def phase_kernel(torch, device, timer):
             fail(f"flash_decode_paged disagrees with its plain version "
                  f"({dtype}, C={C}, window={window}): {err}")
 
-    # timing at B=8 sequences x 2048 tokens, bf16 decode
-    lens = [2048] * B
-    q, kp, vp, bt, sl, _ = make_pages(torch, lens, 1, "bfloat16", device,
-                                      seed=99)
-    call = lambda: flash_decode_paged(q, kp, vp, bt, sl)  # noqa: E731
-    ms = timer.ms(call)
-    log(f"kernel_ms spread over 20 calls: min {timer.spread[0]:.4f} "
-        f"max {timer.spread[1]:.4f}")
-    pps, splits = decode_splits(B, K, bt.shape[1], sms)
-    device_ms = timer.device_ms(call, DECODE_KERNELS[:1 + (splits > 1)])
-    log(f"one call ({splits} splits of {pps} pages, {sms} SMs): its "
-        f"kernels (launches seen a call, ms a launch) "
-        + "; ".join(f"{k} x{n:g} {t:.4f}" for k, n, t in timer.kernels)
-        + f"; other device operations {timer.others}")
-    if timer.others:
-        fail(f"a flash_decode_paged call issued more than its two kernels: "
-             f"{timer.others}")
-    plain_ms = timer.ms(lambda: paged_attention_reference(q, kp, vp, bt, sl))
-    kd = kp[bt.long()].reshape(B, -1, K, D).transpose(1, 2)
-    vd = vp[bt.long()].reshape(B, -1, K, D).transpose(1, 2)
-    kd = kd.repeat_interleave(H // K, dim=1).contiguous()
-    vd = vd.repeat_interleave(H // K, dim=1).contiguous()
-    qd = q.to(torch.bfloat16)[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = timer.ms(lambda: sdpa(qd, kd, vd))
-    nbytes = live_bytes(lens, 1, "bfloat16", q)
-    flops = 2 * 2 * D * H * sum(lens)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    timing = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    log(f"timing B={B} x 2048 tokens bf16 decode: kernel_ms {ms:.4f} "
-        f"(the whole call) device_ms {device_ms:.4f} (its kernels alone, "
-        f"profiler) plain_ms {plain_ms:.4f} library_ms(SDPA on gathered "
-        f"K/V) {library_ms:.4f} bound_ms {timing['bound_ms']:.4f} "
-        f"({nbytes/1e6:.2f} MB, bound by {timing['bound_by']}); "
-        f"{nbytes / device_ms / 1e6:.0f} GB/s over the kernels' time")
+    timing = time_decode(torch, device, timer, (H, K, D), "qwen2-7b")
+    timing["granite"] = time_decode(torch, device, timer, GRANITE_DECODE,
+                                    "granite-3-2b")
+    worst = max(worst, timing["granite"].pop("max_abs_err"),
+                timing.pop("max_abs_err"))
 
     # an engine-shaped chunked-prefill call: 8 slots, C=8, ~128 tokens
     elens = [16, 48, 32, 64, 80, 96, 112, 128]
@@ -455,6 +478,66 @@ def phase_kernel(torch, device, timer):
     log(f"kernels held against their plain version: "
         f"[flash_decode_paged] worst max_abs_err {worst:.3e}")
     return worst, timing
+
+
+def time_decode(torch, device, timer, shape, label):
+    """At B = 8 sequences x 2048 tokens of bf16 pages and ``shape`` (query
+    heads, KV heads, head width): the kernel held against its plain
+    version, then the whole call (``ms``), its kernels alone
+    (``device_ms``), the plain version, SDPA over the gathered K/V and the
+    bound.  Fails if a call issues any other device operation."""
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_splits, flash_decode_paged, paged_attention_reference)
+    Hs, Ks, Ds = shape
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    lens = [2048] * B
+    q, kp, vp, bt, sl, _ = make_pages(torch, lens, 1, "bfloat16", device,
+                                      seed=99, shape=shape)
+    call = lambda: flash_decode_paged(q, kp, vp, bt, sl)  # noqa: E731
+    err = float((call() - paged_attention_reference(q, kp, vp, bt, sl))
+                .abs().max())
+    if not err <= TOL["bfloat16"]:
+        fail(f"flash_decode_paged disagrees with its plain version at "
+             f"{label}'s shape {shape}: {err}")
+    ms = timer.ms(call)
+    log(f"kernel_ms at {label}'s shape spread over 20 calls: min "
+        f"{timer.spread[0]:.4f} max {timer.spread[1]:.4f}")
+    pps, splits = decode_splits(B, Ks, bt.shape[1], sms)
+    device_ms = timer.device_ms(call, DECODE_KERNELS[:1 + (splits > 1)])
+    log(f"one call at {label}'s shape ({splits} splits of {pps} pages, "
+        f"{sms} SMs): its kernels (launches seen a call, ms a launch) "
+        + "; ".join(f"{k} x{n:g} {t:.4f}" for k, n, t in timer.kernels)
+        + f"; other device operations {timer.others}")
+    if timer.others:
+        fail(f"a flash_decode_paged call issued more than its two kernels: "
+             f"{timer.others}")
+    plain_ms = timer.ms(lambda: paged_attention_reference(q, kp, vp, bt, sl))
+    kd = kp[bt.long()].reshape(B, -1, Ks, Ds).transpose(1, 2)
+    vd = vp[bt.long()].reshape(B, -1, Ks, Ds).transpose(1, 2)
+    kd = kd.repeat_interleave(Hs // Ks, dim=1).contiguous()
+    vd = vd.repeat_interleave(Hs // Ks, dim=1).contiguous()
+    qd = q.to(torch.bfloat16)[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = timer.ms(lambda: sdpa(qd, kd, vd))
+    nbytes = live_bytes(lens, 1, "bfloat16", q, shape)
+    flops = 2 * 2 * Ds * Hs * sum(lens)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    timing = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "max_abs_err": err}
+    log(f"timing {label} (H {Hs}, K {Ks}, D {Ds}) B={B} x 2048 tokens bf16 "
+        f"decode: max_abs_err {err:.3e} (bound {TOL['bfloat16']:.0e}); "
+        f"kernel_ms {ms:.4f} (the whole call) device_ms {device_ms:.4f} "
+        f"(its kernels alone, profiler) plain_ms {plain_ms:.4f} "
+        f"library_ms(SDPA on gathered K/V) {library_ms:.4f} bound_ms "
+        f"{timing['bound_ms']:.4f} ({nbytes/1e6:.2f} MB, bound by "
+        f"{timing['bound_by']}); {nbytes / device_ms / 1e6:.0f} GB/s over "
+        f"the kernels' time")
+    del q, kp, vp, kd, vd, qd
+    torch.cuda.empty_cache()
+    return timing
 
 
 # --------------------------------------------------------------------------- #
@@ -477,13 +560,55 @@ def engine_requests(cfg, np, seed=0):
     return system, reqs
 
 
+def primed_engine(params, cfg, device, np):
+    """Phase 2's engine (8 slots, block 16, 512 blocks, chunk 8, bf16
+    pages through flash-decode) after its warm-up, with phase 2's system
+    prompt served once: a server that has served it before holds it in
+    its prefix cache, so the shared requests hit.  Returns (engine, phase
+    2's requests)."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    ecfg = EngineConfig(max_slots=B, block_size=BS, num_blocks=512,
+                        max_blocks_per_seq=16, attn_impl="kernel",
+                        cache_dtype="bfloat16", prefill_chunk=8)
+    eng = ServeEngine(params, cfg, ecfg, torch_device=device)
+    eng.warmup()
+    system, reqs = engine_requests(cfg, np)
+    eng.run([Request(uid="prime", prompt=system, max_new=1)])
+    eng.reset_stats()
+    return eng, reqs
+
+
+def serve_checked(eng, reqs, cfg, label):
+    """``reqs`` through ``eng``, with flash-decode's counts set to 0 just
+    before: fails unless every request completed with 16 tokens, every
+    layer launched flash-decode every step and the prefix cache hit.
+    Returns (outputs, stats, launches, launches by instantiation)."""
+    from repro_torch.kernels.flash_attention.decode import flash_decode_paged
+    flash_decode_paged.launches = 0
+    before = flash_decode_paged.kernels.copy()
+    out = eng.run(reqs)
+    launches = flash_decode_paged.launches
+    ran = dict(flash_decode_paged.kernels - before)
+    s = eng.stats()
+    if set(out) != {r.uid for r in reqs} or any(
+            len(out[r.uid].tokens) != 16 or out[r.uid].failed for r in reqs):
+        fail(f"{label}: not every request completed with 16 tokens")
+    if launches != cfg.num_layers * eng.steps or launches == 0:
+        fail(f"{label}: flash-decode launches {launches} != "
+             f"{cfg.num_layers} x {eng.steps} steps")
+    if s["prefix_hit_tokens"] <= 0:
+        fail(f"{label}: no prefix hits on the shared system prompt")
+    return out, s, launches, ran
+
+
 def mixed_step_diff(torch, np, M, params, cfg, device):
     """One mixed step (decode slots, prefill chunks, an idle slot) from
     identical pages through the kernel and the plain gather path, in the
     serving dtype (bf16) and in fp32 compute (pages stay bf16; each op
     casts its bf16 weights to fp32, so no fp32 copy of the model is
     held).  Returns {compute dtype: max |logits(kernel) -
-    logits(gather)|} and the largest |logit|."""
+    logits(gather)|} over the vocabulary's live ids and the largest
+    |logit| there."""
     import dataclasses
 
     from repro_torch.models.params import tree_map
@@ -514,7 +639,7 @@ def mixed_step_diff(torch, np, M, params, cfg, device):
             logits, _ = M.decode_step_paged(
                 p, c, pools, torch.from_numpy(tokens).to(device), bt, sl,
                 attn_impl=impl, num_feed=nf)
-        return logits.float()
+        return logits[:, :c.vocab_size].float()
 
     done = [0] * B
     while any(d < n for d, n in zip(done, fed)):
@@ -532,7 +657,7 @@ def mixed_step_diff(torch, np, M, params, cfg, device):
 
     diffs = {}
     lk = step(feeds, "kernel", twin())
-    if lk.shape != (B, cfg.padded_vocab_size) or \
+    if lk.shape != (B, cfg.vocab_size) or \
             not bool(torch.isfinite(lk[live]).all()):
         fail(f"mixed-step logits malformed: {tuple(lk.shape)}")
     lg = step(feeds, "gather", twin())
@@ -571,11 +696,8 @@ def profile_run(torch, eng, reqs, step_ms):
 
 def phase_engine(torch, np, device):
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.decode import flash_decode_paged
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params
-    from repro_torch.serve.engine import (EngineConfig, Request,
-                                          ServeEngine)
 
     cfg = get_config("qwen2-7b")
     t0 = time.perf_counter()
@@ -586,48 +708,24 @@ def phase_engine(torch, np, device):
     log(f"qwen2-7b full width: {cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.param_count():,} params, {nbytes/1e9:.2f} GB bf16, "
         f"init {time.perf_counter() - t0:.2f} s")
-    ecfg = EngineConfig(max_slots=B, block_size=BS, num_blocks=512,
-                        max_blocks_per_seq=16, attn_impl="kernel",
-                        cache_dtype="bfloat16", prefill_chunk=8)
-    eng = ServeEngine(params, cfg, ecfg, torch_device=device)
     t0 = time.perf_counter()
-    eng.warmup()
-    system, reqs = engine_requests(cfg, np)
-    # a server that has served the system prompt before holds it in its
-    # prefix cache; prime it so the shared requests hit
-    eng.run([Request(uid="prime", prompt=system, max_new=1)])
-    eng.reset_stats()
+    eng, reqs = primed_engine(params, cfg, device, np)
     log(f"warmup + prefix priming {time.perf_counter() - t0:.1f} s")
-
-    flash_decode_paged.launches = 0
-    out = eng.run(reqs)
-    launches = flash_decode_paged.launches
-    s = eng.stats()
-    n_attn = cfg.num_layers
+    _, s, launches, _ = serve_checked(eng, reqs, cfg, "qwen2-7b")
     log(f"engine run: {int(s['tokens_generated'])} tokens, "
         f"{int(s['steps'])} steps, {eng.wall_s:.3f} s, "
         f"{s['tokens_per_s']:.1f} tokens/s, peak KV "
         f"{s['peak_cache_bytes']/1e6:.2f} MB of {s['pool_bytes']/1e6:.1f} MB "
         f"pool, prefix hit tokens {int(s['prefix_hit_tokens'])}, "
-        f"TTFT p50 {s.get('ttft_p50_s', float('nan'))*1e3:.1f} ms")
-    log(f"flash_decode_paged launches {launches} = {n_attn} x "
-        f"{eng.steps} steps? {launches == n_attn * eng.steps}")
-    if set(out) != {r.uid for r in reqs} or any(
-            len(out[r.uid].tokens) != 16 or out[r.uid].failed for r in reqs):
-        fail("not every request completed with 16 tokens")
-    if launches != n_attn * eng.steps or launches == 0:
-        fail(f"kernel launches {launches} != {n_attn} x {eng.steps} steps")
-    if s["prefix_hit_tokens"] <= 0:
-        fail("no prefix hits on the shared system prompt")
+        f"TTFT p50 {s.get('ttft_p50_s', float('nan'))*1e3:.1f} ms; "
+        f"flash_decode_paged launches {launches} = {cfg.num_layers} x "
+        f"{eng.steps} steps")
 
     # the same requests again through a fresh engine, under the profiler
     step_ms = eng.wall_s / eng.steps * 1e3
     del eng
-    eng = ServeEngine(params, cfg, ecfg, torch_device=device)
-    eng.warmup()
-    eng.run([Request(uid="prime", prompt=system, max_new=1)])
-    eng.reset_stats()
-    profile_run(torch, eng, engine_requests(cfg, np)[1], step_ms)
+    eng, reqs = primed_engine(params, cfg, device, np)
+    profile_run(torch, eng, reqs, step_ms)
     del eng
 
     diffs, peak, feeds = mixed_step_diff(torch, np, M, params, cfg, device)
@@ -675,10 +773,14 @@ def fa_tensors(torch, case, dtype, device, seed):
             randn(Bc, S, Hc, Dv))
 
 
-# FLOP a kernel executes per FLOP of the function, in bf16 at D = Dv: the
-# forward multiplies P as two bf16 halves (3 products where 2 are
-# counted), dq dS (4 where 3 are counted), dk/dv P and dS (6 where 4 are)
-FA_EXECUTED = {"fwd": 1.5, "dq": 4 / 3, "dkdv": 1.5}
+def fa_executed(kern, D, Dv):
+    """FLOP a bf16 kernel executes per FLOP of the function: the forward
+    multiplies P as two bf16 halves (q.k once, p.v twice), dq dS (q.k and
+    do.v once, ds.k twice), dk/dv P and dS (every product twice but q.k
+    and do.v); 1.5, 4/3 and 1.5 at D = Dv."""
+    return {"fwd": (2 * D + 4 * Dv) / (2 * D + 2 * Dv),
+            "dq": (6 * D + 2 * Dv) / (4 * D + 2 * Dv),
+            "dkdv": 1.5}[kern]
 
 
 def fa_work(case, q, k, v, do):
@@ -750,17 +852,27 @@ def phase_fa(torch, device, timer):
 
     timing = time_fa(torch, device, timer, OPT_FA, "opt-1.3b", worst)
     timing["mixtral"] = time_fa(torch, device, timer, MIXTRAL_FA,
-                                "mixtral-8x7b train", worst)
+                                "mixtral-8x7b train", worst, hold=True)
+    timing["deepseek"] = time_fa(torch, device, timer, DEEPSEEK_FA,
+                                 "deepseek-v3-671b train", worst, hold=True)
+    margins = {k: e / b for k, (e, b) in timing["deepseek"]["held"].items()}
+    log("bf16 kernels vs plain at deepseek-v3-671b's training attention "
+        f"{DEEPSEEK_FA}: error / bound " + ", ".join(
+            f"{k} {v:.3f}" for k, v in margins.items())
+        + " (mixtral's: " + ", ".join(
+            f"{k} {e / b:.3f}" for k, (e, b) in
+            timing["mixtral"]["held"].items()) + ")")
     log("FA-2 kernels held against their plain versions: worst "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     return worst, timing
 
 
-def time_fa(torch, device, timer, case, label, worst):
+def time_fa(torch, device, timer, case, label, worst, hold=False):
     """Kernel, plain version, SDPA and bound of each FA-2 kernel at
-    ``case`` in bf16, as the train step calls them; at a windowed case
-    the kernels are also held to their plain versions there (``worst``
-    is updated).  Returns {kernel: timing}."""
+    ``case`` in bf16, as the train step calls them; with ``hold`` the
+    kernels are also held to their plain versions there (``worst`` is
+    updated, and each output's (error, bound) left in the result's
+    ``held``).  Returns {kernel: timing}."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import visible
     S, Hc, Kc = case[1:4]
@@ -768,7 +880,8 @@ def time_fa(torch, device, timer, case, label, worst):
     q, k, v, do = fa_tensors(torch, case, torch.bfloat16, device, seed=99)
     out, lse = FK.flash_attention_fwd(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(-1)
-    if case[6]:
+    held = {}
+    if hold:
         tol = FA_TOL["bfloat16"]
         ref_out, ref_lse = FK.attention_fwd_plain(q, k, v, **kw)
         checks = [("fwd", "out", out, ref_out, tol["out"]),
@@ -789,6 +902,7 @@ def time_fa(torch, device, timer, case, label, worst):
             err = float((a.float() - b.float()).abs().max())
             bound = t * max(1.0, float(b.float().abs().max()))
             worst[kern] = max(worst[kern], err)
+            held[name] = (err, bound)
             msg.append(f"{name} {err:.2e}/{bound:.1e}")
             if not err <= bound:
                 fail(f"{kern} kernel disagrees with its plain version on "
@@ -826,9 +940,10 @@ def time_fa(torch, device, timer, case, label, worst):
     for kern, (kfn, pfn, lfn) in calls.items():
         ms = timer.ms(kfn)
         spread = timer.spread
-        plain_ms = timer.ms(pfn, iters=5 if case[6] else 20)
+        plain_ms = timer.ms(pfn, iters=5 if hold else 20)
         library_ms = timer.ms(lfn) if lfn else timing["dq"]["library_ms"]
         flops, nbytes = work[kern]
+        executed = fa_executed(kern, case[4], fa_widths(case)[1])
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         timing[kern] = {"ms": ms, "plain_ms": plain_ms,
@@ -845,8 +960,8 @@ def time_fa(torch, device, timer, case, label, worst):
             f"bound_ms {timing[kern]['bound_ms']:.4f} ({flops:.3e} FLOP, "
             f"{nbytes/1e6:.1f} MB; bound by {timing[kern]['bound_by']}); "
             f"{flops / ms / 1e9:.1f} TFLOP/s counted, "
-            f"{FA_EXECUTED[kern] * flops / ms / 1e9:.1f} TFLOP/s executed")
-        if FA_EXECUTED[kern] * flops / ms * 1e3 <= FP32_FLOP_PER_S:
+            f"{executed * flops / ms / 1e9:.1f} TFLOP/s executed")
+        if executed * flops / ms * 1e3 <= FP32_FLOP_PER_S:
             fail(f"the bf16 {kern} kernel executed no more than the fp32 "
                  f"CUDA cores' {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: it is "
                  "not running on the tensor cores")
@@ -856,6 +971,7 @@ def time_fa(torch, device, timer, case, label, worst):
         f"({bwd_ms / timing['dq']['library_ms']:.2f}x)")
     del q, k, v, do, out, lse, delta, kx, vx, qg, kg, vg, sdpa_out
     torch.cuda.empty_cache()
+    timing["held"] = held
     return timing
 
 
@@ -1762,11 +1878,8 @@ def phase_mixtral(torch, np, device):
     from repro_torch.configs import get_config
     from repro_torch.core import flops as F
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention.decode import flash_decode_paged
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params
-    from repro_torch.serve.engine import (EngineConfig, Request,
-                                          ServeEngine)
 
     full = get_config("mixtral-8x7b")
     cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
@@ -1787,22 +1900,12 @@ def phase_mixtral(torch, np, device):
         f"GB bf16, init {time.perf_counter() - t0:.2f} s")
 
     # (a) the engine on phase 2's requests
-    ecfg = EngineConfig(max_slots=B, block_size=BS, num_blocks=512,
-                        max_blocks_per_seq=16, attn_impl="kernel",
-                        cache_dtype="bfloat16", prefill_chunk=8)
-    eng = ServeEngine(params, cfg, ecfg, torch_device=device)
     t0 = time.perf_counter()
-    eng.warmup()
-    system, reqs = engine_requests(cfg, np)
-    eng.run([Request(uid="prime", prompt=system, max_new=1)])
-    eng.reset_stats()
+    eng, reqs = primed_engine(params, cfg, device, np)
     log(f"warmup + prefix priming {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    flash_decode_paged.launches = 0
-    out = eng.run(reqs)
-    launches = flash_decode_paged.launches
+    _, s, launches, _ = serve_checked(eng, reqs, cfg, "mixtral")
     peak = torch.cuda.max_memory_allocated()
-    s = eng.stats()
     step_ms = eng.wall_s / eng.steps * 1e3
     log(f"engine run: {int(s['tokens_generated'])} tokens, "
         f"{int(s['steps'])} steps, {eng.wall_s:.3f} s, {step_ms:.3f} ms a "
@@ -1810,22 +1913,11 @@ def phase_mixtral(torch, np, device):
         f"{s.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, prefix hit "
         f"tokens {int(s['prefix_hit_tokens'])}, peak memory "
         f"{peak / 1e9:.2f} GB")
-    if set(out) != {r.uid for r in reqs} or any(
-            len(out[r.uid].tokens) != 16 or out[r.uid].failed for r in reqs):
-        fail("mixtral: not every request completed with 16 tokens")
-    if launches != cfg.num_layers * eng.steps or launches == 0:
-        fail(f"mixtral: flash-decode launches {launches} != "
-             f"{cfg.num_layers} x {eng.steps} steps")
-    if s["prefix_hit_tokens"] <= 0:
-        fail("mixtral: no prefix hits on the shared system prompt")
     del eng
     parts = {"init and engine run": time.perf_counter() - t_phase}
     t0 = time.perf_counter()
-    eng = ServeEngine(params, cfg, ecfg, torch_device=device)
-    eng.warmup()
-    eng.run([Request(uid="prime", prompt=system, max_new=1)])
-    eng.reset_stats()
-    profile_moe_run(torch, eng, engine_requests(cfg, np)[1], step_ms)
+    eng, reqs = primed_engine(params, cfg, device, np)
+    profile_moe_run(torch, eng, reqs, step_ms)
     del eng
     torch.cuda.empty_cache()
     parts["profiled run"] = time.perf_counter() - t0
@@ -1974,15 +2066,48 @@ def grads_of(torch, M, params, cfg, batch, impl):
     return float(loss.detach()), list(grads)
 
 
+def fp32_gradient_gate(torch, p32, cfg32, batch, per_step, label):
+    """At fp32 compute, the kernel path's gradients against the plain
+    chunked path's, leaf by leaf, at phase 3's gradient bar (1e-4 x
+    max(1, the largest |grad|)); fails if one is outside it or the kernel
+    path did not launch each FA-2 kernel ``per_step`` times."""
+    from repro_torch.bridge import flatten
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv)
+    before = [f.launches for f in kernels]
+    lk, gk = grads_of(torch, M, p32, cfg32, batch, "kernel")
+    ran = [f.launches - b for f, b in zip(kernels, before)]
+    lc, gc = grads_of(torch, M, p32, cfg32, batch, "chunked")
+    if ran != [per_step] * 3:
+        fail(f"{label} fp32 gate: the kernel path launched the FA-2 "
+             f"kernels {ran} times, not {per_step} each")
+    keys = [k for k, _ in flatten(p32)]
+    tol = FA_TOL["float32"]["grad"]
+    errs = {}
+    for key, a, b in zip(keys, gk, gc):
+        err = float((a - b).abs().max())
+        bound = tol * max(1.0, float(b.abs().max()))
+        errs[key] = err
+        if not err <= bound:
+            fail(f"{label} fp32 gate: the kernel path's gradient of {key} "
+                 f"differs from the chunked path's by {err} > {bound}")
+    tokens = " x ".join(str(n) for n in batch["tokens"].shape)
+    log(f"fp32 gradients, kernel vs chunked attention ({len(keys)} leaves, "
+        f"{tokens} tokens): loss {lk:.6f} vs {lc:.6f}; max_abs_err by leaf "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (bound {tol:.0e} x max(1, largest |grad|) per leaf); every "
+        f"leaf inside its bound")
+
+
 def phase_mixtral_train(torch, np, device):
     import dataclasses
 
-    from repro_torch.bridge import flatten
     from repro_torch.configs import get_config
     from repro_torch.core import flops as F
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.models import model as M
     from repro_torch.models.params import init_params, tree_map
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
@@ -2064,30 +2189,8 @@ def phase_mixtral_train(torch, np, device):
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    before = [f.launches for f in kernels]
-    lk, gk = grads_of(torch, M, p32, cfg32, batch, "kernel")
-    ran = [f.launches - b for f, b in zip(kernels, before)]
-    lc, gc = grads_of(torch, M, p32, cfg32, batch, "chunked")
-    if ran != [cfg.num_layers] * 3:
-        fail(f"mixtral fp32 gate: the kernel path launched the FA-2 "
-             f"kernels {ran} times, not {cfg.num_layers} each")
-    keys = [k for k, _ in flatten(p32)]
-    tol = FA_TOL["float32"]["grad"]
-    errs = {}
-    for key, a, b in zip(keys, gk, gc):
-        err = float((a - b).abs().max())
-        bound = tol * max(1.0, float(b.abs().max()))
-        errs[key] = err
-        if not err <= bound:
-            fail(f"mixtral fp32 gate: the kernel path's gradient of {key} "
-                 f"differs from the chunked path's by {err} > {bound}")
-    log(f"fp32 gradients, kernel vs chunked attention ({len(keys)} leaves, "
-        f"{Bt} x {St} tokens, window {cfg.sliding_window}): loss "
-        f"{lk:.6f} vs {lc:.6f}; max_abs_err by leaf " + ", ".join(
-            f"{k} {v:.2e}" for k, v in errs.items())
-        + f" (bound {tol:.0e} x max(1, largest |grad|) per leaf); every "
-        f"leaf inside its bound")
-    del p32, gk, gc, batch
+    fp32_gradient_gate(torch, p32, cfg32, batch, cfg.num_layers, "mixtral")
+    del p32, batch
     torch.cuda.empty_cache()
     parts["fp32 gate"] = time.perf_counter() - t0
     log("phase 11 wall time by part (s): " + ", ".join(
@@ -2139,6 +2242,59 @@ def phase_mamba_train(torch, np, device):
 # --------------------------------------------------------------------------- #
 # Phase 13: the jamba hybrid at full width, 8 layers
 # --------------------------------------------------------------------------- #
+
+def moe_routes(torch, calls, B, S):
+    """The (B, S, k) expert ids of ``dispatch_plan`` calls: one per-row
+    call (a prefill) or S flat calls of B tokens (decode steps), each
+    token's ids sorted."""
+    if len(calls) == 1:
+        ids = calls[0]
+    else:
+        ids = torch.stack([c.reshape(B, -1) for c in calls], dim=1)
+    return ids.reshape(B, S, -1).sort(dim=-1).values
+
+
+def decode_vs_prefill(torch, M, params, cfg, toks):
+    """``decode_step`` token by token against the kernel prefill: (largest
+    |diff|, largest |diff| - 2e-3 |logit|, largest |logit|, whether the
+    MoE layers routed every token alike on both paths)."""
+    from repro_torch.models import moe
+    Bc, Sc = toks.shape
+    live = slice(0, cfg.vocab_size)
+    calls = []
+    plan = moe.dispatch_plan
+
+    def spy(top_i, C, E):
+        calls.append(top_i.clone())
+        return plan(top_i, C, E)
+    moe.dispatch_plan = spy
+    try:
+        with torch.inference_mode():
+            full = M.forward_logits(params, cfg, {"tokens": toks},
+                                    attn_impl="kernel")[..., live]
+            pre = list(calls)
+            calls.clear()
+            cache = M.init_cache(cfg, Bc, Sc, dtype=torch.float32,
+                                 device=toks.device)
+            outs = []
+            for i in range(Sc):
+                lg, cache = M.decode_step(params, cfg, cache,
+                                          toks[:, i:i + 1], i)
+                outs.append(lg[..., live])
+            dec = torch.stack(outs, dim=1)
+    finally:
+        moe.dispatch_plan = plan
+    n_moe = len(pre)
+    same = all(torch.equal(
+        moe_routes(torch, pre[j:j + 1], Bc, Sc),
+        moe_routes(torch, calls[j::n_moe], Bc, Sc)) for j in range(n_moe))
+    scale = max(1.0, float(full.abs().max()))
+    diff = float((dec - full).abs().max())
+    excess = float(((dec - full).abs() - 2e-3 * full.abs()).max())
+    del cache, dec, full
+    torch.cuda.empty_cache()
+    return diff, excess, scale, same
+
 
 def phase_jamba(torch, np, device):
     import dataclasses
@@ -2248,35 +2404,492 @@ def phase_jamba(torch, np, device):
                                     m, capacity_factor=float(m.num_experts)))
     toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bc, Sc))
                             ).to(device)
-    live = slice(0, cfg.vocab_size)
-    with torch.inference_mode():
-        full_logits = M.forward_logits(params, cfg32, {"tokens": toks},
-                                       attn_impl="kernel")[..., live]
-        cache = M.init_cache(cfg32, Bc, Sc, dtype=torch.float32,
-                             device=device)
-        outs = []
-        for i in range(Sc):
-            lg, cache = M.decode_step(params, cfg32, cache,
-                                      toks[:, i:i + 1], i)
-            outs.append(lg[..., live])
-        dec = torch.stack(outs, dim=1)
-    scale = max(1.0, float(full_logits.abs().max()))
-    diff = float((dec - full_logits).abs().max())
-    excess = float(((dec - full_logits).abs()
-                    - 2e-3 * full_logits.abs()).max())
+    diff, excess, scale, same = decode_vs_prefill(torch, M, params, cfg32,
+                                                  toks)
     log(f"jamba decode_step x {Sc} vs the kernel prefill ({Bc} x {Sc} "
         f"tokens, fp32 compute, chunks of {ssm.chunk_size}: one full and a "
         f"ragged one): max_abs_diff {diff:.3e}; largest |diff| - 2e-3 "
         f"|logit| = {excess:.3e} (bound atol 2e-4 x largest |logit| "
-        f"{scale:.3f} = {2e-4 * scale:.3e})")
+        f"{scale:.3f} = {2e-4 * scale:.3e}); the MoE layers routed every "
+        f"token alike on both paths: {same}")
     if not excess <= 2e-4 * scale:
         fail("jamba dense decode and the kernel prefill disagree")
     parts["decode = prefill"] = time.perf_counter() - t0
     log("phase 13 wall time by part (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
-    del params, cache, dec, full_logits
+    del params
     torch.cuda.empty_cache()
     return launches
+
+# --------------------------------------------------------------------------- #
+# Phase 14: serving deepseek-v3-671b at full width, 5 layers
+# --------------------------------------------------------------------------- #
+
+def mla_layer0_check(torch, M, params, cfg, tokens):
+    """Layer 0's MLA attention at the prefill's own q, k and v (taken from
+    ``mla_forward`` as it hands them to ``run_attention``): the FA-2
+    forward over every head against ``attention_fwd_plain`` over the
+    first ``DEEPSEEK_HEADS`` heads, at phase 3's bf16 bars.  Returns (out
+    error, its bound, lse error, its bound)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import mla as MLA
+    from repro_torch.models.params import tree_map
+    p0 = tree_map(lambda a: a[0], params["decoder"]["g0"]["s0_mla"])
+    Bt, S = tokens.shape
+    seen = {}
+    real = MLA.run_attention
+
+    def capture(q, k, v, **kw):
+        seen.update(q=q, k=k, v=v)
+        return real(q, k, v, **kw)
+    MLA.run_attention = capture
+    try:
+        with torch.inference_mode():
+            x = M.embed_tokens(params, cfg, tokens)
+            pos = torch.arange(S, device=x.device)[None].expand(Bt, S)
+            MLA.mla_forward(p0, x, cfg, positions=pos, impl="kernel")
+    finally:
+        MLA.run_attention = real
+    # (B, S, H, D) -> (B, H, S, D) views, the layout the model passes
+    q, k, v = (seen[n].transpose(1, 2) for n in "qkv")
+    with torch.inference_mode():
+        out, lse = FK.flash_attention_fwd(q, k, v, causal=True)
+        h = DEEPSEEK_HEADS
+        ref, ref_lse = FK.attention_fwd_plain(q[:, :h], k[:, :h], v[:, :h],
+                                              causal=True)
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail("non-finite FA-2 output at layer 0 of the deepseek prefill")
+    tol = FA_TOL["bfloat16"]
+    err = float((out[:, :h].float() - ref.float()).abs().max())
+    bound = tol["out"] * max(1.0, float(ref.float().abs().max()))
+    lse_err = float((lse[:, :h] - ref_lse).abs().max())
+    lse_bound = tol["lse"] * max(1.0, float(ref_lse.abs().max()))
+    return err, bound, lse_err, lse_bound
+
+
+def unstack_first(tree):
+    """Keep only the first layer of a stacked group, leaf by leaf and in
+    place, so that each stack is freed as its layer is copied out."""
+    for key in list(tree):
+        if isinstance(tree[key], dict):
+            unstack_first(tree[key])
+        else:
+            tree[key] = tree[key][0].clone()
+
+
+def phase_deepseek(torch, np, device):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models.params import decoder_groups, init_params
+    from repro_torch.serve.step import greedy_generate
+
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS)
+    mla, m = cfg.mla, cfg.moe
+    parts = {}
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"deepseek-v3-671b full width, {cfg.num_layers} of {full.num_layers} "
+        f"layers ({cfg.first_dense_layers} dense, "
+        f"{cfg.num_layers - cfg.first_dense_layers} MoE; full depth: "
+        f"{full.param_count():,} params, {2 * full.param_count() / 1e12:.2f} "
+        f"TB of bf16): d {cfg.d_model}, MLA {cfg.num_heads} heads, q-LoRA "
+        f"{mla.q_lora_rank}, latent {mla.kv_lora_rank}, (qk, v) = "
+        f"({mla.qk_head_dim}, {mla.v_head_dim}); dense d_ff {cfg.d_ff}; "
+        f"{m.num_experts} experts top-{m.experts_per_token} x d_ff "
+        f"{m.d_ff_expert} + {m.num_shared_experts} shared; vocab "
+        f"{cfg.vocab_size}; groups "
+        f"{[(g.sublayers, g.depth) for g in decoder_groups(cfg)]}; "
+        f"{cfg.param_count():,} params ({cfg.active_param_count():,} active "
+        f"a token, the MTP block's included), {nbytes / 1e9:.2f} GB bf16, "
+        f"init {time.perf_counter() - t0:.2f} s")
+    parts["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (a) prefill through the FA-2 forward at (192, 128)
+    Bp, Sp = DEEPSEEK_PREFILL
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bp, Sp))
+                              ).to(device)
+
+    def prefill():
+        with torch.inference_mode():
+            return M.forward_logits(params, cfg, {"tokens": tokens},
+                                    attn_impl="kernel")
+    prefill()                                            # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention_fwd.launches = 0
+    before = FK.flash_attention_fwd.kernels.copy()
+    logits = prefill()
+    torch.cuda.synchronize()
+    fa_launches = FK.flash_attention_fwd.launches
+    ran = dict(FK.flash_attention_fwd.kernels - before)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (Bp, Sp, cfg.padded_vocab_size) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        fail(f"deepseek prefill logits malformed: {tuple(logits.shape)}")
+    if fa_launches != cfg.num_layers or ran != {
+            "fa_fwd_tc_kernel<192, 128>": cfg.num_layers}:
+        fail(f"a deepseek prefill forward launched the FA-2 forward "
+             f"{fa_launches} times ({ran}), not {cfg.num_layers} at "
+             f"(192, 128)")
+    del logits
+    ms, times = wall_ms(torch, prefill, 5)
+    flops = F.fwd_flops(cfg, Bp, Sp)
+    tflops = flops / (ms / 1e3) / 1e12
+    log(f"deepseek prefill {Bp} x {Sp} tokens, bf16, FA-2 forward x "
+        f"{fa_launches} ({ran}): {ms:.2f} ms a forward (median of 5; "
+        f"{', '.join(f'{x:.2f}' for x in times)}), "
+        f"{Bp * Sp / (ms / 1e3):,.0f} tokens/s; fwd_flops {flops:.4e} / time "
+        f"= {tflops:.1f} TFLOP/s = {100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}"
+        f"% of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    profile_fn(torch, prefill, ms, 1, "fa_fwd_tc", unit="forward")
+    parts["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    err, bound, lse_err, lse_bound = mla_layer0_check(torch, M, params, cfg,
+                                                      tokens)
+    log(f"layer 0 MLA attention at the prefill's q/k/v (B {Bp}, S {Sp}, H "
+        f"{cfg.num_heads}, (D, Dv) ({mla.qk_head_dim}, {mla.v_head_dim}); "
+        f"heads 0-{DEEPSEEK_HEADS - 1} against attention_fwd_plain): out "
+        f"max_abs_err {err:.3e} (bound {bound:.3e}), lse {lse_err:.3e} "
+        f"(bound {lse_bound:.3e})")
+    if err > bound or lse_err > lse_bound:
+        fail(f"deepseek layer 0: FA-2 forward disagrees with its plain "
+             f"version: out {err} > {bound} or lse {lse_err} > {lse_bound}")
+    parts["layer 0 check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (b) the serve launcher's path for MLA: dense greedy decoding over
+    # the latent cache
+    Bd, Sd, new = DEEPSEEK_DECODE
+    prompt = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bd, Sd))
+                              ).to(device)
+    greedy_generate(params, cfg, prompt, 2, cache_len=Sd + new)   # warm
+    out = None
+
+    def gen():
+        nonlocal out
+        out = greedy_generate(params, cfg, prompt, new)
+    gen_ms, _ = wall_ms(torch, gen, 1)
+    steps = Sd + new - 1
+    if tuple(out.shape) != (Bd, Sd + new) or int(out.max()) >= \
+            cfg.vocab_size or not torch.equal(out[:, :Sd], prompt):
+        fail(f"deepseek greedy_generate output malformed: "
+             f"{tuple(out.shape)}")
+    per_tok = F.kv_cache_bytes(cfg, 1, 1)
+    log(f"deepseek greedy_generate {Bd} x ({Sd} prompt + {new} new) tokens, "
+        f"bf16, latent cache: {gen_ms:.1f} ms, {steps} decode steps, "
+        f"{gen_ms / steps:.3f} ms a step, {Bd * new / (gen_ms / 1e3):.1f} new "
+        f"tokens/s; cache {per_tok:.0f} bytes a token over {cfg.num_layers} "
+        f"layers ({per_tok / cfg.num_layers:.0f} a layer: latent "
+        f"{mla.kv_lora_rank} + rope key {mla.qk_rope_head_dim} in bf16; "
+        f"K/V of {cfg.num_heads} heads at ({mla.qk_head_dim}, "
+        f"{mla.v_head_dim}) would take "
+        f"{2 * cfg.num_heads * (mla.qk_head_dim + mla.v_head_dim):.0f}); "
+        f"every id < {cfg.vocab_size}")
+    # the profile reads a shorter run of the same steps (16 prompt tokens
+    # and 8 new): the profiler's bookkeeping grows with the operations
+    short = prompt[:, :16]
+    profile_fn(torch, lambda: greedy_generate(params, cfg, short, 8),
+               gen_ms / steps, 16 + 8 - 1, "index")
+    parts["dense decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (c) decode_step token by token == the kernel prefill at fp32
+    # compute over the bf16 weights cast op by op, on the 3 dense layers
+    # and the first MoE layer (the second's stacks are freed), at a
+    # capacity that holds every assignment (k / E of the tokens x E / k),
+    # as the decode's flat dispatch does
+    unstack_first(params["decoder"]["g1"])
+    torch.cuda.empty_cache()
+    Bc, Sc = DEEPSEEK_AGREE
+    cfg32 = dataclasses.replace(
+        cfg, num_layers=DEEPSEEK_AGREE_LAYERS, compute_dtype="float32",
+        moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.experts_per_token))
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bc, Sc))
+                            ).to(device)
+    diff, excess, scale, same = decode_vs_prefill(torch, M, params, cfg32,
+                                                  toks)
+    held_on = (f"{cfg32.num_layers} layers ({cfg32.first_dense_layers} "
+               f"dense, 1 MoE)")
+    log(f"deepseek decode_step x {Sc} (absorbed latent form) vs the kernel "
+        f"prefill (expanded form) on {held_on}, {Bc} x {Sc} tokens, fp32 "
+        f"compute: max_abs_diff {diff:.3e}; largest |diff| - 2e-3 |logit| = "
+        f"{excess:.3e} (bound atol 2e-4 x largest |logit| {scale:.3f} = "
+        f"{2e-4 * scale:.3e}); the MoE layer routed every token alike on "
+        f"both paths: {same}")
+    if not excess <= 2e-4 * scale:
+        if same:
+            fail("deepseek dense decode and the kernel prefill disagree")
+        # a near-tie among 256 experts flipped between the two forms:
+        # hold the check on the dense layers, where nothing routes
+        cfg3 = dataclasses.replace(cfg32, num_layers=cfg.first_dense_layers)
+        dense = dict(params, decoder={"g0": params["decoder"]["g0"]})
+        diff, excess, scale, _ = decode_vs_prefill(torch, M, dense, cfg3,
+                                                   toks)
+        held_on = f"the {cfg3.num_layers} dense layers"
+        log(f"  a top-{m.experts_per_token} near-tie flipped: held on "
+            f"{held_on} instead: max_abs_diff {diff:.3e}; largest |diff| - "
+            f"2e-3 |logit| = {excess:.3e} (bound {2e-4 * scale:.3e})")
+        if not excess <= 2e-4 * scale:
+            fail("deepseek dense decode and the kernel prefill disagree on "
+                 "the dense layers")
+    parts["decode = prefill"] = time.perf_counter() - t0
+    log("phase 14 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    del params
+    torch.cuda.empty_cache()
+    return fa_launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 15: training deepseek-v3-671b's dense prefix and MTP block
+# --------------------------------------------------------------------------- #
+
+def phase_deepseek_train(torch, np, device, fa_timing):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models.params import decoder_groups, init_params, \
+        tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    full = get_config("deepseek-v3-671b")
+    # the JAX layer_groups builds a prefix group first_dense_layers deep
+    # whatever num_layers is, so the two are cut together
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_TRAIN_LAYERS,
+                              first_dense_layers=DEEPSEEK_TRAIN_LAYERS)
+    Bt, St = DEEPSEEK_TRAIN
+    steps = DEEPSEEK_TRAIN_STEPS
+    per_step = cfg.num_layers + cfg.mtp_depth
+    log(f"deepseek-v3-671b training at full width: the {cfg.num_layers} "
+        f"dense layers of {full.num_layers} and the MTP block (groups "
+        f"{[(g.sublayers, g.depth) for g in decoder_groups(cfg)]}, MTP "
+        f"depth {cfg.mtp_depth}: mla + mlp at d_ff {cfg.d_ff}); "
+        f"{cfg.param_count():,} params, bf16 weights, fp32 AdamW moments, "
+        f"{Bt} x {St} tokens a step, remat none, lr 2e-5")
+    parts = {}
+    t0 = time.perf_counter()
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv)
+    # lr as phase 11 (AdamW's first steps move each d-wide product by
+    # about lr x d)
+    opt_cfg = adamw.OptConfig(learning_rate=2e-5, warmup_steps=1)
+    mtp = []
+    forward_train = M.forward_train
+
+    def spy(*args, **kwargs):
+        loss, mets = forward_train(*args, **kwargs)
+        mtp.append(mets["mtp_loss"].detach())
+        return loss, mets
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    before = [f.kernels.copy() for f in kernels]
+    M.forward_train = spy
+    try:
+        res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
+                                       attn_impl="kernel", log_every=1,
+                                       seed=0), opt_cfg, device=device)
+    finally:
+        M.forward_train = forward_train
+    launches = {f.__name__: f.launches for f in kernels}
+    ran = {f.__name__: dict(f.kernels - b) for f, b in zip(kernels, before)}
+    peak = torch.cuda.max_memory_allocated()
+    mtp = [float(x) for x in mtp]
+    step_s = 1.0 / res.steady_steps_per_s
+    flops = F.train_flops(cfg, Bt, St, remat=False)
+    tflops = flops / step_s / 1e12
+    log(f"deepseek train: losses {[round(x, 4) for x in res.losses]} (mtp_loss "
+        f"{[round(x, 4) for x in mtp]}); first step "
+        f"{res.compile_time_s:.3f} s; then {1e3 * step_s:.1f} ms a step, "
+        f"{Bt * St / step_s:.0f} tokens/s; train_flops {flops:.4e} (the "
+        f"trunk's attention and 6 x N x tokens with N counting the MTP "
+        f"block's parameters, as the JAX count does; not the MTP block's "
+        f"attention and head) / step time = {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.1f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    n = per_step * steps
+    log(f"deepseek train FA-2 launches {launches} ({ran}), expected "
+        f"{per_step} a step ({cfg.num_layers} layers + the MTP block) x "
+        f"{steps} steps = {n} each")
+    if len(res.losses) != steps or not all(np.isfinite(res.losses + mtp)):
+        fail(f"deepseek train: non-finite or missing losses {res.losses} "
+             f"(mtp {mtp})")
+    if not (res.losses[-1] < res.losses[0] and mtp[-1] < mtp[0]):
+        fail(f"deepseek train: the loss or the MTP loss did not fall over "
+             f"{steps} steps: {res.losses}, {mtp}")
+    if any(v != n for v in launches.values()) or any(
+            len(r) != 1 or not next(iter(r)).endswith("<192, 128>")
+            for r in ran.values()):
+        fail(f"deepseek train: FA-2 kernel launches {launches} ({ran}) != "
+             f"{n} each at (192, 128)")
+    del res
+    torch.cuda.empty_cache()
+    parts["trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # one profiled step by kind (the timed steps are not profiled)
+    params = init_params(cfg, device=device, seed=0)
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             next(make_batch_fn(cfg, Bt, St, seed=0)).items()}
+    step_fn = make_train_step(cfg, opt_cfg, attn_impl="kernel")
+    step_fn(params, opt_state, batch)                       # warm
+    profile_train_step(torch, lambda: step_fn(params, opt_state, batch),
+                       1e3 * step_s)
+    parts["profiled step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # the gate: at fp32 compute (an fp32 copy of the weights), the kernel
+    # path's gradients against the plain chunked path's at phase 3's bars
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    fp32_gradient_gate(torch, p32, cfg32, batch, per_step, "deepseek")
+    if fa_timing is not None:
+        held = fa_timing["deepseek"]["held"]
+        log("phase 3's bf16 margins at this attention shape "
+            f"{DEEPSEEK_FA} (error / bound): " + ", ".join(
+                f"{k} {e:.2e} / {b:.1e} = {e / b:.3f}"
+                for k, (e, b) in held.items()))
+    del p32, batch
+    torch.cuda.empty_cache()
+    parts["fp32 gate"] = time.perf_counter() - t0
+    log("phase 15 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 16: granite-3-2b at full width and depth
+# --------------------------------------------------------------------------- #
+
+def phase_granite(torch, np, device):
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    cfg = get_config("granite-3-2b")
+    Bt, St = GRANITE_TRAIN
+    steps = GRANITE_TRAIN_STEPS
+    log(f"granite-3-2b full width and depth: {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.resolved_head_dim} (GQA "
+        f"kv {cfg.num_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"(padded {cfg.padded_vocab_size}), tied head; "
+        f"{cfg.param_count():,} params")
+    parts = {}
+    t0 = time.perf_counter()
+
+    # (a) training, bf16 weights, fp32 moments, lr as phase 11's (at d
+    # 2048 the default 3e-4 moves each product by lr x d, and the loss
+    # wanders)
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
+                                   attn_impl="kernel", log_every=1, seed=0),
+                adamw.OptConfig(learning_rate=2e-5, warmup_steps=1),
+                device=device)
+    train_launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = 1.0 / res.steady_steps_per_s
+    flops = F.train_flops(cfg, Bt, St, remat=False)
+    tflops = flops / step_s / 1e12
+    log(f"granite train: losses {[round(x, 4) for x in res.losses]}; first "
+        f"step {res.compile_time_s:.3f} s; then {1e3 * step_s:.1f} ms a step, "
+        f"{Bt * St / step_s:.0f} tokens/s; train_flops {flops:.4e} / step "
+        f"time = {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.1f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    n = cfg.num_layers * steps
+    log(f"granite train FA-2 launches {train_launches}, expected "
+        f"{cfg.num_layers} x {steps} = {n} each")
+    if len(res.losses) != steps or not all(np.isfinite(res.losses)):
+        fail(f"granite train: non-finite or missing losses {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"granite train: the loss did not fall over {steps} steps: "
+             f"{res.losses}")
+    if any(v != n for v in train_launches.values()):
+        fail(f"granite train: FA-2 kernel launches {train_launches} != {n}")
+    del res
+    torch.cuda.empty_cache()
+    parts["trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (b) phase 2's engine and requests through flash-decode at D 64
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=device, seed=0)
+    eng, reqs = primed_engine(params, cfg, device, np)
+    out, s, launches, ran = serve_checked(eng, reqs, cfg, "granite")
+    step_ms = eng.wall_s / eng.steps * 1e3
+    log(f"granite engine run: {int(s['tokens_generated'])} tokens, "
+        f"{int(s['steps'])} steps, {eng.wall_s:.3f} s, {step_ms:.3f} ms a "
+        f"step, {s['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{s.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, prefix hit "
+        f"tokens {int(s['prefix_hit_tokens'])}; flash_decode_paged launches "
+        f"{launches} = {cfg.num_layers} x {eng.steps} steps, by "
+        f"instantiation {ran}")
+    if any(t >= cfg.vocab_size for r in reqs for t in out[r.uid].tokens):
+        fail(f"granite: a padded vocab id (>= {cfg.vocab_size}) was chosen")
+    if not ran or any(not (k.startswith("flash_decode_split_tc_kernel<")
+                           and k.endswith(", 64>")) for k in ran):
+        fail(f"granite: flash-decode ran {ran}, not the tensor-core split "
+             f"kernel at width 64")
+    del eng
+    parts["engine run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the profile reads the first 4 requests: the profiler's bookkeeping
+    # grows with the operations
+    eng, reqs = primed_engine(params, cfg, device, np)
+    profile_run(torch, eng, reqs[:4], step_ms)
+    del eng
+    parts["profiled run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diffs, peak_logit, feeds = mixed_step_diff(torch, np, M, params, cfg,
+                                               device)
+    log(f"granite mixed step (feeds {feeds}) kernel vs gather logits "
+        f"max_abs_diff: fp32 compute over the same bf16 pages "
+        f"{diffs['float32']:.3e} (bound {LOGITS_TOL:.0e}); bf16 compute "
+        f"{diffs['bfloat16']:.3e} (largest |logit| {peak_logit:.2f})")
+    if not diffs["float32"] <= LOGITS_TOL:
+        fail(f"granite: kernel and gather logits differ by "
+             f"{diffs['float32']} in fp32 compute")
+    parts["mixed step"] = time.perf_counter() - t0
+    log("phase 16 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    del params
+    torch.cuda.empty_cache()
+    return train_launches, launches
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -2314,7 +2927,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 14)) if args.phases is None
+    wanted = (set(range(1, 17)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -2352,48 +2965,69 @@ def main(argv=None) -> int:
     run(11, phase_mixtral_train, torch, np, device)
     run(12, phase_mamba_train, torch, np, device)
     run(13, phase_jamba, torch, np, device)
+    run(14, phase_deepseek, torch, np, device)
+    run(15, phase_deepseek_train, torch, np, device,
+        got[3][1] if 3 in got else None)
+    run(16, phase_granite, torch, np, device)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
-    if wanted != set(range(1, 14)):
+    if wanted != set(range(1, 17)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
     # the kernels line: launches and timing on this slice's paths where a
-    # kernel lies on one (the FA-2 kernels: phase 11's mixtral train step;
-    # the SSD scan: phase 13's jamba prefill), else on the path that runs
-    # it; each row also keeps the earlier paths' launches and timing
+    # kernel lies on one (flash-decode: phase 16's granite engine at D 64;
+    # the FA-2 kernels: phase 15's deepseek train step at (192, 128); the
+    # SSD scan: phase 13's jamba prefill), else on the path that runs it;
+    # each row also keeps the earlier paths' launches and timing
     worst, timing = got[1]
     fa_worst, fa_timing = got[3]
     q_worst, q_timing = got[5]
     ls_launches, c_worst = got[6]
     ssd_worst, ssd_timing = got[8]
-    train_launches = got[11]
+    mixtral_train = got[11]
+    deepseek_train = got[15]
+    granite_train, granite_engine = got[16]
     fa = "src/repro/kernels/flash_attention/kernel.py"
+    qwen2 = {k: v for k, v in timing.items() if k != "granite"}
     rows = [{"name": "flash_decode_paged", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_attention/decode.py:132",
-             "launches": got[2], "max_abs_err": worst, **timing,
-             "launches_by_path": {"qwen2-7b engine (phase 2)": got[2],
+             "launches": granite_engine, "max_abs_err": worst,
+             **timing["granite"],
+             "shape": "granite-3-2b decode, B 8 x 2048 tokens, "
+                      + str(GRANITE_DECODE),
+             "at_qwen2_7b": {"shape": str((H, K, D)), **qwen2},
+             "launches_by_path": {"granite-3-2b engine (phase 16)":
+                                  granite_engine,
+                                  "qwen2-7b engine (phase 2)": got[2],
                                   "mixtral-8x7b engine (phase 10)":
                                       got[10][0]}}]
     for name, kern, src, line in (
             ("flash_attention_fwd", "fwd", "flash_attn_fwd.cu", 86),
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
-        by_path = {"mixtral-8x7b train, 4 steps (phase 11)":
-                   train_launches[name],
+        by_path = {"deepseek-v3-671b train, 4 steps (phase 15)":
+                   deepseek_train[name],
+                   "granite-3-2b train, 8 steps (phase 16)":
+                   granite_train[name],
+                   "mixtral-8x7b train, 4 steps (phase 11)":
+                   mixtral_train[name],
                    "opt-1.3b train, 8 steps (phase 4)": got[4][name]}
         if kern == "fwd":
+            by_path["deepseek-v3-671b prefill (phase 14)"] = got[14]
             by_path["mixtral-8x7b prefill (phase 10)"] = got[10][1]
             by_path["jamba prefill (phase 13)"] = \
                 got[13]["flash_attention_fwd"]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": train_launches[name],
+                     "launches": deepseek_train[name],
                      "max_abs_err": fa_worst[kern],
-                     **fa_timing["mixtral"][kern],
-                     "shape": "mixtral-8x7b train " + str(MIXTRAL_FA),
+                     **fa_timing["deepseek"][kern],
+                     "shape": "deepseek-v3-671b train " + str(DEEPSEEK_FA),
+                     "at_mixtral_8x7b": {"shape": str(MIXTRAL_FA),
+                                         **fa_timing["mixtral"][kern]},
                      "at_opt_1.3b": {"shape": str(OPT_FA),
                                      **fa_timing[kern]},
                      "launches_by_path": by_path})

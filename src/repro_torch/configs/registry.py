@@ -1,22 +1,31 @@
 """Registry: ``--arch <id>`` lookup for the families the port runs
-(qwen2-7b, the OPT series, mamba2-130m, mixtral-8x7b and the jamba
+(the dense qwen2-7b, granite-3-2b, qwen1.5-32b, llama3-405b and OPT
+series, mamba2-130m, mixtral-8x7b, deepseek-v3-671b and the jamba
 hybrid), with the ``-smoke`` reduced variants."""
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3_671b
+from repro_torch.configs.granite_3_2b import CONFIG as _granite_3_2b
 from repro_torch.configs.jamba_v01_52b import CONFIG as _jamba_v01_52b
+from repro_torch.configs.llama3_405b import CONFIG as _llama3_405b
 from repro_torch.configs.mamba2_130m import CONFIG as _mamba2_130m
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral_8x7b
 from repro_torch.configs.opt import OPT_NAMES, opt_config
+from repro_torch.configs.qwen15_32b import CONFIG as _qwen15_32b
 from repro_torch.configs.qwen2_7b import CONFIG as _qwen2_7b
 from repro_torch.models.config import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {"qwen2-7b": _qwen2_7b,
                                   "mamba2-130m": _mamba2_130m,
                                   "mixtral-8x7b": _mixtral_8x7b,
-                                  "jamba-v0.1-52b": _jamba_v01_52b}
+                                  "jamba-v0.1-52b": _jamba_v01_52b,
+                                  "deepseek-v3-671b": _deepseek_v3_671b,
+                                  "granite-3-2b": _granite_3_2b,
+                                  "qwen1.5-32b": _qwen15_32b,
+                                  "llama3-405b": _llama3_405b}
 for _n in OPT_NAMES:
     ARCHS[_n] = opt_config(_n)
 

@@ -50,6 +50,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdio>
 #include <type_traits>
 
 namespace fa {
@@ -379,6 +380,16 @@ cudaError_t by_head_dims(int d, int dv, F f) {
   if (d == 192 && dv == 128)
     return f(integral_constant<int, 192>{}, integral_constant<int, 128>{});
   return cudaErrorInvalidValue;
+}
+
+// The instantiation a library's launcher last launched, named as the
+// profiler names it (each library is one translation unit with its own
+// copy); its wrapper reads it back after every launch.
+static char last_kernel[96];
+
+template <typename... Args>
+void note_kernel(const char* fmt, Args... args) {
+  std::snprintf(last_kernel, sizeof last_kernel, fmt, args...);
 }
 
 // Raise the dynamic shared memory limit when needed, launch, and return

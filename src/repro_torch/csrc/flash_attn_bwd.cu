@@ -433,6 +433,7 @@ cudaError_t run_dq(const Params& p, cudaStream_t stream) {
       sizeof(float) * ((D + Dv) * kLdT + kBlock * (D + 1) +
                        kBlock * (Dv + 1) + kBlock * kLdT + 2 * kBlock);
   const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
+  note_kernel("fa_bwd_dq_kernel<float, %d, %d>", D, Dv);
   return launch(fa_bwd_dq_kernel<float, D, Dv>, grid, smem, p, stream);
 }
 
@@ -442,6 +443,7 @@ cudaError_t run_dq_tc(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * 3 * kBlock * (D + 8 + Dv + 8) +
                       sizeof(float) * 2 * kBlock;
   const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
+  note_kernel("fa_bwd_dq_tc_kernel<%d, %d>", D, Dv);
   return launch(fa_bwd_dq_tc_kernel<D, Dv>, grid, smem, p, stream,
                 kTcThreads);
 }
@@ -452,6 +454,7 @@ cudaError_t run_dkdv(const Params& p, cudaStream_t stream) {
       sizeof(float) * ((D + Dv) * kLdT + kBlock * (D + 1) +
                        kBlock * (Dv + 1) + 2 * kBlock * kLdT + 2 * kBlock);
   const dim3 grid((p.T + kBlock - 1) / kBlock, p.K, p.B);
+  note_kernel("fa_bwd_dkdv_kernel<float, %d, %d>", D, Dv);
   return launch(fa_bwd_dkdv_kernel<float, D, Dv>, grid, smem, p, stream);
 }
 
@@ -462,6 +465,7 @@ cudaError_t run_dkdv_tc(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (kBlock + 2 * kQ) * (D + 8 + Dv + 8) +
                       sizeof(float) * 4 * kQ;
   const dim3 grid((p.T + kBlock - 1) / kBlock, p.K, p.B);
+  note_kernel("fa_bwd_dkdv_tc_kernel<%d, %d>", D, Dv);
   return launch(fa_bwd_dkdv_tc_kernel<D, Dv>, grid, smem, p, stream,
                 kTcThreads);
 }
@@ -510,3 +514,6 @@ extern "C" int fa_bwd_dkdv_launch(const fa::Params* p, int dtype,
         return run_dkdv_tc<decltype(d)::value, decltype(dv)::value>(*p, s);
       });
 }
+
+// The instantiation fa_bwd_dq_launch or fa_bwd_dkdv_launch last launched.
+extern "C" const char* fa_bwd_last_kernel() { return fa::last_kernel; }

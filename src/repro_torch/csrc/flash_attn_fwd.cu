@@ -220,6 +220,7 @@ cudaError_t run(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (D * kLdT + kBlock * (D + 1) +
                                        kBlock * (Dv + 1) + kBlock * kLdT);
   const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
+  note_kernel("fa_fwd_kernel<float, %d, %d>", D, Dv);
   return launch(fa_fwd_kernel<float, D, Dv>, grid, smem, p, stream);
 }
 
@@ -228,6 +229,7 @@ cudaError_t run_tc(const Params& p, cudaStream_t stream) {
   // q, then 2 stages x (k, v)
   const size_t smem = sizeof(bf16) * kBlock * (3 * (D + 8) + 2 * (Dv + 8));
   const dim3 grid((p.S + kBlock - 1) / kBlock, p.H, p.B);
+  note_kernel("fa_fwd_tc_kernel<%d, %d>", D, Dv);
   return launch(fa_fwd_tc_kernel<D, Dv>, grid, smem, p, stream, kTcThreads);
 }
 
@@ -253,3 +255,6 @@ extern "C" int fa_fwd_launch(const fa::Params* p, int dtype, int head_dim,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The instantiation fa_fwd_launch last launched.
+extern "C" const char* fa_fwd_last_kernel() { return fa::last_kernel; }

@@ -691,9 +691,18 @@ __global__ void __launch_bounds__(kThreads)
         d] = at / fmaxf(lt, 1e-30f);
 }
 
+// T as the profiler names it.
+template <typename T>
+const char* type_name() {
+  return std::is_same<T, float>::value            ? "float"
+         : std::is_same<T, __nv_bfloat16>::value ? "__nv_bfloat16"
+                                                  : "signed char";
+}
+
 template <typename T, int RG>
 cudaError_t launch_rg(const Params& p, int sp, int smem, cudaStream_t stream) {
   auto kernel = flash_decode_split_kernel<T, RG>;
+  fa::note_kernel("flash_decode_split_kernel<%s, %d>", type_name<T>(), RG);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -719,6 +728,7 @@ int tc_width(int D, int Dv) {   // both widths padded to this one
 template <int MW, int W>
 cudaError_t launch_tc(const Params& p, int sp, cudaStream_t stream) {
   auto kernel = flash_decode_split_tc_kernel<MW, W>;
+  fa::note_kernel("flash_decode_split_tc_kernel<%d, %d>", MW, W);
   const int smem = tc_layout(W, W, sp * p.bs, MW, p.pps).total;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -835,3 +845,6 @@ extern "C" int flash_decode_paged_launch(const fd::Params* P, int page_dtype,
   flash_decode_merge_kernel<<<grid, kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The split kernel's instantiation flash_decode_paged_launch last launched.
+extern "C" const char* flash_decode_last_kernel() { return fa::last_kernel; }

@@ -16,6 +16,7 @@ the kernels' split-and-merge arithmetic in plain PyTorch.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -200,8 +201,10 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     :func:`decode_splits` plans it from the shapes.
 
     CUDA tensors launch ``csrc/flash_decode.cu`` (and count one launch in
-    ``flash_decode_paged.launches``); CPU tensors run the plain version;
-    anything else raises."""
+    ``flash_decode_paged.launches``, and in ``flash_decode_paged.kernels``
+    under the split kernel's instantiation the library reports, named as
+    the profiler names it); CPU tensors run the plain version; anything
+    else raises."""
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, k_pages, v_pages, block_tables, seq_lens, window=window,
@@ -283,10 +286,13 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                            f"error {err} (C*g={CG} rows, head widths "
                            f"{D}/{Dv}, {bs}-token pages)")
     flash_decode_paged.launches += 1
+    flash_decode_paged.kernels[
+        _library().flash_decode_last_kernel().decode()] += 1
     return out[:, 0] if squeeze else out
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.kernels = collections.Counter()  # launches by instantiation
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,4 +307,6 @@ def _library():
     lib.flash_decode_paged_launch.argtypes = [
         ctypes.POINTER(_DecodeParams), ctypes.c_int, ctypes.c_void_p]
     lib.flash_decode_paged_launch.restype = ctypes.c_int
+    lib.flash_decode_last_kernel.argtypes = []
+    lib.flash_decode_last_kernel.restype = ctypes.c_char_p
     return lib

@@ -15,8 +15,10 @@ on the CUDA cores):
   query group inside the kernel.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch
-in its ``.launches``), runs its plain version for CPU tensors, and raises
-for anything else.  Layout is (B, H, S, D) for q, (B, K, T, D) for k and
+in its ``.launches``, and in ``.kernels`` under the instantiation the
+library reports it launched, named as the profiler names it), runs its
+plain version for CPU tensors, and raises for anything else.  Layout is
+(B, H, S, D) for q, (B, K, T, D) for k and
 (B, K, T, Dv) for v, as in the JAX package; any strides work as long as
 the last dimension is dense, so (B, S, H, D) activations go in through
 transposed views without a copy.  The kernels are instantiated for the
@@ -35,6 +37,7 @@ returns gradients in the primal dtypes.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import types
@@ -234,6 +237,13 @@ def _launch(fn, p: _Params, q: torch.Tensor, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def _count(fn, last_kernel) -> None:
+    """One launch of ``fn``'s kernel, counted in ``fn.launches`` and, under
+    the instantiation ``last_kernel()`` reports, in ``fn.kernels``."""
+    fn.launches += 1
+    fn.kernels[last_kernel().decode()] += 1
+
+
 def _pad(t: Optional[torch.Tensor], width: int) -> Optional[torch.Tensor]:
     """t with a dense last dimension zero-padded to ``width``."""
     if t is None:
@@ -290,7 +300,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = _params(q, k, v, causal, window, _scale(scale, D), out=out,
                 lse=lse)
     _launch(_lib().fa_fwd_launch, p, q, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, _lib().fa_fwd_last_kernel)
     flash_attention_fwd.padded += padded
     return (out[..., :Dv] if padded else out), lse
 
@@ -317,7 +327,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     p = _params(q, k, v, causal, window, _scale(scale, D), dout=do, lse=lse,
                 delta=delta, dq=dq)
     _launch(_lib().fa_bwd_dq_launch, p, q, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, _lib().fa_bwd_last_kernel)
     flash_attention_bwd_dq.padded += padded
     return dq[..., :D] if padded else dq
 
@@ -338,7 +348,7 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     p = _params(q, k, v, causal, window, _scale(scale, D), dout=do, lse=lse,
                 delta=delta, dk=dk, dv=dv)
     _launch(_lib().fa_bwd_dkdv_launch, p, q, "flash_attention_bwd_dkdv")
-    flash_attention_bwd_dkdv.launches += 1
+    _count(flash_attention_bwd_dkdv, _lib().fa_bwd_last_kernel)
     flash_attention_bwd_dkdv.padded += padded
     if padded:
         return dk[..., :D], dv[..., :Dv]
@@ -349,13 +359,15 @@ for _fn in (flash_attention_fwd, flash_attention_bwd_dq,
             flash_attention_bwd_dkdv):
     _fn.launches = 0      # kernel launches
     _fn.padded = 0        # of those, launches at zero-padded widths
+    _fn.kernels = collections.Counter()   # launches by instantiation
 del _fn
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> types.SimpleNamespace:
     """The C entry points of ``csrc/flash_attn_{fwd,bwd}.cu``, built on
-    first use; one object holding the three launchers."""
+    first use; one object holding the three launchers and each library's
+    report of the instantiation it last launched."""
     fwd = load_library("flash_attn_fwd")
     bwd = load_library("flash_attn_bwd")
     fns = {"fa_fwd_launch": fwd.fa_fwd_launch,
@@ -365,7 +377,12 @@ def _lib() -> types.SimpleNamespace:
         fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return types.SimpleNamespace(**fns)
+    last = {"fa_fwd_last_kernel": fwd.fa_fwd_last_kernel,
+            "fa_bwd_last_kernel": bwd.fa_bwd_last_kernel}
+    for fn in last.values():
+        fn.argtypes = []
+        fn.restype = ctypes.c_char_p
+    return types.SimpleNamespace(**fns, **last)
 
 
 # --------------------------------------------------------------------------- #

@@ -4,8 +4,8 @@ Runs the continuous-batching paged-KV engine (``repro_torch.serve.engine``)
 over a mixed-length request set (reduced variant by default, ``--full``
 for the published widths) on the card, and prints tokens/s plus the
 per-token energy/carbon estimate.  Architectures whose caches the engine
-cannot page (Mamba2's recurrent state), or ``--legacy``, fall back to the
-dense ``serve.step.greedy_generate`` path.  A warmup runs before the
+cannot page (Mamba2's recurrent state, MLA's latent cache), or
+``--legacy``, fall back to the dense ``serve.step.greedy_generate`` path.  A warmup runs before the
 timing window so the kernel build and first-launch costs stay out of
 tokens/s.  ``--torch-device cpu`` runs the plain PyTorch versions on the
 CPU.

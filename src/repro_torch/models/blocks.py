@@ -1,9 +1,10 @@
 """Stacked-group execution: the train/prefill forward, the dense-cache
 decode step and the paged decode step.
 
-Port of ``repro.models.blocks`` for attn, mlp, moe and ssm (Mamba2)
-units.  A :class:`~repro_torch.models.params.ScanGroup` stacks ``depth``
-identical units on a leading ``layers`` axis; where the JAX package ran the unit
+Port of ``repro.models.blocks`` for attn, mla, mlp, moe and ssm
+(Mamba2) units.  A :class:`~repro_torch.models.params.ScanGroup` stacks
+``depth`` identical units on a leading ``layers`` axis; where the JAX
+package ran the unit
 under ``lax.scan``, the port loops over that axis in Python, taking views
 of each layer's parameters (and caches, which the decode steps update in
 place through those views).  ``ctx`` threads ``attn_impl``, ``remat`` and
@@ -20,7 +21,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import mamba2, moe
+from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attn_decode, attn_decode_paged,
                                        attn_forward, mlp_forward)
@@ -75,6 +76,10 @@ def _sublayer_train(kind: str, p: PyTree, x: torch.Tensor,
         return attn_forward(p, x, cfg, positions=ctx["positions"],
                             causal=ctx.get("causal", True),
                             impl=ctx.get("attn_impl", "kernel")), aux
+    if kind == "mla":
+        return mla.mla_forward(p, x, cfg, positions=ctx["positions"],
+                               causal=ctx.get("causal", True),
+                               impl=ctx.get("attn_impl", "kernel")), aux
     if kind == "mlp":
         return mlp_forward(p, x, cfg), aux
     if kind == "moe":
@@ -83,9 +88,9 @@ def _sublayer_train(kind: str, p: PyTree, x: torch.Tensor,
     if kind == "ssm":
         return mamba2.ssm_forward(p, x, cfg,
                                   use_kernel=ctx.get("use_kernel", False)), aux
-    raise NotImplementedError(f"{kind!r} sublayers are not ported yet (MLA "
-                              "and cross-attention wait for the other model "
-                              "families' slices)")
+    raise NotImplementedError(f"{kind!r} sublayers are not ported yet "
+                              "(cross-attention waits for the Whisper "
+                              "slice)")
 
 
 def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
@@ -115,24 +120,23 @@ def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
 # Decode (single token, dense cache — the launcher's fallback path)
 # --------------------------------------------------------------------------- #
 
-DENSE_SUBLAYERS = ("attn", "ssm", "mlp", "moe")
+DENSE_SUBLAYERS = ("attn", "mla", "ssm", "mlp", "moe")
 
 
 def _dense_only(kind: str) -> None:
     if kind not in DENSE_SUBLAYERS:
         raise NotImplementedError(
             f"dense decode supports sublayers {DENSE_SUBLAYERS}, got "
-            f"{kind!r} (MLA and cross-attention wait for the other model "
-            "families' slices)")
+            f"{kind!r} (cross-attention waits for the Whisper slice)")
 
 
 def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
                         max_len: int, dtype: torch.dtype = torch.bfloat16,
                         device: DeviceLike = None) -> PyTree:
-    """One sublayer's dense cache: (B, T, K, D) K/V for attn, the fp32
-    recurrent state and conv buffers for ssm (whatever ``dtype`` is, as
-    in the JAX package), nothing for mlp and moe.  On the card unless
-    ``device="cpu"`` is asked for."""
+    """One sublayer's dense cache: (B, T, K, D) K/V for attn, the latent
+    and rope key for mla, the fp32 recurrent state and conv buffers for
+    ssm (whatever ``dtype`` is, as in the JAX package), nothing for mlp
+    and moe.  On the card unless ``device="cpu"`` is asked for."""
     _dense_only(kind)
     device = resolve_device(device)
     if kind == "attn":
@@ -140,6 +144,8 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
         shape = (batch, max_len, K, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "mla":
+        return mla.init_mla_cache(cfg, batch, max_len, dtype, device)
     if kind == "ssm":
         return mamba2.init_ssm_cache(cfg, batch, device=device)
     return {}                                      # stateless: mlp / moe
@@ -153,6 +159,9 @@ def _sublayer_decode(kind: str, p: PyTree, x: torch.Tensor, cache: PyTree,
                                 cache_v=cache["v"], index=ctx["index"],
                                 positions=ctx["positions"])
         return y, {"k": ck, "v": cv}
+    if kind == "mla":
+        return mla.mla_decode(p, x, cfg, cache=cache, index=ctx["index"],
+                              positions=ctx["positions"])
     if kind == "ssm":
         return mamba2.ssm_decode(p, x, cfg, cache=cache)
     if kind == "moe":
@@ -246,8 +255,7 @@ def _sublayer_decode_paged(kind: str, p: PyTree, x: torch.Tensor,
         return moe.moe_forward(p, x, cfg)[0], cache    # aux dropped
     raise NotImplementedError(
         f"paged decode supports sublayers {PAGED_SUBLAYERS}, got {kind!r} "
-        "(MLA and cross-attention wait for the other model families' "
-        "slices)")
+        "(SSM/MLA/xattn caches are not token-paged)")
 
 
 def group_decode_paged(gparams: PyTree, group: ScanGroup, x: torch.Tensor,

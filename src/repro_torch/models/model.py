@@ -1,7 +1,8 @@
-"""Full-model passes: the train loss, full-sequence logits, the dense-cache
-decode step and the paged decode step (port of ``repro.models.model`` for
-attn + mlp decoders, their mixture-of-experts variant, the Mamba2 stack
-and the jamba hybrid of all three).
+"""Full-model passes: the train loss (with DeepSeek's multi-token
+prediction loss), full-sequence logits, the dense-cache decode step and
+the paged decode step (port of ``repro.models.model`` for attn + mlp
+decoders, their mixture-of-experts variant, multi-head latent attention,
+the Mamba2 stack and the jamba hybrid).
 
 Batch dict keys: ``tokens`` (B, S) int decoder input ids; ``labels``
 (B, S) int next-token targets, -1 masked; ``positions`` (B, S) optional.
@@ -15,9 +16,9 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.models import params as P
-from repro_torch.models.blocks import (PAGED_SUBLAYERS, group_decode,
-                                       group_decode_paged, group_forward,
-                                       init_group_cache,
+from repro_torch.models.blocks import (PAGED_SUBLAYERS, _sublayer_train,
+                                       group_decode, group_decode_paged,
+                                       group_forward, init_group_cache,
                                        init_paged_sublayer_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import norm
@@ -91,6 +92,39 @@ def _embed_with_positions(params: PyTree, cfg: ModelConfig,
     return x
 
 
+def _mtp_loss(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
+              tokens: torch.Tensor, labels: torch.Tensor,
+              ctx: Dict[str, Any]) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction: depth k's block merges the
+    previous depth's normed hidden state (the trunk's, after the shared
+    ``final_norm``, at k = 0) with the embeddings of the tokens k + 1
+    ahead, runs one block of the last layer's mixer and an MLP (in sorted
+    key order), the shared ``final_norm`` and ``lm_logits``, and scores
+    the labels k + 1 ahead; the sum over depths is scaled by
+    ``mtp_loss_coef / mtp_depth``, as in the JAX package."""
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    prev = h                                              # (B, S, d)
+    for k in range(cfg.mtp_depth):
+        mp = params["mtp"][f"d{k}"]
+        shift = k + 1
+        prev_trim = prev[:, :-1, :]
+        emb_next = embed_tokens(params, cfg, tokens[:, shift:])
+        merged = torch.cat([norm(mp["norm_prev"], prev_trim, cfg),
+                            norm(mp["norm_emb"], emb_next, cfg)], dim=-1)
+        x = merged @ mp["proj"].to(merged.dtype)
+        sub_ctx = dict(ctx, positions=ctx["positions"][..., shift:])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for key, p_sub in sorted(mp["block"].items()):
+            x, aux = _sublayer_train(key.split("_", 1)[1], p_sub, x, aux,
+                                     cfg, sub_ctx)
+        x = norm(params["final_norm"], x, cfg)
+        loss_k, _ = cross_entropy(lm_logits(params, cfg, x),
+                                  labels[:, shift:])
+        total = total + loss_k
+        prev = x
+    return total * cfg.mtp_loss_coef / max(cfg.mtp_depth, 1)
+
+
 def forward_train(params: PyTree, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor], *, remat: str = "none",
                   attn_impl: str = "kernel"
@@ -101,7 +135,8 @@ def forward_train(params: PyTree, cfg: ModelConfig,
     "naive" (fp32 oracle), "chunked" (plain online softmax, the JAX
     package's default) or "kernel" (the FA-2 CUDA kernels with their
     backward kernels; the plain versions on CPU tensors).  All three
-    train."""
+    train.  With ``mtp_depth > 0`` the multi-token-prediction loss is
+    added and reported as ``mtp_loss``."""
     x = _embed_with_positions(params, cfg, batch)
     B, S = batch["tokens"].shape
     ctx = {"positions": default_positions(batch, cfg, S, B),
@@ -110,7 +145,13 @@ def forward_train(params: PyTree, cfg: ModelConfig,
     logits = lm_logits(params, cfg, h)
     loss, n_tok = cross_entropy(logits, batch["labels"])
     metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n_tok}
-    return loss + aux, metrics
+    total = loss + aux
+    if cfg.mtp_depth > 0:
+        mtp = _mtp_loss(params, cfg, h, batch["tokens"], batch["labels"],
+                        ctx)
+        metrics["mtp_loss"] = mtp
+        total = total + mtp
+    return total, metrics
 
 
 def forward_logits(params: PyTree, cfg: ModelConfig,

@@ -2,8 +2,10 @@
 runs.
 
 Port of ``repro.models.params`` for attn + mlp decoders, their
-mixture-of-experts variant (``moe``), the Mamba2 (``ssm``) stack and the
-jamba hybrid, whose 8-layer period stacks as one group of 16 sublayers.
+mixture-of-experts variant (``moe``), multi-head latent attention
+(``mla``) with DeepSeek's dense-prefix group and multi-token-prediction
+(``mtp``) block, the Mamba2 (``ssm``) stack and the jamba hybrid, whose
+8-layer period stacks as one group of 16 sublayers.
 The parameter tree keeps the JAX layout exactly —
 ``wq`` (d, H, hd), group keys ``g0/s0_attn/s1_mlp`` or ``g0/s0_ssm``, a
 leading ``layers`` axis on stacked groups — so weights bridged from the
@@ -96,6 +98,28 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return s
 
 
+def mla_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, H, m = cfg.d_model, cfg.num_heads, cfg.mla
+    s: Dict[str, Any] = {"norm": _norm_spec(cfg, d)}
+    if m.q_lora_rank > 0:
+        s["wq_a"] = ParamSpec((d, m.q_lora_rank), ("embed", "q_rank"))
+        s["q_norm"] = _norm_spec(cfg, m.q_lora_rank, "q_rank")
+        s["wq_b"] = ParamSpec((m.q_lora_rank, H, m.qk_head_dim),
+                              ("q_rank", "heads", "head"))
+    else:
+        s["wq"] = ParamSpec((d, H, m.qk_head_dim), ("embed", "heads", "head"))
+    # latent KV: down-projection to kv_lora_rank (+ the shared rope dims)
+    s["wkv_a"] = ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("embed", "kv_rank"))
+    s["kv_norm"] = _norm_spec(cfg, m.kv_lora_rank, "kv_rank")
+    s["wkv_b"] = ParamSpec((m.kv_lora_rank, H,
+                            m.qk_nope_head_dim + m.v_head_dim),
+                           ("kv_rank", "heads", "head"))
+    s["wo"] = ParamSpec((H, m.v_head_dim, d), ("heads", "head", "embed"),
+                        fan_in_dims=(0, 1))
+    return s
+
+
 def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Any]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     s: Dict[str, Any] = {"norm": _norm_spec(cfg, d)}
@@ -150,8 +174,8 @@ def ssm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return s
 
 
-SUBLAYER_BUILDERS = {"attn": attn_specs, "mlp": mlp_specs, "moe": moe_specs,
-                     "ssm": ssm_specs}
+SUBLAYER_BUILDERS = {"attn": attn_specs, "mla": mla_specs, "mlp": mlp_specs,
+                     "moe": moe_specs, "ssm": ssm_specs}
 # leaves drawn and kept in fp32 whatever ``param_dtype`` is
 FP32_INITS = ("ssm_a", "dt_bias")
 
@@ -172,13 +196,10 @@ class ScanGroup:
 def _layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, ...]:
     if cfg.layer_kind(i) == "ssm":
         mixer = "ssm"
-    elif cfg.attention == "gqa":
-        mixer = "attn"
+    elif cfg.attention == "mla":
+        mixer = "mla"
     else:
-        raise NotImplementedError(
-            f"{cfg.name}: layer {i} uses {cfg.attention!r} attention; the "
-            "port covers GQA attention and Mamba2 (MLA waits for the other "
-            "model families' slice)")
+        mixer = "attn"
     if cfg.layer_is_moe(i):
         return (mixer, "moe")
     if cfg.d_ff == 0:
@@ -187,18 +208,33 @@ def _layer_signature(cfg: ModelConfig, i: int) -> Tuple[str, ...]:
 
 
 def layer_groups(cfg: ModelConfig) -> List[ScanGroup]:
-    """The decoder stack as one stacked group of its repeating period."""
+    """The decoder stack as stacked groups: DeepSeek's dense prefix (the
+    first ``first_dense_layers`` layers) as a group of its own, then the
+    rest as one group of its repeating period."""
     sigs = [_layer_signature(cfg, i) for i in range(cfg.num_layers)]
+    groups: List[ScanGroup] = []
+    start = 0
+    if cfg.first_dense_layers > 0:
+        # as in the JAX package, the prefix is first_dense_layers deep
+        # even when the model has fewer layers
+        k = cfg.first_dense_layers
+        assert all(s == sigs[0] for s in sigs[:k])
+        groups.append(ScanGroup(sigs[0], k, 0))
+        start = k
+    rest = sigs[start:]
+    if not rest:
+        return groups
     period = 1
-    for p in range(1, len(sigs) + 1):
-        if len(sigs) % p == 0 and all(
-                sigs[i] == sigs[i % p] for i in range(len(sigs))):
+    for p in range(1, len(rest) + 1):
+        if len(rest) % p == 0 and all(
+                rest[i] == rest[i % p] for i in range(len(rest))):
             period = p
             break
     unit: List[str] = []
-    for sig in sigs[:period]:
+    for sig in rest[:period]:
         unit.extend(sig)
-    return [ScanGroup(tuple(unit), len(sigs) // period, 0)]
+    groups.append(ScanGroup(tuple(unit), len(rest) // period, start))
+    return groups
 
 
 def decoder_groups(cfg: ModelConfig) -> List[ScanGroup]:
@@ -244,8 +280,16 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["lm_head"] = ParamSpec((d, cfg.padded_vocab_size),
                                     ("embed", "vocab"))
     if cfg.mtp_depth > 0:
-        raise NotImplementedError(f"{cfg.name}: multi-token prediction is "
-                                  "not ported")
+        # DeepSeek's MTP modules: one block each, the last layer's mixer
+        # and a dense MLP at d_ff
+        mixer = _layer_signature(cfg, cfg.num_layers - 1)[0]
+        spec["mtp"] = {f"d{k}": {
+            "proj": ParamSpec((2 * d, d), ("mlp", "embed")),
+            "norm_prev": _norm_spec(cfg, d),
+            "norm_emb": _norm_spec(cfg, d),
+            "block": {f"s0_{mixer}": SUBLAYER_BUILDERS[mixer](cfg),
+                      "s1_mlp": mlp_specs(cfg)}}
+            for k in range(cfg.mtp_depth)}
     return spec
 
 

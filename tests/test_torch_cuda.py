@@ -4,9 +4,10 @@ kernel against the engine through the plain gather path, a train step
 through the FA-2 kernels against one through the chunked path, local SGD
 with int8-compressed sync through the kernels, Mamba2's kernel
 prefill against its oracle path and its dense decode, the MoE layer
-on the card against the CPU, and two mixtral-smoke train steps on the
-card against the same steps on the CPU.  Every test here skips without
-CUDA.
+on the card against the CPU, two mixtral-smoke train steps on the
+card against the same steps on the CPU, full-width mixtral's routes and
+gradients under remat, and deepseek-smoke's train steps and dense decode
+on the card against the CPU.  Every test here skips without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -253,22 +254,20 @@ def _width_inputs(D, Dv):
     return q, kp, vp, bt, sl
 
 
-def _width_call(D, Dv):
-    args = _width_inputs(D, Dv)
-    return lambda: flash_decode_paged(*args)
-
-
 def _profile_one_call(builder, args):
-    """[(name, launches)] of every device operation the profiler sees in
-    one call of ``builder(*args)``'s call, after a first call that builds,
-    loads and warms its kernels, and a second in the session's warm-up
-    step: the profiler can lose the records of the launches made as a
-    session starts tracing."""
+    """{"ops": [(name, launches)] of every device operation the profiler
+    sees in one call of ``builder(*args)``'s call, "kernels": the
+    flash-decode split kernel's launches by instantiation over the
+    session's two calls}, after a first call that builds, loads and warms
+    its kernels; the second call is the session's warm-up step, since the
+    profiler can lose the records of the launches made as a session
+    starts tracing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     call = globals()[builder](*args)
     call()
     torch.cuda.synchronize()
+    before = flash_decode_paged.kernels.copy()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
@@ -276,16 +275,17 @@ def _profile_one_call(builder, args):
             call()
             torch.cuda.synchronize()
             prof.step()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]
+    return {"ops": [(e.key, e.count) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")],
+            "kernels": dict(flash_decode_paged.kernels - before)}
 
 
 def profiled_kernels(builder, *args):
-    """``_profile_one_call(builder, args)`` in a fresh interpreter.  In one
-    process with these checks, `test_cuda_dq_runs_the_kernel_of_its_dtype`
-    (a one-call session without a warm-up step) has seen no kernel, so
-    each of them runs in a process of its own."""
+    """``_profile_one_call(builder, args)`` in a fresh interpreter: in one
+    process with other profiled checks, a one-call session without a
+    warm-up step has seen no kernel, so each runs in a process of its
+    own."""
     import json
     import os
     import subprocess
@@ -301,7 +301,7 @@ def profiled_kernels(builder, *args):
                          env=dict(os.environ, PYTHONPATH=os.pathsep.join(
                              p for p in path if p)))
     assert out.returncode == 0, out.stderr[-4000:]
-    return [tuple(op) for op in json.loads(out.stdout.splitlines()[-1])]
+    return json.loads(out.stdout.splitlines()[-1])
 
 
 @pytest.mark.cuda
@@ -310,14 +310,17 @@ def profiled_kernels(builder, *args):
                          ids=["decode-2048", "one-split", "chunk8-2048"])
 def test_cuda_decode_call_is_at_most_two_kernels(lens, C, cuda):
     """One flash_decode_paged call at the engine's shape (B 8, H 28, K 4,
-    D 128, bf16 pages) runs the split kernel and, with more than one
-    split, the merge kernel, and no other device operation (profiler
-    count over the call)."""
-    ops = profiled_kernels("_decode_call", list(lens), C)
-    names = [k for k, _ in ops]
+    D 128, bf16 pages) runs the split kernel (the instantiation the
+    library reports, once a call) and, with more than one split, the
+    merge kernel, and no other device operation: the profiler, which can
+    lose a launch's record but not add one, sees at most those two
+    kernels over the call and nothing else."""
+    seen = profiled_kernels("_decode_call", list(lens), C)
+    ops, ran = seen["ops"], seen["kernels"]
+    assert len(ran) == 1 and sum(ran.values()) == 2, ran
+    assert next(iter(ran)).startswith("flash_decode_split"), ran
     assert sum(c for _, c in ops) <= 2, ops
-    assert any("flash_decode_split" in k for k in names), ops
-    assert all("flash_decode" in k for k in names), ops
+    assert all("flash_decode" in k for k, _ in ops), ops
 
 
 @pytest.mark.cuda
@@ -328,17 +331,16 @@ def test_cuda_decode_call_is_at_most_two_kernels(lens, C, cuda):
 def test_cuda_bf16_pages_run_the_kernel_of_their_width(D, Dv, kernel, cuda):
     """bf16 pages with heads up to 128 wide run on the tensor-core split
     kernel (widths zero-padded to 32, 64 or 128), wider heads on the
-    CUDA-core one; both meet the fp32 bar (kernel names as the profiler
-    sees them)."""
+    CUDA-core one; both meet the fp32 bar (the instantiation the library
+    reports it launched, named as the profiler names it)."""
     q, kp, vp, bt, sl = _width_inputs(D, Dv)
+    before = flash_decode_paged.kernels.copy()
     out = flash_decode_paged(q, kp, vp, bt, sl)
+    assert flash_decode_paged.kernels - before == {kernel: 1}
     ref = paged_attention_reference(q, kp, vp, bt, sl)
     assert out.shape == (2, 3, 8, Dv)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
-    names = [k for k, _ in profiled_kernels("_width_call", D, Dv)
-             if "flash_decode_split" in k]
-    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.cuda
@@ -409,22 +411,19 @@ def test_cuda_fa2_kernels_match_plain_versions(case, dtype, cuda):
     (torch.float32, "fa_bwd_dq_kernel<float, 64, 64>")])
 def test_cuda_dq_runs_the_kernel_of_its_dtype(dtype, kernel, cuda):
     """At opt-1.3b's attention shape, bf16 dq runs on the tensor-core
-    kernel and fp32 dq on the CUDA-core one (kernel names as the profiler
-    sees them)."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel and fp32 dq on the CUDA-core one (the instantiation the
+    library reports it launched, named as the profiler names it)."""
     q, k, v, do = (torch.from_numpy(x).to(cuda, dtype).transpose(1, 2)
                    for x in fa_inputs((4, 2048, 32, 32, 64, True, 0),
                                       seed=6))
     out, lse = FK.flash_attention_fwd(q, k, v)
     delta = (do.float() * out.float()).sum(-1)
-    before = FK.flash_attention_bwd_dq.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        FK.flash_attention_bwd_dq(q, k, v, do, lse, delta)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if "fa_bwd_dq" in e.key]
-    assert FK.flash_attention_bwd_dq.launches == before + 1
-    assert len(names) == 1 and kernel in names[0], names
+    before = (FK.flash_attention_bwd_dq.launches,
+              FK.flash_attention_bwd_dq.kernels.copy())
+    FK.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_bwd_dq.launches == before[0] + 1
+    assert FK.flash_attention_bwd_dq.kernels - before[1] == {kernel: 1}
 
 
 @pytest.mark.cuda
@@ -724,3 +723,123 @@ def test_cuda_mixtral_smoke_train_steps_equal_the_cpu(cuda):
         assert gg == pytest.approx(cg, rel=1e-4)
     for a, b in zip(gp, cp):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_mixtral_remat_recomputes_the_forward_routes(cuda, monkeypatch):
+    """mixtral-8x7b at full width and 2 layers in bf16 (1 x 2048 tokens):
+    with remat "full" the backward's recompute of each layer routes every
+    token to the experts the forward chose (a spy on ``dispatch_plan``),
+    and the gradients equal remat "none"'s within one bf16 rounding of
+    each leaf's largest gradient."""
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2)
+    params = init_params(cfg, device=cuda, seed=0)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             next(make_batch_fn(cfg, 1, 2048, seed=0)).items()}
+    routes = []
+    plan = moe.dispatch_plan
+
+    def spy(top_i, C, E):
+        routes.append(top_i.clone())
+        return plan(top_i, C, E)
+    monkeypatch.setattr(moe, "dispatch_plan", spy)
+    grads = {}
+    for remat in ("none", "full"):
+        routes.clear()
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = M.forward_train(params, cfg, batch, remat=remat,
+                                  attn_impl="kernel")
+        forward = list(routes)
+        grads[remat] = torch.autograd.grad(loss, leaves)
+        recompute = routes[len(forward):]
+        assert len(forward) == cfg.num_layers
+        if remat == "none":
+            assert not recompute
+            continue
+        assert len(recompute) == cfg.num_layers
+        # non-reentrant checkpoints recompute the last layer first
+        for fwd, again in zip(forward, reversed(recompute)):
+            assert torch.equal(fwd, again)
+    for a, b in zip(grads["full"], grads["none"]):
+        assert bool(torch.isfinite(a).all())
+        bound = 2.0 ** -7 * float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= bound
+
+
+def _deepseek_smoke_fp32():
+    return dataclasses.replace(get_config("deepseek-v3-671b-smoke"),
+                               param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_smoke_train_steps_equal_the_cpu(cuda):
+    """Two train steps of deepseek-v3-671b-smoke (fp32: MLA through the
+    FA-2 kernels at (96, 64) in the trunk and the MTP block, the dense
+    prefix, 4 experts top-2 with a shared one) on the card against the
+    same steps on the CPU: losses with the MTP loss, grad norms and the
+    parameters after them."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    cfg = _deepseek_smoke_fp32()
+    ocfg = adamw.OptConfig(learning_rate=1e-3, warmup_steps=1,
+                           decay_steps=4, eps=1e-3)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 49)))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda a: a.to(dev),
+                          init_params(cfg, device="cpu", seed=0))
+        state = adamw.init_opt_state(params, ocfg)
+        step = make_train_step(cfg, ocfg, attn_impl="kernel")
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        before = FK.flash_attention_bwd_dkdv.kernels.copy()
+        mets = []
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+            mets.append((float(m["loss"]), float(m["mtp_loss"]),
+                         float(m["grad_norm"])))
+        launched = FK.flash_attention_bwd_dkdv.kernels - before
+        out[str(dev)] = (mets, [p.detach().cpu() for p in
+                                tree_leaves(params)], launched)
+    (cm, cp, cl), (gm, gp, gl) = out["cpu"], out[str(cuda)]
+    # the trunk's layers and the MTP block, each step
+    assert not cl and gl == {"fa_bwd_dkdv_kernel<float, 96, 64>":
+                             2 * (cfg.num_layers + cfg.mtp_depth)}
+    for (cl_, cmtp, cg), (gl_, gmtp, gg) in zip(cm, gm):
+        assert gl_ == pytest.approx(cl_, rel=1e-5)
+        assert gmtp == pytest.approx(cmtp, rel=1e-5)
+        assert gg == pytest.approx(cg, rel=1e-4)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_smoke_dense_decode_equals_the_cpu(cuda):
+    """greedy_generate of deepseek-v3-671b-smoke over the absorbed latent
+    cache (fp32) on the card: the CPU's ids, and the last step's logits
+    within 1e-4 of the CPU's."""
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.step import greedy_generate
+    cfg = _deepseek_smoke_fp32()
+    prompt = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (3, 9)))
+    got = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda a: a.to(dev),
+                          init_params(cfg, device="cpu", seed=0))
+        ids = greedy_generate(params, cfg, prompt.to(dev), 7)
+        cache = M.init_cache(cfg, 3, 16, torch.float32, dev)
+        with torch.no_grad():
+            for i in range(ids.shape[1]):
+                logits, cache = M.decode_step(params, cfg, cache,
+                                              ids[:, i:i + 1], i)
+        got[str(dev)] = (ids.cpu(), logits.cpu())
+    (ci, cl), (gi, gl) = got["cpu"], got[str(cuda)]
+    assert torch.equal(gi, ci)
+    torch.testing.assert_close(gl, cl, rtol=1e-4, atol=1e-4)

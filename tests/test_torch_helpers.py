@@ -59,10 +59,21 @@ def test_config_copies_agree(arch, patch):
     assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
 
 
+# the published configs' parameter counts, total and active a token
+FULL_COUNTS = {"deepseek-v3-671b": (671_712_662_528, 38_135_436_288),
+               "granite-3-2b": (2_533_787_648, 2_533_787_648),
+               "qwen1.5-32b": (35_197_096_960, 35_197_096_960),
+               "llama3-405b": (405_853_388_800, 405_853_388_800)}
+
+
 @pytest.mark.parametrize("arch", ["qwen2-7b", "opt-125m", "opt-1.3b",
-                                  "mixtral-8x7b", "jamba-v0.1-52b"])
+                                  "mixtral-8x7b", "jamba-v0.1-52b",
+                                  *FULL_COUNTS])
 def test_full_configs_and_param_counts_agree(arch):
     jcfg, tcfg = jax_config(arch), torch_config(arch)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     assert tcfg.param_count() == jcfg.param_count()
     assert tcfg.active_param_count() == jcfg.active_param_count()
+    if arch in FULL_COUNTS:
+        assert (tcfg.param_count(), tcfg.active_param_count()) == \
+            FULL_COUNTS[arch]

@@ -128,3 +128,35 @@ def test_every_c_launcher_is_checked():
         ["quant8_quantize_launch", "quant8_dequantize_launch",
          "flash_decode_paged_launch", "fa_fwd_launch", "fa_bwd_dq_launch",
          "fa_bwd_dkdv_launch", "ssd_scan_launch"])
+
+
+def c_reporters():
+    """[(source, name)] of every ``extern "C" const char*`` function in
+    ``csrc/*.cu``: the reports of the instantiation a library last
+    launched, which take no argument."""
+    return [(path.name, name) for path in sorted(CSRC.glob("*.cu"))
+            for name in re.findall(
+                r'extern "C" const char\* (\w+)\(\)\s*\{', path.read_text())]
+
+
+REPORTERS = c_reporters()
+
+
+@pytest.mark.parametrize("source,name", REPORTERS,
+                         ids=[n for _, n in REPORTERS])
+def test_ctypes_reads_each_instantiation_report_as_a_string(
+        source, name, monkeypatch):
+    """Each report's wrapper takes no argument and reads a C string: a
+    pointer read as the default int restype would be cut to 32 bits."""
+    fn = _wrapper_entry_points(monkeypatch).get(name)
+    assert fn is not None, f"no wrapper sets restype for {source}::{name}"
+    assert fn.argtypes == [] and fn.restype is ctypes.c_char_p
+
+
+def test_every_library_with_a_kernel_of_two_instantiations_reports():
+    """The FA-2 and flash-decode libraries, whose launchers pick one of
+    several instantiations, each report the one they launched."""
+    assert sorted(REPORTERS) == [
+        ("flash_attn_bwd.cu", "fa_bwd_last_kernel"),
+        ("flash_attn_fwd.cu", "fa_fwd_last_kernel"),
+        ("flash_decode.cu", "flash_decode_last_kernel")]

@@ -74,8 +74,13 @@ def test_package_imports_with_jax_blocked():
         .removesuffix(".__init__") for p in PORT.rglob("*.py"))
     # every module of the port, the newest slices' included
     for m in ("repro_torch.models.moe", "repro_torch.models.mamba2",
+              "repro_torch.models.mla",
               "repro_torch.configs.mixtral_8x7b",
-              "repro_torch.configs.jamba_v01_52b"):
+              "repro_torch.configs.jamba_v01_52b",
+              "repro_torch.configs.deepseek_v3_671b",
+              "repro_torch.configs.granite_3_2b",
+              "repro_torch.configs.qwen15_32b",
+              "repro_torch.configs.llama3_405b"):
         assert m in mods, m
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\nimport importlib\n"

@@ -95,14 +95,14 @@ def test_prefill_and_serve_step_match_the_model_functions():
 def test_dense_decode_refuses_unported_sublayers():
     _, tcfg = configs("qwen2-7b", num_kv_heads=2)
     from repro_torch.models import blocks
-    with pytest.raises(NotImplementedError, match="other model families"):
-        blocks.init_sublayer_cache("mla", tcfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="other model families"):
+    with pytest.raises(NotImplementedError, match="Whisper"):
+        blocks.init_sublayer_cache("xattn", tcfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="Whisper"):
         blocks._sublayer_decode("xattn", {}, torch.zeros(1, 1, 4), {},
                                 tcfg, {})
-    mla = dataclasses.replace(tcfg, attention="mla")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TM.P.model_spec(mla)
+    encdec = dataclasses.replace(tcfg, is_encoder_decoder=True)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        TM.P.model_spec(encdec)
 
 
 @pytest.mark.parametrize("argv,expect", [
