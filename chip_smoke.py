@@ -14,8 +14,9 @@ Phases (any failure exits nonzero):
    sliding window — check that one call issues the split and merge
    kernels and no other device operation, and time the whole call
    (``ms``), its kernels alone (``device_ms``, torch.profiler), the plain
-   version, SDPA over the gathered K/V, and the HBM bound, there and at
-   granite-3-2b's attention (H 32, K 8, D 64);
+   version, SDPA over the gathered K/V, and the HBM bound, there, at
+   granite-3-2b's attention (H 32, K 8, D 64) and at qwen2-vl-2b's (H 12,
+   K 2, D 128: group 6);
 2. serve qwen2-7b at full width and depth in bf16 (random weights from a
    seed) through ``ServeEngine`` with the kernel, check that every request
    completes and that every attention layer of every step launched the
@@ -30,8 +31,12 @@ Phases (any failure exits nonzero):
    dq + dk/dv pair) and the bound at opt-1.3b's shape, at mixtral's
    1 x 8192 tokens with the 4096 window and at deepseek-v3-671b's
    training attention (1 x 2048 tokens, 128 heads at (192, 128)), the
-   last two also held to their plain versions in bf16; the bf16 forward,
-   dq and dk/dv must
+   last two also held to their plain versions in bf16, and at three
+   shapes held in fp32 and bf16 first: whisper-medium's encoder (8 x
+   1500 frames, 16 heads x 64, non-causal), its cross-attention (8 x 448
+   queries over 1500 keys, non-causal) and qwen2-vl-2b's training
+   attention (2 x 4096 tokens, GQA 12/2 at D 128, causal); the bf16
+   forward, dq and dk/dv must
    execute more than the fp32 CUDA cores' 67 TFLOP/s (they run on the
    tensor cores);
 4. train opt-1.3b at full width and depth in bf16 (4 x 2048 tokens, random
@@ -127,7 +132,34 @@ Phases (any failure exits nonzero):
    vocab 49155): 8 train steps of 2 x 2048 tokens, then phase 2's engine
    and requests with flash-decode's tensor-core split kernel at width 64
    launched by every layer every step, no padded vocab id chosen, and
-   the mixed step kernel vs gather in fp32.
+   the mixed step kernel vs gather in fp32;
+17. whisper-medium at full width and depth (24 encoder + 24 decoder
+   layers, 16 heads x 64, d 1024), bf16: (a) 8 train steps of 8 x (1500
+   frames, 448 tokens) through ``repro_torch.train.trainer.train``, each
+   FA-2 kernel launched 72 times a step (24 encoder layers non-causal,
+   24 decoder self-attention layers causal, 24 cross-attention layers
+   non-causal with S 448 over T 1500), the loss falling, peak memory, a
+   profiled step by kind, and MFU by a FLOP count this phase states
+   (``core/flops.py`` counts neither the encoder's frames nor the
+   cross-attention); (b) ``forward_logits`` over the same shape through
+   the FA-2 forward, with the encoder's layer 0 attention and the
+   decoder's layer 0 cross-attention held to ``attention_fwd_plain`` at
+   phase 3's bf16 bar; (c) the serve launcher's dense path:
+   ``encoder_forward``, the warmed cross cache, ``greedy_generate`` of 8
+   x (64 + 32) tokens; (d) at fp32 compute over 2 x 160 tokens,
+   ``decode_step`` against the warmed cache equal to the kernel prefill,
+   and the legacy ``enc=`` path equal to the warmed one, at phase 9's bar;
+18. qwen2-vl-2b at full width and depth (28 layers, GQA 12/2 at D 128,
+   M-RoPE), bf16: (a) 8 train steps of 2 x 4096 tokens (1024 vision
+   embeddings + 3072 text tokens, the vision labels masked) through the
+   trainer, each FA-2 kernel launched 28 times a step at group 6, then
+   one step split into 2 microbatches, whose loss must equal the whole
+   batch's at phase 4's bf16 bar; (b) ``forward_logits`` over 2 x 4096
+   with the vision prefix and distinct M-RoPE streams ((t, h, w) on a 32
+   x 32 grid, the text after it), with layer 0's rotated q and k held
+   to the CPU's ``apply_mrope`` of the same tensors in fp32; (c) phase
+   2's engine and requests, flash-decode at (12, 2, 128) launched by
+   every layer every step, and the mixed step kernel vs gather in fp32.
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -278,6 +310,29 @@ DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN, DEEPSEEK_TRAIN_STEPS = 3, (1, 2048), 4
 # width), where phase 1 also times flash-decode
 GRANITE_TRAIN, GRANITE_TRAIN_STEPS = (2, 2048), 8
 GRANITE_DECODE = (32, 8, 64)
+# whisper-medium's attention (phase 17), timed in phase 3 and held there
+# in fp32 and bf16: the encoder's self-attention over 8 x 1500 frames and
+# the decoder's cross-attention, 448 queries over the 1500 frames, both
+# non-causal with 16 heads x 64
+WHISPER_FA = (8, 1500, 16, 16, 64, False, 0)
+WHISPER_XFA = (8, 448, 16, 16, 64, False, 0, 1500)
+# phase 17: whisper-medium at full width and depth (812,003,328 params:
+# bf16 weights and gradients 3.2 GB, fp32 moments 6.5 GB).  A train step
+# (batch, decoder tokens, steps; each row also carries 1500 frames);
+# dense decode (batch, prompt, new: within the 448 learned positions);
+# decode-vs-prefill agreement at fp32 compute (batch, tokens)
+WHISPER_TRAIN, WHISPER_TRAIN_STEPS = (8, 448), 8
+WHISPER_DECODE, WHISPER_AGREE = (8, 64, 32), (2, 160)
+# qwen2-vl-2b's training attention (phase 18: 2 x 4096 tokens, GQA 12/2,
+# D 128, causal), timed in phase 3 and held there in fp32 and bf16, and
+# its decode attention (query heads, KV heads, width), where phase 1 also
+# times flash-decode
+QWEN2VL_FA = (2, 4096, 12, 2, 128, True, 0)
+QWEN2VL_DECODE = (12, 2, 128)
+# phase 18: qwen2-vl-2b at full width and depth (1,543,714,304 params):
+# train (batch, tokens, steps: vlm_split(4096) = 1024 vision embeddings +
+# 3072 text tokens), and the prefill's vision grid (32 x 32 patches)
+QWEN2VL_TRAIN, QWEN2VL_TRAIN_STEPS, QWEN2VL_GRID = (2, 4096), 8, 32
 # the kernels a call launches, by a part of each name: flash-decode's
 # split kernel, and its merge kernel when a call has more than one split;
 # the SSD scan's three when s spans more than one chunk
@@ -462,7 +517,10 @@ def phase_kernel(torch, device, timer):
     timing = time_decode(torch, device, timer, (H, K, D), "qwen2-7b")
     timing["granite"] = time_decode(torch, device, timer, GRANITE_DECODE,
                                     "granite-3-2b")
+    timing["qwen2_vl"] = time_decode(torch, device, timer, QWEN2VL_DECODE,
+                                     "qwen2-vl-2b")
     worst = max(worst, timing["granite"].pop("max_abs_err"),
+                timing["qwen2_vl"].pop("max_abs_err"),
                 timing.pop("max_abs_err"))
 
     # an engine-shaped chunked-prefill call: 8 slots, C=8, ~128 tokens
@@ -809,7 +867,8 @@ def fa_work(case, q, k, v, do):
 def phase_fa(torch, device, timer):
     from repro_torch.kernels.flash_attention import kernel as FK
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
-    for i, case in enumerate(FA_CASES + [OPT_FA]):
+    for i, case in enumerate(FA_CASES + [OPT_FA, WHISPER_FA, WHISPER_XFA,
+                                         QWEN2VL_FA]):
         causal, window = case[5], case[6]
         kw = dict(causal=causal, window=window)
         for dt in ("float32", "bfloat16"):
@@ -855,6 +914,12 @@ def phase_fa(torch, device, timer):
                                 "mixtral-8x7b train", worst, hold=True)
     timing["deepseek"] = time_fa(torch, device, timer, DEEPSEEK_FA,
                                  "deepseek-v3-671b train", worst, hold=True)
+    timing["whisper"] = time_fa(torch, device, timer, WHISPER_FA,
+                                "whisper-medium encoder", worst)
+    timing["whisper_cross"] = time_fa(torch, device, timer, WHISPER_XFA,
+                                      "whisper-medium cross-attention", worst)
+    timing["qwen2_vl"] = time_fa(torch, device, timer, QWEN2VL_FA,
+                                 "qwen2-vl-2b train", worst)
     margins = {k: e / b for k, (e, b) in timing["deepseek"]["held"].items()}
     log("bf16 kernels vs plain at deepseek-v3-671b's training attention "
         f"{DEEPSEEK_FA}: error / bound " + ", ".join(
@@ -876,6 +941,7 @@ def time_fa(torch, device, timer, case, label, worst, hold=False):
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import visible
     S, Hc, Kc = case[1:4]
+    T = fa_widths(case)[0]
     kw = dict(causal=case[5], window=case[6])
     q, k, v, do = fa_tensors(torch, case, torch.bfloat16, device, seed=99)
     out, lse = FK.flash_attention_fwd(q, k, v, **kw)
@@ -914,8 +980,8 @@ def time_fa(torch, device, timer, case, label, worst, hold=False):
     # SDPA: the window as a boolean mask, over K/V repeated to every
     # query head outside the timed call
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = dict(attn_mask=visible(S, S, device=device, **kw)) if case[6] \
-        else dict(is_causal=True)
+    lib = (dict(attn_mask=visible(S, T, device=device, **kw)) if case[6]
+           else dict(is_causal=True) if case[5] else {})
     kx, vx = (t.repeat_interleave(Hc // Kc, dim=1) for t in (k, v))
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, kx, vx))
     sdpa_out = sdpa(qg, kg, vg, **lib)
@@ -2288,9 +2354,7 @@ def decode_vs_prefill(torch, M, params, cfg, toks):
     same = all(torch.equal(
         moe_routes(torch, pre[j:j + 1], Bc, Sc),
         moe_routes(torch, calls[j::n_moe], Bc, Sc)) for j in range(n_moe))
-    scale = max(1.0, float(full.abs().max()))
-    diff = float((dec - full).abs().max())
-    excess = float(((dec - full).abs() - 2e-3 * full.abs()).max())
+    diff, excess, scale = excess_over(torch, dec, full)
     del cache, dec, full
     torch.cuda.empty_cache()
     return diff, excess, scale, same
@@ -2891,6 +2955,563 @@ def phase_granite(torch, np, device):
     return train_launches, launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 17: whisper-medium at full width and depth
+# --------------------------------------------------------------------------- #
+
+def whisper_flops(cfg, B, frames, tokens):
+    """(forward FLOPs, the attention's share) of whisper over B rows of
+    ``frames`` encoder frames and ``tokens`` decoder tokens: 2 x params x
+    the positions each multiplies (the encoder's and the cross-attention's
+    K/V projections x frames, every other parameter x tokens, the tied
+    head's included), plus 2 x S x T x H x (D + Dv) a row for each
+    attention layer (the encoder's non-causal S = T = frames, the decoder's
+    causal S = T = tokens halved, the cross-attention's S = tokens over T =
+    frames)."""
+    from repro_torch.bridge import flatten
+    from repro_torch.models.params import model_spec
+    by_frames = by_tokens = 0
+    for key, spec in flatten(model_spec(cfg)):
+        cross_kv = "['s1_xattn']" in key and key.endswith(
+            ("['wk']", "['wv']", "['bk']", "['bv']"))
+        if key.startswith("['encoder']") or cross_kv:
+            by_frames += spec.size()
+        else:
+            by_tokens += spec.size()
+    hd = cfg.resolved_head_dim
+    per_pair = 2 * cfg.num_heads * 2 * hd
+    attn = B * per_pair * (cfg.encoder_layers * frames * frames
+                           + cfg.num_layers * tokens * tokens / 2
+                           + cfg.num_layers * tokens * frames)
+    fwd = 2 * B * (by_frames * frames + by_tokens * tokens) + attn
+    return fwd, attn
+
+
+def capture_attention(torch, TL, fn, keep):
+    """Run ``fn`` with ``layers.run_attention`` spied on: returns [(q, k,
+    v, causal)] of the calls whose index is in ``keep``."""
+    seen, real = [], TL.run_attention
+
+    def spy(q, k, v, **kw):
+        if len(seen) in keep:
+            seen.append((q, k, v, kw.get("causal")))
+        else:
+            seen.append(None)
+        return real(q, k, v, **kw)
+    TL.run_attention = spy
+    try:
+        fn()
+    finally:
+        TL.run_attention = real
+    return [c for c in seen if c is not None], len(seen)
+
+
+def attention_held(torch, q, k, v, causal):
+    """The FA-2 forward against ``attention_fwd_plain`` on (B, S, H, D)
+    views, at phase 3's bf16 bars: (out error, bound, lse error, bound)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.inference_mode():
+        out, lse = FK.flash_attention_fwd(q, k, v, causal=causal)
+        ref, ref_lse = FK.attention_fwd_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail("non-finite FA-2 output in a whisper layer 0 check")
+    tol = FA_TOL["bfloat16"]
+    err = float((out.float() - ref.float()).abs().max())
+    bound = tol["out"] * max(1.0, float(ref.float().abs().max()))
+    lse_err = float((lse - ref_lse).abs().max())
+    lse_bound = tol["lse"] * max(1.0, float(ref_lse.abs().max()))
+    return err, bound, lse_err, lse_bound
+
+
+def excess_over(torch, got, want):
+    """(largest |diff|, largest |diff| - 2e-3 |want|, max(1, largest
+    |want|)): phase 9's decode-vs-prefill measure."""
+    d = (got - want).abs()
+    return (float(d.max()), float((d - 2e-3 * want.abs()).max()),
+            max(1.0, float(want.abs().max())))
+
+
+def phase_whisper(torch, np, device):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.serve.step import greedy_generate
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    cfg = get_config("whisper-medium")
+    Bt, St = WHISPER_TRAIN
+    Se = cfg.encoder_seq_len
+    steps = WHISPER_TRAIN_STEPS
+    per_step = cfg.encoder_layers + 2 * cfg.num_layers
+    log(f"whisper-medium full width and depth: {cfg.encoder_layers} encoder "
+        f"+ {cfg.num_layers} decoder layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab_size}), "
+        f"{Se} encoder frames, {cfg.max_target_positions} learned decoder "
+        f"positions; {cfg.param_count():,} params")
+    parts = {}
+    t0 = time.perf_counter()
+
+    # (a) training: bf16 weights, fp32 moments, lr as phase 11's
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv)
+    opt_cfg = adamw.OptConfig(learning_rate=2e-5, warmup_steps=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    before = [f.kernels.copy() for f in kernels]
+    res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
+                                   attn_impl="kernel", log_every=1, seed=0),
+                opt_cfg, device=device)
+    launches = {f.__name__: f.launches for f in kernels}
+    ran = {f.__name__: dict(f.kernels - b) for f, b in zip(kernels, before)}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = 1.0 / res.steady_steps_per_s
+    fwd, attn = whisper_flops(cfg, Bt, Se, St)
+    tflops = 3 * fwd / step_s / 1e12
+    log(f"whisper train: losses {[round(x, 4) for x in res.losses]}; first "
+        f"step {res.compile_time_s:.3f} s; then {1e3 * step_s:.1f} ms a step, "
+        f"{Bt * St / step_s:.0f} decoder tokens/s ({Bt * Se / step_s:.0f} "
+        f"encoder frames/s); this phase's FLOP count 3 x {fwd:.4e} (the "
+        f"attention {attn:.4e} of it) / step time = {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.1f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s (core/flops.py's train_flops, "
+        f"{F.train_flops(cfg, Bt, St, remat=False):.4e}, multiplies every "
+        f"parameter by the decoder tokens alone and counts neither the "
+        f"encoder's frames nor the cross-attention); peak memory "
+        f"{peak / 1e9:.2f} GB")
+    n = per_step * steps
+    log(f"whisper train FA-2 launches {launches} ({ran}), expected "
+        f"{per_step} a step ({cfg.encoder_layers} encoder, {cfg.num_layers} "
+        f"decoder and {cfg.num_layers} cross-attention layers) x {steps} "
+        f"steps = {n} each")
+    if len(res.losses) != steps or not all(np.isfinite(res.losses)):
+        fail(f"whisper train: non-finite or missing losses {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"whisper train: the loss did not fall over {steps} steps: "
+             f"{res.losses}")
+    if any(v != n for v in launches.values()) or any(
+            len(r) != 1 or not next(iter(r)).endswith("<64, 64>")
+            for r in ran.values()):
+        fail(f"whisper train: FA-2 kernel launches {launches} ({ran}) != "
+             f"{n} each at (64, 64)")
+    del res
+    torch.cuda.empty_cache()
+    parts["trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # one profiled step by kind (the timed steps are not profiled)
+    params = init_params(cfg, device=device, seed=0)
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             next(make_batch_fn(cfg, Bt, St, seed=0)).items()}
+    step_fn = make_train_step(cfg, opt_cfg, attn_impl="kernel")
+    step_fn(params, opt_state, batch)                       # warm
+    profile_train_step(torch, lambda: step_fn(params, opt_state, batch),
+                       1e3 * step_s)
+    # the step without the data pipeline, and the pipeline alone (the
+    # audio stub draws B x 1500 x d normals in numpy for every batch)
+    fixed_ms, _ = wall_ms(torch, lambda: step_fn(params, opt_state, batch),
+                          3)
+    data = make_batch_fn(cfg, Bt, St, seed=1)
+    t1 = time.perf_counter()
+    next(data)
+    data_ms = 1e3 * (time.perf_counter() - t1)
+    log(f"whisper: a step on one fixed batch {fixed_ms:.1f} ms (median of "
+        f"3) against the trainer's {1e3 * step_s:.1f} ms; make_batch_fn's "
+        f"next batch {data_ms:.1f} ms on the host")
+    del opt_state, step_fn, data
+    params = init_params(cfg, device=device, seed=0)
+    torch.cuda.empty_cache()
+    parts["profiled step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (b) prefill over the same shape through the FA-2 forward
+    prefill_batch = {"tokens": batch["tokens"], "frames": batch["frames"]}
+
+    def prefill():
+        with torch.inference_mode():
+            return M.forward_logits(params, cfg, prefill_batch,
+                                    attn_impl="kernel")
+    prefill()                                                # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention_fwd.launches = 0
+    logits = prefill()
+    torch.cuda.synchronize()
+    fa_launches = FK.flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (Bt, St, cfg.padded_vocab_size) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        fail(f"whisper prefill logits malformed: {tuple(logits.shape)}")
+    if fa_launches != per_step:
+        fail(f"a whisper prefill launched the FA-2 forward {fa_launches} "
+             f"times, not {per_step}")
+    del logits
+    ms, times = wall_ms(torch, prefill, 5)
+    tflops = fwd / (ms / 1e3) / 1e12
+    log(f"whisper prefill {Bt} x ({Se} frames, {St} tokens), bf16, FA-2 "
+        f"forward x {fa_launches}: {ms:.2f} ms a forward (median of 5; "
+        f"{', '.join(f'{x:.2f}' for x in times)}), "
+        f"{Bt * St / (ms / 1e3):,.0f} decoder tokens/s; {fwd:.4e} FLOP / "
+        f"time = {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    profile_fn(torch, prefill, ms, 1, "fa_fwd_tc", unit="forward")
+    # the encoder's layer 0 attention is the first call, the decoder's
+    # layer 0 cross-attention comes after the encoder and the decoder's
+    # layer 0 self-attention
+    xcall = cfg.encoder_layers + 1
+    calls, total = capture_attention(torch, TL, prefill, {0, xcall})
+    if total != per_step or [c[3] for c in calls] != [False, False] or \
+            calls[1][1].shape[1] != Se or calls[1][0].shape[1] != St:
+        fail(f"whisper prefill: the attention calls were not as expected "
+             f"({total} calls)")
+    for (q, k, v, causal), label in zip(calls, ("encoder layer 0",
+                                                "cross-attention layer 0")):
+        err, bound, lse_err, lse_bound = attention_held(torch, q, k, v,
+                                                        causal)
+        log(f"whisper {label} attention at the prefill's q/k/v (q "
+            f"{tuple(q.shape)}, k/v {tuple(k.shape)}, non-causal) against "
+            f"attention_fwd_plain: out max_abs_err {err:.3e} (bound "
+            f"{bound:.3e}), lse {lse_err:.3e} (bound {lse_bound:.3e})")
+        if err > bound or lse_err > lse_bound:
+            fail(f"whisper {label}: FA-2 forward disagrees with its plain "
+                 f"version: out {err} > {bound} or lse {lse_err} > "
+                 f"{lse_bound}")
+    del calls, q, k, v
+    torch.cuda.empty_cache()
+    parts["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (c) the serve launcher's dense path: the encoder over seeded frames,
+    # the warmed cross cache, greedy decoding
+    Bd, Sd, new = WHISPER_DECODE
+    rs = np.random.RandomState(0)
+    prompt = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bd, Sd))
+                              ).to(device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    frames = torch.randn((Bd, Se, cfg.d_model), generator=gen, device=device)
+    enc = None
+
+    def encode():
+        nonlocal enc
+        with torch.inference_mode():
+            enc = M.encoder_forward(params, cfg, frames, {})
+    encode()                                                 # warm
+    enc_ms, _ = wall_ms(torch, encode, 3)
+    greedy_generate(params, cfg, prompt, 2, cache_len=Sd + new, enc=enc)
+    out = None
+
+    def generate():
+        nonlocal out
+        out = greedy_generate(params, cfg, prompt, new, enc=enc)
+    gen_ms, _ = wall_ms(torch, generate, 1)
+    dsteps = Sd + new - 1
+    if tuple(out.shape) != (Bd, Sd + new) or int(out.max()) >= \
+            cfg.vocab_size or not torch.equal(out[:, :Sd], prompt):
+        fail(f"whisper greedy_generate output malformed: {tuple(out.shape)}")
+    log(f"whisper serve: encoder_forward over {Bd} x {Se} frames {enc_ms:.2f} "
+        f"ms (median of 3); greedy_generate {Bd} x ({Sd} prompt + {new} new) "
+        f"tokens against the warmed cross cache: {gen_ms:.1f} ms, {dsteps} "
+        f"decode steps, {gen_ms / dsteps:.3f} ms a step, "
+        f"{Bd * new / (gen_ms / 1e3):.1f} new tokens/s; every id < "
+        f"{cfg.vocab_size}")
+    del enc, frames
+    parts["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (d) at fp32 compute (the bf16 weights cast op by op): decode_step
+    # against the warmed cache = the kernel prefill, and the legacy path
+    # that re-projects the encoder output every step = the warmed one
+    Bc, Sc = WHISPER_AGREE
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (Bc, Sc))
+                            ).to(device)
+    frames = torch.randn((Bc, Se, cfg.d_model), generator=gen,
+                         device=device)
+    live = slice(0, cfg.vocab_size)
+    with torch.inference_mode():
+        full = M.forward_logits(params, cfg32, {"tokens": toks,
+                                                "frames": frames},
+                                attn_impl="kernel")[..., live]
+        enc = M.encoder_forward(params, cfg32, frames,
+                                {"attn_impl": "kernel"})
+        warmed = M.warm_cross_cache(params, cfg32, M.init_cache(
+            cfg32, Bc, Sc, torch.float32, device), enc)
+        legacy = M.init_cache(cfg32, Bc, Sc, torch.float32, device)
+        outs = {"warmed": [], "legacy": []}
+        for i in range(Sc):
+            lg, warmed = M.decode_step(params, cfg32, warmed,
+                                       toks[:, i:i + 1], i)
+            outs["warmed"].append(lg[..., live])
+            lg, legacy = M.decode_step(params, cfg32, legacy,
+                                       toks[:, i:i + 1], i, enc=enc)
+            outs["legacy"].append(lg[..., live])
+        dec = {k: torch.stack(v, dim=1) for k, v in outs.items()}
+    checks = {"warmed decode vs the kernel prefill":
+              excess_over(torch, dec["warmed"], full),
+              "legacy decode vs the warmed decode":
+              excess_over(torch, dec["legacy"], dec["warmed"])}
+    for label, (diff, excess, scale) in checks.items():
+        log(f"whisper {label}, {Bc} x {Sc} tokens, fp32 compute: "
+            f"max_abs_diff {diff:.3e}; largest |diff| - 2e-3 |logit| = "
+            f"{excess:.3e} (bound atol 2e-4 x largest |logit| {scale:.3f} = "
+            f"{2e-4 * scale:.3e})")
+        if not excess <= 2e-4 * scale:
+            fail(f"whisper {label} disagree")
+    del full, dec, outs, warmed, legacy, enc, params
+    torch.cuda.empty_cache()
+    parts["decode = prefill"] = time.perf_counter() - t0
+    log("phase 17 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return launches, fa_launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 18: qwen2-vl-2b at full width and depth
+# --------------------------------------------------------------------------- #
+
+def mrope_grid_positions(np, B, grid, St):
+    """(3, B, grid * grid + St) position ids with distinct streams: the
+    vision tokens at (t, h, w) = (0, row, column) on a grid x grid patch
+    grid, the text after the largest of them with t = h = w."""
+    Sv = grid * grid
+    idx = np.arange(Sv)
+    vis = np.stack([np.zeros(Sv), idx // grid, idx % grid])
+    text = np.broadcast_to(grid + np.arange(St), (3, St))
+    pos = np.concatenate([vis, text], axis=1).astype(np.int32)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None],
+                                                (3, B, Sv + St)))
+
+
+def phase_qwen2_vl(torch, np, device):
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.specs import vlm_split
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    cfg = get_config("qwen2-vl-2b")
+    Bt, St = QWEN2VL_TRAIN
+    Sv, Stext = vlm_split(St)
+    steps = QWEN2VL_TRAIN_STEPS
+    hd = cfg.resolved_head_dim
+    log(f"qwen2-vl-2b full width and depth: {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads x {hd} over "
+        f"{cfg.num_kv_heads} KV heads (group "
+        f"{cfg.num_heads // cfg.num_kv_heads}), M-RoPE sections "
+        f"{cfg.mrope_sections}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"(padded {cfg.padded_vocab_size}), tied head; "
+        f"{cfg.param_count():,} params; {Bt} x {St} tokens a step "
+        f"({Sv} vision embeddings + {Stext} text tokens a row)")
+    parts = {}
+    t0 = time.perf_counter()
+
+    # (a) training, bf16 weights, fp32 moments, lr as phase 11's
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv)
+    opt_cfg = adamw.OptConfig(learning_rate=2e-5, warmup_steps=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    before = [f.kernels.copy() for f in kernels]
+    res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
+                                   attn_impl="kernel", log_every=1, seed=0),
+                opt_cfg, device=device)
+    launches = {f.__name__: f.launches for f in kernels}
+    ran = {f.__name__: dict(f.kernels - b) for f, b in zip(kernels, before)}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = 1.0 / res.steady_steps_per_s
+    flops = F.train_flops(cfg, Bt, St, remat=False)
+    tflops = flops / step_s / 1e12
+    log(f"qwen2-vl train: losses {[round(x, 4) for x in res.losses]}; first "
+        f"step {res.compile_time_s:.3f} s; then {1e3 * step_s:.1f} ms a step, "
+        f"{Bt * St / step_s:.0f} tokens/s; train_flops {flops:.4e} / step "
+        f"time = {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / BF16_FLOP_PER_S:.1f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    n = cfg.num_layers * steps
+    log(f"qwen2-vl train FA-2 launches {launches} ({ran}), expected "
+        f"{cfg.num_layers} x {steps} = {n} each")
+    if len(res.losses) != steps or not all(np.isfinite(res.losses)):
+        fail(f"qwen2-vl train: non-finite or missing losses {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"qwen2-vl train: the loss did not fall over {steps} steps: "
+             f"{res.losses}")
+    if any(v != n for v in launches.values()) or any(
+            len(r) != 1 or not next(iter(r)).endswith(f"<{hd}, {hd}>")
+            for r in ran.values()):
+        fail(f"qwen2-vl train: FA-2 kernel launches {launches} ({ran}) != "
+             f"{n} each at ({hd}, {hd})")
+    del res
+    torch.cuda.empty_cache()
+    parts["trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # one step split into 2 microbatches: M-RoPE positions (3, B, S) split
+    # on their batch axis; its mean loss against the whole batch's
+    params = init_params(cfg, device=device, seed=0)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             next(make_batch_fn(cfg, Bt, St, seed=0)).items()}
+    with torch.inference_mode():
+        whole, _ = M.forward_train(params, cfg, batch, attn_impl="kernel")
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, attn_impl="kernel",
+                              microbatches=2)
+    for f in kernels:
+        f.launches = 0
+    _, _, mx = step_fn(params, opt_state, batch)
+    mb_loss, whole = float(mx["loss"]), float(whole)
+    mb_launches = {f.__name__: f.launches for f in kernels}
+    log(f"qwen2-vl one step in 2 microbatches of {Bt // 2} x {St}: loss "
+        f"{mb_loss:.6f}, the whole batch's forward {whole:.6f} (|diff| "
+        f"{abs(mb_loss - whole):.3e}, bound {STEP_TOL['bfloat16']['loss']:.0e}"
+        f"); FA-2 launches {mb_launches}")
+    if not abs(mb_loss - whole) <= STEP_TOL["bfloat16"]["loss"] or any(
+            v != 2 * cfg.num_layers for v in mb_launches.values()):
+        fail(f"qwen2-vl microbatched step: loss {mb_loss} vs {whole}, "
+             f"launches {mb_launches}")
+    del opt_state, step_fn, batch, mx
+    params = init_params(cfg, device=device, seed=0)
+    torch.cuda.empty_cache()
+    parts["microbatched step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (b) prefill with the vision prefix and distinct M-RoPE streams
+    grid = QWEN2VL_GRID
+    assert grid * grid == Sv
+    rs = np.random.RandomState(0)
+    pos = torch.from_numpy(mrope_grid_positions(np, Bt, grid, Stext)
+                           ).to(device)
+    pre = {"tokens": torch.from_numpy(rs.randint(
+               0, cfg.vocab_size, (Bt, Stext))).to(device),
+           "vision_embeds": torch.from_numpy(
+               (rs.standard_normal((Bt, Sv, cfg.d_model)) * 0.02
+                ).astype(np.float32)).to(device),
+           "positions": pos}
+
+    def prefill():
+        with torch.inference_mode():
+            return M.forward_logits(params, cfg, pre, attn_impl="kernel")
+    prefill()                                                # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention_fwd.launches = 0
+    logits = prefill()
+    torch.cuda.synchronize()
+    fa_launches = FK.flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (Bt, St, cfg.padded_vocab_size) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        fail(f"qwen2-vl prefill logits malformed: {tuple(logits.shape)}")
+    if fa_launches != cfg.num_layers:
+        fail(f"a qwen2-vl prefill launched the FA-2 forward {fa_launches} "
+             f"times, not {cfg.num_layers}")
+    del logits
+    ms, times = wall_ms(torch, prefill, 5)
+    flops = F.fwd_flops(cfg, Bt, St)
+    tflops = flops / (ms / 1e3) / 1e12
+    log(f"qwen2-vl prefill {Bt} x {St} tokens ({Sv} vision + {Stext} text), "
+        f"bf16, FA-2 forward x {fa_launches}: {ms:.2f} ms a forward (median "
+        f"of 5; {', '.join(f'{x:.2f}' for x in times)}), "
+        f"{Bt * St / (ms / 1e3):,.0f} tokens/s; fwd_flops {flops:.4e} / time "
+        f"= {tflops:.1f} TFLOP/s = {100 * tflops * 1e12 / BF16_FLOP_PER_S:.2f}"
+        f"% of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    # layer 0's rotated q and k, as the model made them, against the CPU's
+    # apply_mrope of the same tensors at fp32
+    seen, real = [], TL.positional
+
+    def spy(x, positions, c):
+        y = real(x, positions, c)
+        if len(seen) < 2:
+            seen.append((x, positions, y))
+        return y
+    TL.positional = spy
+    try:
+        prefill()
+    finally:
+        TL.positional = real
+    theta, sections = cfg.rope_theta, cfg.mrope_sections
+    for (x, p, y), name in zip(seen, "qk"):
+        if not torch.equal(p, pos) or torch.equal(p[0], p[1]):
+            fail("qwen2-vl prefill: layer 0 did not rotate by the distinct "
+                 "M-RoPE streams it was given")
+        with torch.inference_mode():
+            card = TL.apply_mrope(x.float(), p, theta, sections)
+        if not torch.equal(card.to(y.dtype), y):
+            fail(f"qwen2-vl layer 0 {name}: the model's rotation is not "
+                 "apply_mrope's")
+        cpu = TL.apply_mrope(x.float().cpu(), p.cpu(), theta, sections)
+        err = float((card.cpu() - cpu).abs().max())
+        bound = 1e-6 * float(cpu.abs().max())
+        log(f"qwen2-vl layer 0 rotated {name} {tuple(x.shape)} (sections "
+            f"{sections}, positions up to {int(p.max())}, vision (t, h, w) "
+            f"on a {grid} x {grid} grid): card vs CPU apply_mrope in fp32 "
+            f"max_abs_err {err:.3e} (bound 1e-6 x largest |{name}| = "
+            f"{bound:.3e})")
+        if not err <= bound:
+            fail(f"qwen2-vl layer 0 {name}: M-RoPE on the card differs from "
+                 f"the CPU's by {err} > {bound}")
+    del seen, pre, pos
+    torch.cuda.empty_cache()
+    parts["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (c) phase 2's engine and requests through flash-decode at group 6
+    eng, reqs = primed_engine(params, cfg, device, np)
+    out, s, dec_launches, dec_ran = serve_checked(eng, reqs, cfg, "qwen2-vl")
+    step_ms = eng.wall_s / eng.steps * 1e3
+    log(f"qwen2-vl engine run: {int(s['tokens_generated'])} tokens, "
+        f"{int(s['steps'])} steps, {eng.wall_s:.3f} s, {step_ms:.3f} ms a "
+        f"step, {s['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{s.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, prefix hit "
+        f"tokens {int(s['prefix_hit_tokens'])}; flash_decode_paged launches "
+        f"{dec_launches} = {cfg.num_layers} x {eng.steps} steps, by "
+        f"instantiation {dec_ran}")
+    if any(t >= cfg.vocab_size for r in reqs for t in out[r.uid].tokens):
+        fail(f"qwen2-vl: a padded vocab id (>= {cfg.vocab_size}) was chosen")
+    if not dec_ran or any(not k.endswith(f", {hd}>") for k in dec_ran):
+        fail(f"qwen2-vl: flash-decode ran {dec_ran}, not at width {hd}")
+    del eng
+    diffs, peak_logit, feeds = mixed_step_diff(torch, np, M, params, cfg,
+                                               device)
+    log(f"qwen2-vl mixed step (feeds {feeds}) kernel vs gather logits "
+        f"max_abs_diff: fp32 compute over the same bf16 pages "
+        f"{diffs['float32']:.3e} (bound {LOGITS_TOL:.0e}); bf16 compute "
+        f"{diffs['bfloat16']:.3e} (largest |logit| {peak_logit:.2f})")
+    if not diffs["float32"] <= LOGITS_TOL:
+        fail(f"qwen2-vl: kernel and gather logits differ by "
+             f"{diffs['float32']} in fp32 compute")
+    parts["engine and mixed step"] = time.perf_counter() - t0
+    log("phase 18 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    del params
+    torch.cuda.empty_cache()
+    return launches, fa_launches, dec_launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2927,7 +3548,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 17)) if args.phases is None
+    wanted = (set(range(1, 19)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -2969,17 +3590,20 @@ def main(argv=None) -> int:
     run(15, phase_deepseek_train, torch, np, device,
         got[3][1] if 3 in got else None)
     run(16, phase_granite, torch, np, device)
+    run(17, phase_whisper, torch, np, device)
+    run(18, phase_qwen2_vl, torch, np, device)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
-    if wanted != set(range(1, 17)):
+    if wanted != set(range(1, 19)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
     # the kernels line: launches and timing on this slice's paths where a
-    # kernel lies on one (flash-decode: phase 16's granite engine at D 64;
-    # the FA-2 kernels: phase 15's deepseek train step at (192, 128); the
-    # SSD scan: phase 13's jamba prefill), else on the path that runs it;
-    # each row also keeps the earlier paths' launches and timing
+    # kernel lies on one (flash-decode: phase 18's qwen2-vl engine at group
+    # 6, D 128; the FA-2 kernels: phase 17's whisper train steps, timed at
+    # its encoder's shape; the SSD scan: phase 13's jamba prefill), else
+    # on the path that runs it; each row also keeps the earlier paths'
+    # launches and timing
     worst, timing = got[1]
     fa_worst, fa_timing = got[3]
     q_worst, q_timing = got[5]
@@ -2988,17 +3612,24 @@ def main(argv=None) -> int:
     mixtral_train = got[11]
     deepseek_train = got[15]
     granite_train, granite_engine = got[16]
+    whisper_train, whisper_prefill = got[17]
+    qwen2_vl_train, qwen2_vl_prefill, qwen2_vl_engine = got[18]
     fa = "src/repro/kernels/flash_attention/kernel.py"
-    qwen2 = {k: v for k, v in timing.items() if k != "granite"}
+    qwen2 = {k: v for k, v in timing.items()
+             if k not in ("granite", "qwen2_vl")}
     rows = [{"name": "flash_decode_paged", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_attention/decode.py:132",
-             "launches": granite_engine, "max_abs_err": worst,
-             **timing["granite"],
-             "shape": "granite-3-2b decode, B 8 x 2048 tokens, "
-                      + str(GRANITE_DECODE),
+             "launches": qwen2_vl_engine, "max_abs_err": worst,
+             **timing["qwen2_vl"],
+             "shape": "qwen2-vl-2b decode, B 8 x 2048 tokens, "
+                      + str(QWEN2VL_DECODE),
+             "at_granite_3_2b": {"shape": str(GRANITE_DECODE),
+                                 **timing["granite"]},
              "at_qwen2_7b": {"shape": str((H, K, D)), **qwen2},
-             "launches_by_path": {"granite-3-2b engine (phase 16)":
+             "launches_by_path": {"qwen2-vl-2b engine (phase 18)":
+                                  qwen2_vl_engine,
+                                  "granite-3-2b engine (phase 16)":
                                   granite_engine,
                                   "qwen2-7b engine (phase 2)": got[2],
                                   "mixtral-8x7b engine (phase 10)":
@@ -3007,7 +3638,11 @@ def main(argv=None) -> int:
             ("flash_attention_fwd", "fwd", "flash_attn_fwd.cu", 86),
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
-        by_path = {"deepseek-v3-671b train, 4 steps (phase 15)":
+        by_path = {"whisper-medium train, 8 steps (phase 17)":
+                   whisper_train[name],
+                   "qwen2-vl-2b train, 8 steps (phase 18)":
+                   qwen2_vl_train[name],
+                   "deepseek-v3-671b train, 4 steps (phase 15)":
                    deepseek_train[name],
                    "granite-3-2b train, 8 steps (phase 16)":
                    granite_train[name],
@@ -3015,6 +3650,8 @@ def main(argv=None) -> int:
                    mixtral_train[name],
                    "opt-1.3b train, 8 steps (phase 4)": got[4][name]}
         if kern == "fwd":
+            by_path["whisper-medium prefill (phase 17)"] = whisper_prefill
+            by_path["qwen2-vl-2b prefill (phase 18)"] = qwen2_vl_prefill
             by_path["deepseek-v3-671b prefill (phase 14)"] = got[14]
             by_path["mixtral-8x7b prefill (phase 10)"] = got[10][1]
             by_path["jamba prefill (phase 13)"] = \
@@ -3022,10 +3659,17 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": deepseek_train[name],
+                     "launches": whisper_train[name],
                      "max_abs_err": fa_worst[kern],
-                     **fa_timing["deepseek"][kern],
-                     "shape": "deepseek-v3-671b train " + str(DEEPSEEK_FA),
+                     **fa_timing["whisper"][kern],
+                     "shape": "whisper-medium encoder " + str(WHISPER_FA),
+                     "at_whisper_cross_attention": {
+                         "shape": str(WHISPER_XFA),
+                         **fa_timing["whisper_cross"][kern]},
+                     "at_qwen2_vl_2b": {"shape": str(QWEN2VL_FA),
+                                        **fa_timing["qwen2_vl"][kern]},
+                     "at_deepseek_v3_671b": {"shape": str(DEEPSEEK_FA),
+                                             **fa_timing["deepseek"][kern]},
                      "at_mixtral_8x7b": {"shape": str(MIXTRAL_FA),
                                          **fa_timing["mixtral"][kern]},
                      "at_opt_1.3b": {"shape": str(OPT_FA),

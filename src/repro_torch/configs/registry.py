@@ -1,7 +1,8 @@
 """Registry: ``--arch <id>`` lookup for the families the port runs
 (the dense qwen2-7b, granite-3-2b, qwen1.5-32b, llama3-405b and OPT
-series, mamba2-130m, mixtral-8x7b, deepseek-v3-671b and the jamba
-hybrid), with the ``-smoke`` reduced variants."""
+series, mamba2-130m, mixtral-8x7b, deepseek-v3-671b, the jamba hybrid,
+the whisper-medium encoder-decoder and the qwen2-vl-2b VLM backbone),
+with the ``-smoke`` reduced variants."""
 
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral_8x7b
 from repro_torch.configs.opt import OPT_NAMES, opt_config
 from repro_torch.configs.qwen15_32b import CONFIG as _qwen15_32b
 from repro_torch.configs.qwen2_7b import CONFIG as _qwen2_7b
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl_2b
+from repro_torch.configs.whisper_medium import CONFIG as _whisper_medium
 from repro_torch.models.config import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {"qwen2-7b": _qwen2_7b,
@@ -25,7 +28,9 @@ ARCHS: Dict[str, ModelConfig] = {"qwen2-7b": _qwen2_7b,
                                   "deepseek-v3-671b": _deepseek_v3_671b,
                                   "granite-3-2b": _granite_3_2b,
                                   "qwen1.5-32b": _qwen15_32b,
-                                  "llama3-405b": _llama3_405b}
+                                  "llama3-405b": _llama3_405b,
+                                  "whisper-medium": _whisper_medium,
+                                  "qwen2-vl-2b": _qwen2_vl_2b}
 for _n in OPT_NAMES:
     ARCHS[_n] = opt_config(_n)
 

@@ -4,8 +4,11 @@ Runs the continuous-batching paged-KV engine (``repro_torch.serve.engine``)
 over a mixed-length request set (reduced variant by default, ``--full``
 for the published widths) on the card, and prints tokens/s plus the
 per-token energy/carbon estimate.  Architectures whose caches the engine
-cannot page (Mamba2's recurrent state, MLA's latent cache), or
-``--legacy``, fall back to the dense ``serve.step.greedy_generate`` path.  A warmup runs before the
+cannot page (Mamba2's recurrent state, MLA's latent cache, whisper's
+encoder K/V), or ``--legacy``, fall back to the dense
+``serve.step.greedy_generate`` path; for an encoder-decoder it first runs
+the encoder over seeded random frames (the audio frontend stub).  A
+warmup runs before the
 timing window so the kernel build and first-launch costs stay out of
 tokens/s.  ``--torch-device cpu`` runs the plain PyTorch versions on the
 CPU.
@@ -139,28 +142,39 @@ def _run_engine(args, cfg, params, energy, dev) -> None:
 def _run_legacy(args, cfg, params, energy, dev) -> None:
     """Dense greedy decoding of ``--batch`` prompts of ``--prompt-len``
     tokens plus ``--max-new`` new ones, with the analytic decode FLOPs
-    priced on the energy profile's peak (``CLOUD_H100`` by default)."""
+    priced on the energy profile's peak (``CLOUD_H100`` by default).  An
+    encoder-decoder decodes against the encoder's output of random frames
+    drawn from a seeded generator on the model's device."""
     import time
 
     import numpy as np
     import torch
 
     from repro_torch.core import flops as F
+    from repro_torch.models import model as M
     from repro_torch.obs import MetricsRegistry, get_tracer
     from repro_torch.serve.step import greedy_generate
 
     prompt = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    enc = None
+    if cfg.is_encoder_decoder:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        frames = torch.randn((args.batch, cfg.encoder_seq_len, cfg.d_model),
+                             generator=gen, device=dev)
+        with torch.inference_mode():
+            enc = M.encoder_forward(params, cfg, frames, {})
     # warmup at the same shapes: kernel builds and first launches stay
     # outside the timing window
     greedy_generate(params, cfg, prompt, max_new=2,
-                    cache_len=args.prompt_len + args.max_new)
+                    cache_len=args.prompt_len + args.max_new, enc=enc)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     with get_tracer().span("greedy_generate", "serve", batch=args.batch,
                            max_new=args.max_new):
-        out = greedy_generate(params, cfg, prompt, max_new=args.max_new)
+        out = greedy_generate(params, cfg, prompt, max_new=args.max_new,
+                              enc=enc)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0

@@ -1,10 +1,10 @@
 """Stacked-group execution: the train/prefill forward, the dense-cache
 decode step and the paged decode step.
 
-Port of ``repro.models.blocks`` for attn, mla, mlp, moe and ssm
-(Mamba2) units.  A :class:`~repro_torch.models.params.ScanGroup` stacks
-``depth`` identical units on a leading ``layers`` axis; where the JAX
-package ran the unit
+Port of ``repro.models.blocks`` for attn, mla, mlp, moe, ssm (Mamba2)
+and xattn (whisper's cross-attention) units.  A
+:class:`~repro_torch.models.params.ScanGroup` stacks ``depth`` identical
+units on a leading ``layers`` axis; where the JAX package ran the unit
 under ``lax.scan``, the port loops over that axis in Python, taking views
 of each layer's parameters (and caches, which the decode steps update in
 place through those views).  ``ctx`` threads ``attn_impl``, ``remat`` and
@@ -24,7 +24,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attn_decode, attn_decode_paged,
-                                       attn_forward, mlp_forward)
+                                       attn_forward, mlp_forward,
+                                       xattn_decode, xattn_forward)
 from repro_torch.models.params import ScanGroup, tree_map
 
 PyTree = Any
@@ -88,9 +89,10 @@ def _sublayer_train(kind: str, p: PyTree, x: torch.Tensor,
     if kind == "ssm":
         return mamba2.ssm_forward(p, x, cfg,
                                   use_kernel=ctx.get("use_kernel", False)), aux
-    raise NotImplementedError(f"{kind!r} sublayers are not ported yet "
-                              "(cross-attention waits for the Whisper "
-                              "slice)")
+    if kind == "xattn":
+        return xattn_forward(p, x, ctx["enc"], cfg,
+                             impl=ctx.get("attn_impl", "kernel")), aux
+    raise ValueError(kind)
 
 
 def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
@@ -120,14 +122,13 @@ def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
 # Decode (single token, dense cache — the launcher's fallback path)
 # --------------------------------------------------------------------------- #
 
-DENSE_SUBLAYERS = ("attn", "mla", "ssm", "mlp", "moe")
+DENSE_SUBLAYERS = ("attn", "mla", "ssm", "mlp", "moe", "xattn")
 
 
 def _dense_only(kind: str) -> None:
     if kind not in DENSE_SUBLAYERS:
-        raise NotImplementedError(
-            f"dense decode supports sublayers {DENSE_SUBLAYERS}, got "
-            f"{kind!r} (cross-attention waits for the Whisper slice)")
+        raise ValueError(f"dense decode supports sublayers "
+                         f"{DENSE_SUBLAYERS}, got {kind!r}")
 
 
 def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
@@ -135,13 +136,16 @@ def init_sublayer_cache(kind: str, cfg: ModelConfig, batch: int,
                         device: DeviceLike = None) -> PyTree:
     """One sublayer's dense cache: (B, T, K, D) K/V for attn, the latent
     and rope key for mla, the fp32 recurrent state and conv buffers for
-    ssm (whatever ``dtype`` is, as in the JAX package), nothing for mlp
-    and moe.  On the card unless ``device="cpu"`` is asked for."""
+    ssm (whatever ``dtype`` is, as in the JAX package), the encoder's
+    (B, encoder_seq_len, K, D) K/V for xattn (filled once by
+    ``model.warm_cross_cache``), nothing for mlp and moe.  On the card
+    unless ``device="cpu"`` is asked for."""
     _dense_only(kind)
     device = resolve_device(device)
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        shape = (batch, max_len, K, hd)
+        T = max_len if kind == "attn" else cfg.encoder_seq_len
+        shape = (batch, T, K, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind == "mla":
@@ -166,6 +170,15 @@ def _sublayer_decode(kind: str, p: PyTree, x: torch.Tensor, cache: PyTree,
         return mamba2.ssm_decode(p, x, cfg, cache=cache)
     if kind == "moe":
         return moe.moe_forward(p, x, cfg)[0], cache    # aux dropped
+    if kind == "xattn":
+        if ctx.get("enc") is not None:
+            # the legacy path: re-project the encoder K/V this step, through
+            # the JAX package's default (chunked) attention; the serving
+            # path reads the warmed cache
+            return xattn_forward(p, x, ctx["enc"], cfg,
+                                 impl="chunked"), cache
+        return xattn_decode(p, x, cfg, cache_k=cache["k"],
+                            cache_v=cache["v"]), cache
     return mlp_forward(p, x, cfg), cache
 
 

@@ -3,7 +3,8 @@ full-sequence attention (train / prefill), attention against the paged
 KV cache (the engine) and against a dense per-batch cache (the dense
 decode path), and the MLP.
 
-Port of ``repro.models.layers`` for attn + mlp decoders: plain functions
+Port of ``repro.models.layers`` for attn + mlp decoders, whisper's
+cross-attention and Qwen2-VL's multimodal RoPE: plain functions
 on tensors over a parameter dict, with the JAX package's conventions kept
 exactly — norm statistics in fp32 with the multiply in the input dtype,
 RoPE over split halves, softmax in fp32.  Large projections are plain
@@ -14,6 +15,8 @@ sharding constraints are left out: they need a device mesh.
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -58,11 +61,23 @@ def rms_gate_norm(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _host_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+        return (1.0 / (theta ** exps)).to(device)
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: Optional[torch.device] = None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    """The (head_dim / 2,) fp32 rotary frequencies, computed on the host
+    and kept on ``device`` (once per width, theta and device), so that
+    every device rotates by the same frequencies: the card's fp32 ``pow``
+    can differ from the CPU's in the last bit, and a position of a few
+    thousand turns that into about 1e-5 of the rotated output.  Do not
+    write into the result."""
+    return _host_freqs(head_dim, float(theta), torch.device(device or "cpu"))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -79,12 +94,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal rotary embedding.  x: (..., S, H, D);
+    positions: (3, ..., S), the (temporal, height, width) position ids.
+    ``sections`` split the d/2 frequencies among the three streams in
+    order; frequency f rotates by its stream's position.  The JAX package
+    selects each frequency's stream with a one-hot einsum (the angle times
+    1.0 plus two times 0.0, exact in fp32); the index gather here gives
+    the same fp32 angles."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
+    # each frequency's stream: the number of section ends at or below it
+    f = torch.arange(d // 2, device=x.device)
+    sec_id = sum(((f >= end).long()
+                  for end in itertools.accumulate(sections[:-1])),
+                 torch.zeros_like(f))                       # (d/2,)
+    pos = positions.float()[sec_id]                         # (d/2, ..., S)
+    angles = pos.movedim(0, -1) * freqs                     # (..., S, d/2)
+    angles = angles[..., None, :]                           # (..., S, 1, d/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def positional(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     if cfg.pos_embedding == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
     if cfg.pos_embedding == "mrope":
-        raise NotImplementedError("M-RoPE waits for the Qwen2-VL slice")
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return x     # learned / sinusoidal: at the embedding layer; none: none
 
 
@@ -94,11 +135,15 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project_qkv(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+def _project_qkv(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                 kv_x: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q from ``x``; k and v from ``kv_x`` (the encoder output, for
+    cross-attention) or from ``x``."""
+    kv_in = x if kv_x is None else kv_x
     q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    k = _proj_heads(kv_in, p["wk"])
+    v = _proj_heads(kv_in, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -173,6 +218,46 @@ def attn_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     k = positional(k, positions, cfg)
     out = run_attention(q, k, v, causal=causal, window=cfg.sliding_window,
                         impl=impl)
+    return x + _out_proj(out, p["wo"])
+
+
+def xattn_forward(p: Dict[str, Any], x: torch.Tensor, enc: torch.Tensor,
+                  cfg: ModelConfig, impl: str = "kernel") -> torch.Tensor:
+    """Cross-attention sublayer (the whisper decoder): queries from the
+    normed decoder stream, keys and values from the encoder output ``enc``
+    (B, T, d), non-causal, through ``run_attention`` (the FA-2 kernels with
+    S != T for "kernel")."""
+    h = norm(p["norm"], x, cfg)
+    q, k, v = _project_qkv(p, h, cfg, kv_x=enc)
+    out = run_attention(q, k, v, causal=False, impl=impl)
+    return x + _out_proj(out, p["wo"])
+
+
+def project_cross_kv(p: Dict[str, Any], enc: torch.Tensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k, v), each (B, T, K, D), of one xattn sublayer from the encoder
+    output (B, T, d), in ``enc``'s dtype."""
+    k = _proj_heads(enc, p["wk"])
+    v = _proj_heads(enc, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(enc.dtype)
+        v = v + p["bv"].to(enc.dtype)
+    return k, v
+
+
+def xattn_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor
+                 ) -> torch.Tensor:
+    """Cross-attention decode against the encoder K/V projected once at
+    cache-warm time (``model.warm_cross_cache``): the plain fp32
+    ``attention_core``, as in the JAX package, which runs no kernel
+    here."""
+    h = norm(p["norm"], x, cfg)
+    q = _proj_heads(h, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    out = attention_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                         causal=False)
     return x + _out_proj(out, p["wo"])
 
 

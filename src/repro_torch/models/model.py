@@ -1,15 +1,21 @@
 """Full-model passes: the train loss (with DeepSeek's multi-token
-prediction loss), full-sequence logits, the dense-cache decode step and
-the paged decode step (port of ``repro.models.model`` for attn + mlp
-decoders, their mixture-of-experts variant, multi-head latent attention,
-the Mamba2 stack and the jamba hybrid).
+prediction loss), full-sequence logits, whisper's encoder, the dense-cache
+decode step and the paged decode step (port of ``repro.models.model`` for
+attn + mlp decoders, their mixture-of-experts variant, multi-head latent
+attention, the Mamba2 stack, the jamba hybrid, the whisper
+encoder-decoder and the Qwen2-VL backbone).
 
 Batch dict keys: ``tokens`` (B, S) int decoder input ids; ``labels``
-(B, S) int next-token targets, -1 masked; ``positions`` (B, S) optional.
+(B, S) int next-token targets, -1 masked (with a vision prefix they cover
+it too: (B, Sv + S)); ``positions`` (B, S), or (3, B, S) for M-RoPE,
+optional; ``vision_embeds`` (B, Sv, d), the VLM frontend stub's output,
+prepended to the token embeddings; ``frames`` (B, Se, d), the audio
+frontend stub's output, which the encoder reads.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -21,7 +27,7 @@ from repro_torch.models.blocks import (PAGED_SUBLAYERS, _sublayer_train,
                                        group_forward, init_group_cache,
                                        init_paged_sublayer_cache)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import norm, project_cross_kv
 
 PyTree = Any
 
@@ -67,7 +73,36 @@ def default_positions(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         return batch["positions"]
     pos = torch.arange(seq_len, dtype=torch.int32,
                        device=batch["tokens"].device)
-    return pos[None, :].expand(bsz, seq_len)
+    pos = pos[None, :].expand(bsz, seq_len)
+    if cfg.pos_embedding == "mrope":
+        return pos[None].expand(3, bsz, seq_len)
+    return pos
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoidal_table(n: int, d: int, dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """The encoder's (n, d) sinusoidal table in ``dtype`` on ``device``,
+    built once (the JAX package's jit folds it into a constant; building
+    it in numpy every forward held the card idle)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(P._sinusoidal(n, d)).to(device, dtype)
+
+
+def encoder_forward(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
+                    ctx: Dict[str, Any]) -> torch.Tensor:
+    """Whisper's encoder over ``frames`` (B, S, d): cast to the compute
+    dtype, plus the sinusoidal table in that dtype, then the (attn, mlp)
+    units non-causal (absolute positions only, no rope) and the encoder's
+    final norm.  ``ctx`` carries ``attn_impl`` and ``remat``."""
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    B, S, d = x.shape
+    x = x + _sinusoidal_table(S, d, x.dtype, x.device)[None]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    enc_ctx = dict(ctx, causal=False, positions=pos[None].expand(B, S))
+    for gi, g in enumerate(P.encoder_groups(cfg)):
+        x, _ = group_forward(params["encoder"][f"g{gi}"], g, x, cfg, enc_ctx)
+    return norm(params["encoder"]["final_norm"], x, cfg)
 
 
 def decoder_trunk(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
@@ -81,15 +116,31 @@ def decoder_trunk(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
 
 def _embed_with_positions(params: PyTree, cfg: ModelConfig,
                           batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    for key in ("vision_embeds", "frames"):
-        if key in batch:
-            raise NotImplementedError(f"batches with {key!r} (VLM / "
-                                      "encoder-decoder) are not ported")
+    """Token embeddings plus the learned positions where the model has
+    them, after the vision prefix where the batch has one."""
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens)
     if "pos" in params["embed"]:
         x = x + params["embed"]["pos"][:tokens.shape[1]].to(x.dtype)[None]
+    if "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     return x
+
+
+def _trunk_ctx(params: PyTree, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor], x: torch.Tensor,
+               **ctx: Any) -> Dict[str, Any]:
+    """The decoder's context: positions over ``x``'s length (the vision
+    prefix's included), causal, and for an encoder-decoder the encoder's
+    output of ``batch["frames"]`` under ``enc``."""
+    B, S = x.shape[:2]
+    out = dict(ctx, positions=default_positions(batch, cfg, S, B),
+               causal=True)
+    if cfg.is_encoder_decoder:
+        out["enc"] = encoder_forward(
+            params, cfg, batch["frames"],
+            {k: v for k, v in ctx.items() if k in ("remat", "attn_impl")})
+    return out
 
 
 def _mtp_loss(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
@@ -138,9 +189,7 @@ def forward_train(params: PyTree, cfg: ModelConfig,
     train.  With ``mtp_depth > 0`` the multi-token-prediction loss is
     added and reported as ``mtp_loss``."""
     x = _embed_with_positions(params, cfg, batch)
-    B, S = batch["tokens"].shape
-    ctx = {"positions": default_positions(batch, cfg, S, B),
-           "remat": remat, "attn_impl": attn_impl, "causal": True}
+    ctx = _trunk_ctx(params, cfg, batch, x, remat=remat, attn_impl=attn_impl)
     h, aux = decoder_trunk(params, cfg, x, ctx)
     logits = lm_logits(params, cfg, h)
     loss, n_tok = cross_entropy(logits, batch["labels"])
@@ -163,9 +212,8 @@ def forward_logits(params: PyTree, cfg: ModelConfig,
     version on CPU tensors; it has no backward); False runs the plain
     ``ssd_reference``, the JAX package's default."""
     x = _embed_with_positions(params, cfg, batch)
-    B, S = batch["tokens"].shape
-    ctx = {"positions": default_positions(batch, cfg, S, B),
-           "causal": True, "attn_impl": attn_impl, "use_kernel": use_kernel}
+    ctx = _trunk_ctx(params, cfg, batch, x, attn_impl=attn_impl,
+                     use_kernel=use_kernel)
     h, _ = decoder_trunk(params, cfg, x, ctx)
     return lm_logits(params, cfg, h)
 
@@ -178,20 +226,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = None) -> PyTree:
     """Dense per-batch caches: (B, T, K, D) K/V in ``dtype`` for attention
-    sublayers, fp32 state and conv buffers for ssm sublayers; stacked
-    groups carry a leading depth axis.  On the card unless
-    ``device="cpu"`` is asked for."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder caches wait "
-                                  "for the Whisper slice")
+    sublayers, (B, encoder_seq_len, K, D) for cross-attention ones (see
+    :func:`warm_cross_cache`), fp32 state and conv buffers for ssm
+    sublayers; stacked groups carry a leading depth axis.  On the card
+    unless ``device="cpu"`` is asked for."""
     return {f"g{gi}": init_group_cache(g, cfg, batch, max_len, dtype, device)
             for gi, g in enumerate(P.decoder_groups(cfg))}
 
 
 def warm_cross_cache(params: PyTree, cfg: ModelConfig, cache: PyTree,
                      enc: torch.Tensor) -> PyTree:
-    raise NotImplementedError("cross-attention caches wait for the Whisper "
-                              "slice")
+    """Fill every xattn sublayer's cache with the encoder K/V projected
+    from ``enc`` (B, T, d) once, layer by layer and in place (cast to the
+    cache's dtype), so that decode steps read the cache instead of
+    re-projecting the whole encoder output every token.  Returns the same
+    cache."""
+    with torch.no_grad():
+        for gi, g in enumerate(P.decoder_groups(cfg)):
+            for j, kind in enumerate(g.sublayers):
+                if kind != "xattn":
+                    continue
+                key = f"s{j}_{kind}"
+                p, c = params["decoder"][f"g{gi}"][key], cache[f"g{gi}"][key]
+                for i in range(g.depth):
+                    pi = p if g.depth == 1 else P.tree_map(
+                        lambda a: a[i], p)
+                    ci = c if g.depth == 1 else P.tree_map(
+                        lambda a: a[i], c)
+                    k, v = project_cross_kv(pi, enc, cfg)
+                    ci["k"].copy_(k)
+                    ci["v"].copy_(v)
+    return cache
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree,
@@ -200,20 +265,27 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree,
                 enc: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, PyTree]:
     """One decode step.  tokens: (B, 1) int; index: the cache offset every
-    sequence shares.  The cache is updated in place.  Returns (logits
-    (B, vocab), cache)."""
-    if enc is not None:
-        raise NotImplementedError("decoding against an encoder waits for "
-                                  "the Whisper slice")
+    sequence shares.  The cache is updated in place.  A learned position
+    table is read at row ``min(index, rows - 1)``, as the JAX package's
+    ``dynamic_slice_in_dim`` clamps.  With ``enc`` (B, T, d), cross-
+    attention re-projects the encoder K/V this step (the legacy path);
+    without it, it reads the cache :func:`warm_cross_cache` filled.
+    Returns (logits (B, vocab), cache)."""
     B = tokens.shape[0]
     index = int(index)
     x = embed_tokens(params, cfg, tokens)
     if "pos" in params["embed"]:
-        x = x + params["embed"]["pos"][index:index + 1].to(x.dtype)[None]
+        pos_tab = params["embed"]["pos"]
+        row = min(index, pos_tab.shape[0] - 1)
+        x = x + pos_tab[row:row + 1].to(x.dtype)[None]
     if positions is None:
         positions = torch.full((B, 1), index, dtype=torch.int32,
                                device=tokens.device)
+        if cfg.pos_embedding == "mrope":
+            positions = positions[None].expand(3, B, 1)
     ctx: Dict[str, Any] = {"index": index, "positions": positions}
+    if enc is not None:
+        ctx["enc"] = enc
     for gi, g in enumerate(P.decoder_groups(cfg)):
         x, _ = group_decode(params["decoder"][f"g{gi}"], g, x,
                             cache[f"g{gi}"], cfg, ctx)
@@ -278,7 +350,10 @@ def decode_step_paged(params: PyTree, cfg: ModelConfig, cache: PyTree,
         pos_tab = params["embed"]["pos"]
         idx = pos_bc.clamp(0, pos_tab.shape[0] - 1)
         x = x + pos_tab[idx].to(x.dtype)
-    ctx: Dict[str, Any] = {"positions": pos_bc,
+    positions = pos_bc
+    if cfg.pos_embedding == "mrope":
+        positions = pos_bc[None].expand(3, B, C)
+    ctx: Dict[str, Any] = {"positions": positions,
                            "block_tables": block_tables,
                            "seq_lens": seq_lens,
                            "num_feed": num_feed,

@@ -4,8 +4,10 @@ runs.
 Port of ``repro.models.params`` for attn + mlp decoders, their
 mixture-of-experts variant (``moe``), multi-head latent attention
 (``mla``) with DeepSeek's dense-prefix group and multi-token-prediction
-(``mtp``) block, the Mamba2 (``ssm``) stack and the jamba hybrid, whose
-8-layer period stacks as one group of 16 sublayers.
+(``mtp``) block, the Mamba2 (``ssm``) stack, the jamba hybrid, whose
+8-layer period stacks as one group of 16 sublayers, and whisper's
+encoder-decoder (an ``encoder`` subtree of (attn, mlp) units and its
+``final_norm``; decoder units of (attn, xattn, mlp)).
 The parameter tree keeps the JAX layout exactly —
 ``wq`` (d, H, hd), group keys ``g0/s0_attn/s1_mlp`` or ``g0/s0_ssm``, a
 leading ``layers`` axis on stacked groups — so weights bridged from the
@@ -174,8 +176,15 @@ def ssm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return s
 
 
+def xattn_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Cross-attention (the whisper decoder): the self-attention leaves,
+    q from the decoder stream and k/v from the encoder output."""
+    return attn_specs(cfg)
+
+
 SUBLAYER_BUILDERS = {"attn": attn_specs, "mla": mla_specs, "mlp": mlp_specs,
-                     "moe": moe_specs, "ssm": ssm_specs}
+                     "moe": moe_specs, "ssm": ssm_specs,
+                     "xattn": xattn_specs}
 # leaves drawn and kept in fp32 whatever ``param_dtype`` is
 FP32_INITS = ("ssm_a", "dt_bias")
 
@@ -237,10 +246,15 @@ def layer_groups(cfg: ModelConfig) -> List[ScanGroup]:
     return groups
 
 
+def encoder_groups(cfg: ModelConfig) -> List[ScanGroup]:
+    """The whisper encoder: ``encoder_layers`` units of (attn, mlp)."""
+    assert cfg.is_encoder_decoder
+    return [ScanGroup(("attn", "mlp"), cfg.encoder_layers, 0)]
+
+
 def decoder_groups(cfg: ModelConfig) -> List[ScanGroup]:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  "not ported")
+        return [ScanGroup(("attn", "xattn", "mlp"), cfg.num_layers, 0)]
     return layer_groups(cfg)
 
 
@@ -273,6 +287,10 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
         n_pos = cfg.max_target_positions or cfg.max_seq_len
         spec["embed"]["pos"] = ParamSpec((n_pos, d), (None, "embed"), "pos",
                                          fan_in_dims=())
+    if cfg.is_encoder_decoder:
+        spec["encoder"] = {f"g{gi}": group_spec(cfg, g)
+                           for gi, g in enumerate(encoder_groups(cfg))}
+        spec["encoder"]["final_norm"] = _norm_spec(cfg, d)
     spec["decoder"] = {f"g{gi}": group_spec(cfg, g)
                        for gi, g in enumerate(decoder_groups(cfg))}
     spec["final_norm"] = _norm_spec(cfg, d)

@@ -59,15 +59,16 @@ def greedy_generate(params: PyTree, cfg: ModelConfig, prompt: torch.Tensor,
     """Token-by-token greedy decoding: the prompt (B, S) is teacher-forced
     through the dense cache one token at a time (exactly the serve-step
     path), then ``max_new`` tokens are chosen by argmax.  The cache lives
-    on the prompt's device.  Returns (B, S + max_new) token ids."""
-    if enc is not None:
-        raise NotImplementedError("decoding against an encoder waits for "
-                                  "the Whisper slice")
+    on the prompt's device.  With ``enc`` (an encoder-decoder's encoder
+    output), the cross-attention caches are warmed once and every step
+    reads them.  Returns (B, S + max_new) token ids."""
     B, S = prompt.shape
     T = cache_len or (S + max_new)
     step = jitted_decode_step(cfg)
     with torch.inference_mode():
         cache = M.init_cache(cfg, B, T, device=prompt.device)
+        if enc is not None:
+            cache = M.warm_cross_cache(params, cfg, cache, enc)
         logits = None
         for i in range(S):
             logits, cache = step(params, cache, prompt[:, i:i + 1], i)

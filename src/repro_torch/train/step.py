@@ -24,12 +24,15 @@ PyTree = Any
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], m: int
                         ) -> List[Dict[str, torch.Tensor]]:
-    """m batches of B/m rows each."""
+    """m batches of B/m rows each.  M-RoPE ``positions`` (3, B, S) split
+    on their batch axis, dim 1, as in the JAX package."""
+    parts = {}
     for k, v in batch.items():
-        if v.shape[0] % m:
-            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+        dim = 1 if k == "positions" and v.dim() == 3 else 0
+        if v.shape[dim] % m:
+            raise ValueError(f"batch {k!r} of {v.shape[dim]} rows does not "
                              f"split into {m} microbatches")
-    parts = {k: v.chunk(m, dim=0) for k, v in batch.items()}
+        parts[k] = v.chunk(m, dim=dim)
     return [{k: parts[k][i] for k in batch} for i in range(m)]
 
 

@@ -6,8 +6,9 @@ with int8-compressed sync through the kernels, Mamba2's kernel
 prefill against its oracle path and its dense decode, the MoE layer
 on the card against the CPU, two mixtral-smoke train steps on the
 card against the same steps on the CPU, full-width mixtral's routes and
-gradients under remat, and deepseek-smoke's train steps and dense decode
-on the card against the CPU.  Every test here skips without CUDA.
+gradients under remat, deepseek-smoke's train steps and dense decode,
+and whisper-smoke's and qwen2-vl-smoke's train steps on the card against
+the CPU.  Every test here skips without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -74,17 +75,24 @@ FA_IDS = ["gqa2", "mha-d128", "gqa4-window", "noncausal-200", "d96-s130",
 # v 128 at full width), and widths the kernels take zero-padded (80 -> 96;
 # 48/40 -> 64/64, non-causal with T != S), and mixtral-8x7b's training
 # attention (H 32, K 8, D 128) at 1 x 1024 tokens with a window of 384
-# that cuts in, as its 4096 window does at 8192 tokens
+# that cuts in, as its 4096 window does at 8192 tokens; whisper-medium's
+# cross-attention (16 heads x 64, non-causal, S != T) at 130 decoder rows
+# over its 1500 encoder frames (a ragged last key tile), and Qwen2-VL's
+# GQA group 6 (12 query heads over 2 KV heads, D 128) at a ragged S
 CARD_FA_CASES = FA_CASES + [(4, 2048, 32, 32, 64, True, 0),
                             (2, 333, 8, 2, 128, True, 0),
                             (2, 200, 4, 2, 96, True, 0, None, 64),
                             (1, 300, 2, 2, 192, True, 0, None, 128),
                             (1, 160, 4, 2, 80, True, 0),
                             (1, 100, 2, 1, 48, False, 0, 150, 40),
-                            (1, 1024, 32, 8, 128, True, 384)]
+                            (1, 1024, 32, 8, 128, True, 384),
+                            (2, 130, 16, 16, 64, False, 0, 1500),
+                            (1, 333, 12, 2, 128, True, 0)]
 CARD_FA_IDS = FA_IDS + ["opt-1.3b", "gqa4-d128-s333", "mla-smoke-96-64",
                         "mla-192-128", "padded-80", "padded-48-40-cross",
-                        "mixtral-gqa4-d128-window"]
+                        "mixtral-gqa4-d128-window",
+                        "whisper-cross-s130-t1500-d64",
+                        "qwen2-vl-gqa6-d128-s333"]
 
 
 # (N, block): the JAX package's quant8 cases (tests/test_kernels.py), then
@@ -843,3 +851,84 @@ def test_cuda_deepseek_smoke_dense_decode_equals_the_cpu(cuda):
     (ci, cl), (gi, gl) = got["cpu"], got[str(cuda)]
     assert torch.equal(gi, ci)
     torch.testing.assert_close(gl, cl, rtol=1e-4, atol=1e-4)
+
+
+def _train_steps_on_the_cpu_and_the_card(cfg, batch, cuda):
+    """Two train steps of ``cfg`` (fp32, the FA-2 kernels) from the same
+    weights and batch on the CPU and on the card: per device, [(loss,
+    grad norm)] a step, the parameters after them, and the dk/dv kernel's
+    launches by instantiation."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    ocfg = adamw.OptConfig(learning_rate=1e-3, warmup_steps=1,
+                           decay_steps=4, eps=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda a: a.to(dev),
+                          init_params(cfg, device="cpu", seed=0))
+        state = adamw.init_opt_state(params, ocfg)
+        step = make_train_step(cfg, ocfg, attn_impl="kernel")
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = FK.flash_attention_bwd_dkdv.kernels.copy()
+        mets = []
+        for _ in range(2):
+            params, state, m = step(params, state, b)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(dev)] = (mets, [p.detach().cpu() for p in
+                                tree_leaves(params)],
+                         FK.flash_attention_bwd_dkdv.kernels - before)
+    return out["cpu"], out[str(cuda)]
+
+
+def _assert_steps_equal(cpu, card):
+    for (cl, cg), (gl, gg) in zip(cpu[0], card[0]):
+        assert gl == pytest.approx(cl, rel=1e-5)
+        assert gg == pytest.approx(cg, rel=1e-4)
+    for a, b in zip(card[1], cpu[1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_smoke_train_steps_equal_the_cpu(cuda):
+    """Two train steps of whisper-medium-smoke (fp32: the encoder
+    non-causal over 64 frames, the decoder's causal self-attention and
+    its non-causal cross-attention with S = 40 queries over T = 64 keys,
+    all through the FA-2 kernels) on the card against the CPU."""
+    from repro_torch.data.pipeline import make_batch_fn
+    cfg = dataclasses.replace(get_config("whisper-medium-smoke"),
+                              param_dtype="float32", compute_dtype="float32")
+    batch = next(make_batch_fn(cfg, 2, 40, seed=0))
+    cpu, card = _train_steps_on_the_cpu_and_the_card(cfg, batch, cuda)
+    # encoder, self- and cross-attention layers, each step
+    assert not cpu[2] and card[2] == {"fa_bwd_dkdv_kernel<float, 64, 64>":
+                                      2 * (cfg.encoder_layers
+                                           + 2 * cfg.num_layers)}
+    _assert_steps_equal(cpu, card)
+
+
+@pytest.mark.cuda
+def test_cuda_qwen2_vl_smoke_train_steps_equal_the_cpu(cuda):
+    """Two train steps of qwen2-vl-2b-smoke (fp32, M-RoPE with distinct
+    t/h/w streams over a 4 x 4 vision grid and the text after it, the
+    vision prefix's labels masked) on the card against the CPU."""
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.launch.specs import vlm_split
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b-smoke"),
+                              param_dtype="float32", compute_dtype="float32")
+    B, S = 2, 64
+    batch = next(make_batch_fn(cfg, B, S, seed=0))
+    Sv, St = vlm_split(S)
+    grid = 4
+    assert grid * grid == Sv
+    idx = np.arange(Sv)
+    vis = np.stack([np.zeros(Sv), idx // grid, idx % grid])
+    text = np.broadcast_to(grid + np.arange(St), (3, St))
+    pos = np.concatenate([vis, text], axis=1).astype(np.int32)
+    batch["positions"] = np.ascontiguousarray(
+        np.broadcast_to(pos[:, None], (3, B, S)))
+    cpu, card = _train_steps_on_the_cpu_and_the_card(cfg, batch, cuda)
+    hd = cfg.resolved_head_dim
+    assert not cpu[2] and card[2] == {
+        f"fa_bwd_dkdv_kernel<float, {hd}, {hd}>": 2 * cfg.num_layers}
+    _assert_steps_equal(cpu, card)

@@ -63,7 +63,9 @@ def test_config_copies_agree(arch, patch):
 FULL_COUNTS = {"deepseek-v3-671b": (671_712_662_528, 38_135_436_288),
                "granite-3-2b": (2_533_787_648, 2_533_787_648),
                "qwen1.5-32b": (35_197_096_960, 35_197_096_960),
-               "llama3-405b": (405_853_388_800, 405_853_388_800)}
+               "llama3-405b": (405_853_388_800, 405_853_388_800),
+               "whisper-medium": (812_003_328, 812_003_328),
+               "qwen2-vl-2b": (1_543_714_304, 1_543_714_304)}
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "opt-125m", "opt-1.3b",

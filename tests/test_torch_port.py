@@ -80,7 +80,10 @@ def test_package_imports_with_jax_blocked():
               "repro_torch.configs.deepseek_v3_671b",
               "repro_torch.configs.granite_3_2b",
               "repro_torch.configs.qwen15_32b",
-              "repro_torch.configs.llama3_405b"):
+              "repro_torch.configs.llama3_405b",
+              "repro_torch.configs.whisper_medium",
+              "repro_torch.configs.qwen2_vl_2b",
+              "repro_torch.launch.specs"):
         assert m in mods, m
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\nimport importlib\n"

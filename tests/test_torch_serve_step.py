@@ -86,23 +86,59 @@ def test_prefill_and_serve_step_match_the_model_functions():
     np.testing.assert_allclose(lg.numpy(), logits[:, -1].numpy(),
                                rtol=2e-3, atol=2e-4)
     assert TS.jitted_decode_step(tcfg) is TS.jitted_decode_step(tcfg)
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        serve(tp, cache, toks[:, :1], 0, enc=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        TM.warm_cross_cache(tp, tcfg, cache, torch.zeros(1))
+    # an encoder-decoder's serve step takes ``enc`` (the legacy path that
+    # re-projects the encoder K/V), and warm_cross_cache fills the cache
+    # the steps without ``enc`` read: both give the same logits
+    _, wcfg = configs("whisper-medium")
+    wp = TM.P.init_params(wcfg, device="cpu", seed=3)
+    frames = torch.from_numpy(np.random.RandomState(4).randn(
+        2, wcfg.encoder_seq_len, wcfg.d_model).astype(np.float32))
+    with torch.no_grad():
+        enc = TM.encoder_forward(wp, wcfg, frames, {})
+    wserve = TS.make_serve_step(wcfg)
+    legacy = TM.init_cache(wcfg, 2, 4, torch.float32, "cpu")
+    warmed = TM.warm_cross_cache(
+        wp, wcfg, TM.init_cache(wcfg, 2, 4, torch.float32, "cpu"), enc)
+    assert float(warmed["g0"]["s1_xattn"]["k"].abs().max()) > 0
+    for i in range(4):
+        a, legacy = wserve(wp, legacy, toks[:, i:i + 1], i, enc=enc)
+        b, warmed = wserve(wp, warmed, toks[:, i:i + 1], i)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
 def test_dense_decode_refuses_unported_sublayers():
+    """The dense decode runs cross-attention now (an encoder-length K/V
+    cache, the warmed or the legacy path); the paged path still refuses
+    it in both packages, as the engine refuses an encoder-decoder."""
     _, tcfg = configs("qwen2-7b", num_kv_heads=2)
+    from repro.models import blocks as JB
+    from repro_torch.bridge import flatten
     from repro_torch.models import blocks
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        blocks.init_sublayer_cache("xattn", tcfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        blocks._sublayer_decode("xattn", {}, torch.zeros(1, 1, 4), {},
-                                tcfg, {})
-    encdec = dataclasses.replace(tcfg, is_encoder_decoder=True)
+    encdec = dataclasses.replace(tcfg, is_encoder_decoder=True,
+                                 encoder_layers=1, encoder_seq_len=6)
+    c = blocks.init_sublayer_cache("xattn", encdec, 1, 4, device="cpu")
+    assert c["k"].shape == c["v"].shape == (
+        1, 6, encdec.num_kv_heads, encdec.resolved_head_dim)
+    p = TM.P.tree_map(lambda a: a[0], TM.P.init_params(
+        encdec, device="cpu")["decoder"]["g0"]["s1_xattn"])
+    x = torch.randn(1, 1, encdec.d_model)
+    y, same = blocks._sublayer_decode("xattn", p, x, c, encdec, {})
+    assert same is c and y.shape == x.shape
+    enc = torch.randn(1, 6, encdec.d_model)
+    y2, _ = blocks._sublayer_decode("xattn", p, x, c, encdec, {"enc": enc})
+    assert y2.shape == x.shape and not torch.equal(y, y2)
+    assert "['encoder']['final_norm']['scale']" in dict(
+        flatten(TM.P.model_spec(encdec)))
+    with pytest.raises(NotImplementedError, match="xattn"):
+        JB.init_paged_sublayer_cache("xattn", encdec, 4, 4)
+    with pytest.raises(NotImplementedError, match="xattn"):
+        blocks.init_paged_sublayer_cache("xattn", encdec, 4, 4,
+                                         device="cpu")
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    _, wcfg = configs("whisper-medium")
+    wp = TM.P.init_params(wcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        TM.P.model_spec(encdec)
+        ServeEngine(wp, wcfg, EngineConfig(), torch_device="cpu")
 
 
 @pytest.mark.parametrize("argv,expect", [
