@@ -21,14 +21,22 @@ Phases (any failure exits nonzero):
    seed) through ``ServeEngine`` with the kernel, check that every request
    completes and that every attention layer of every step launched the
    kernel, and compare one mixed decode/prefill step's logits between the
-   kernel and the plain gather path;
+   kernel and the plain gather path; then serve phase 2's requests three
+   times over (24 requests: ``serve_slos``' TTFT windows page only after
+   16 TTFTs) under an SLO monitor whose TTFT target every request on the
+   card misses: admissions must be deferred (``serve/admission_deferred``)
+   and never made with half the slots or more live once the SLO burns,
+   every request must finish its 16 tokens and flash-decode must run in
+   every layer of every step; with a target no TTFT reaches the engine
+   must schedule exactly as without an SLO (the same steps and tokens);
 3. hold the three FA-2 kernels (forward, dq, dk/dv) against their plain
    PyTorch versions in fp32 and bf16 on the JAX package's FA_CASES shapes,
    MLA's head widths (qk 96 / v 64 and 192 / 128), a width the wrappers
    zero-pad, opt-1.3b's attention shape and mixtral-8x7b's training
    attention (GQA 32/8, D 128, a window that cuts in) at 2048 tokens, and
    time kernel, plain version, SDPA (forward, and its backward for the
-   dq + dk/dv pair) and the bound at opt-1.3b's shape, at mixtral's
+   dq + dk/dv pair) and the bound at opt-1.3b's shape (4 x 2048, and an
+   edge replica's 2 x 2048 of phase 19), at mixtral's
    1 x 8192 tokens with the 4096 window and at deepseek-v3-671b's
    training attention (1 x 2048 tokens, 128 heads at (192, 128)), the
    last two also held to their plain versions in bf16, and at three
@@ -159,7 +167,29 @@ Phases (any failure exits nonzero):
    x 32 grid, the text after it), with layer 0's rotated q and k held
    to the CPU's ``apply_mrope`` of the same tensors in fp32; (c) phase
    2's engine and requests, flash-decode at (12, 2, 128) launched by
-   every layer every step, and the mixed step kernel vs gather in fp32.
+   every layer every step, and the mixed step kernel vs gather in fp32;
+19. the edge fleet's control loop: (a) opt-1.3b at full width and depth,
+   bf16, 2 replicas x 2 x 2048 tokens, placed by ``search_placement`` over
+   an 8-device two-region fleet (laptops and phones, a 5 MB/s WAN),
+   async local SGD with per-region K, quorum 2, staleness bound 1, int8
+   sync through the quant8 kernels (without error feedback, whose fp32
+   buffers do not fit beside the buffered deltas) and a seeded fault plan
+   that makes one
+   replica a straggler, run with a health monitor and without: the
+   monitor must detect exactly the plan's straggler from observed
+   durations, the quorum must go ahead without it (excluded updates) and
+   the virtual time must fall below the unmonitored run's; the FA-2 and
+   quant8 launches must equal the inner steps' and the reports' counts;
+   (b) at opt-1.3b width and 4 layers, a placement-driven sync run writes
+   layer-sliced checkpoints every round with one neighbour copy; a
+   bit-rotted shard is named by ``damaged_files`` and mended by
+   ``heal_step`` from the neighbour's copy; ``restore_for_placement`` onto
+   3 stages and ``reshard`` 3 -> 2 -> 3 give back every leaf of the
+   card's state bit for bit, and so does the trainer's
+   ``checkpoint_placement`` save, whose resume starts from it; (c) both
+   launchers in-process with ``--slo`` and ``--health-out`` (training
+   reduced, serving full-width qwen2-7b), their artifacts passing
+   ``repro_torch.obs.validate``.
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -170,6 +200,7 @@ CUDA and the repository around it.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -188,7 +219,7 @@ LOGITS_TOL = 5e-2                  # the repo's int8/bf16 logits bar
 # non-causal T != S case; MLA's widths (deepseek-v3-671b-smoke's qk 96 /
 # v 64, here GQA with a ragged S, and the full model's 192 / 128); a width
 # the wrappers zero-pad to 96; then opt-1.3b's attention at 4 x 2048
-# tokens
+# tokens and at an edge replica's 2 x 2048 (phase 19's main path)
 FA_CASES = [(2, 256, 4, 2, 64, True, 0), (1, 384, 4, 4, 128, True, 0),
             (2, 256, 8, 2, 64, True, 128), (1, 200, 2, 1, 64, False, 0),
             (1, 130, 2, 2, 96, True, 0), (2, 100, 4, 2, 32, False, 0, 230),
@@ -196,6 +227,8 @@ FA_CASES = [(2, 256, 4, 2, 64, True, 0), (1, 384, 4, 4, 128, True, 0),
             (2, 512, 16, 16, 192, True, 0, None, 128),
             (1, 160, 4, 2, 80, True, 0), (1, 2048, 32, 8, 128, True, 1024)]
 OPT_FA = (4, 2048, 32, 32, 64, True, 0)
+# an edge replica's opt-1.3b attention (phase 19: 2 x 2048 tokens)
+OPT_EDGE_FA = (2, 2048, 32, 32, 64, True, 0)
 # mixtral-8x7b's training attention (phase 11: 1 x 8192 tokens, GQA 32/8,
 # D 128, the 4096 window cutting in), where the kernels are timed and,
 # in bf16, held to their plain versions (whose fp32 (S x T) scores take
@@ -333,6 +366,21 @@ QWEN2VL_DECODE = (12, 2, 128)
 # train (batch, tokens, steps: vlm_split(4096) = 1024 vision embeddings +
 # 3072 text tokens), and the prefill's vision grid (32 x 32 patches)
 QWEN2VL_TRAIN, QWEN2VL_TRAIN_STEPS, QWEN2VL_GRID = (2, 4096), 8, 32
+# phase 2's SLO runs: its 8 requests served SLO_COPIES times over under
+# serve_slos with a TTFT target every request on the card misses and one
+# no request reaches
+SLO_COPIES, SLO_BAD_TTFT_S, SLO_NEVER_TTFT_S = 3, 1e-6, 3600.0
+# phase 19 (a): opt-1.3b at full width and depth, each replica's (batch,
+# tokens), the inner steps K, the outer updates, the fault plan (seed 6
+# makes replica 0 a 6.66x straggler and replica 1 healthy), the fleet's
+# size and WAN rate (tests/test_elastic.py's fleet)
+EDGE_TRAIN, EDGE_K, EDGE_UPDATES = (2, 2048), 2, 6
+EDGE_PLAN = dict(seed=6, straggler_frac=0.5)
+EDGE_FLEET, EDGE_WAN_BPS = 8, 5e6
+# phase 19 (b): opt-1.3b width at 4 layers, the sync run's rounds, the
+# 3- and 2-stage splits restored and resharded onto
+ELASTIC_LAYERS, ELASTIC_ROUNDS = 4, 2
+ELASTIC_SPLITS = ((0, 1, 2, 4), (0, 2, 4))
 # the kernels a call launches, by a part of each name: flash-decode's
 # split kernel, and its merge kernel when a call has more than one split;
 # the SSD scan's three when s spans more than one chunk
@@ -618,12 +666,13 @@ def engine_requests(cfg, np, seed=0):
     return system, reqs
 
 
-def primed_engine(params, cfg, device, np):
+def primed_engine(params, cfg, device, np, slo=None):
     """Phase 2's engine (8 slots, block 16, 512 blocks, chunk 8, bf16
     pages through flash-decode) after its warm-up, with phase 2's system
     prompt served once: a server that has served it before holds it in
-    its prefix cache, so the shared requests hit.  Returns (engine, phase
-    2's requests)."""
+    its prefix cache, so the shared requests hit.  ``slo`` (an
+    ``SLOMonitor``) is attached after the priming, so it sees only the
+    measured requests.  Returns (engine, phase 2's requests)."""
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
     ecfg = EngineConfig(max_slots=B, block_size=BS, num_blocks=512,
                         max_blocks_per_seq=16, attn_impl="kernel",
@@ -633,6 +682,7 @@ def primed_engine(params, cfg, device, np):
     system, reqs = engine_requests(cfg, np)
     eng.run([Request(uid="prime", prompt=system, max_new=1)])
     eng.reset_stats()
+    eng.slo = slo
     return eng, reqs
 
 
@@ -802,6 +852,79 @@ def phase_engine(torch, np, device):
              "in fp32 compute")
     if not diffs["bfloat16"] <= 4 * ulp:
         fail(f"kernel and gather bf16 logits differ by {diffs['bfloat16']}")
+    return launches, slo_engine_check(params, cfg, device, np)
+
+
+def slo_run(params, cfg, device, np, target):
+    """Phase 2's requests SLO_COPIES times over through a primed engine,
+    under ``serve_slos(ttft_p99_s=target)`` (no SLO with ``target``
+    None), flash-decode's count set to 0 just before.  Returns (outputs,
+    stats, steps, launches, admissions deferred, [(live slots, TTFT SLO
+    burning) at each admission], the monitor)."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention.decode import flash_decode_paged
+    from repro_torch.obs import MetricsRegistry, SLOMonitor, serve_slos
+    slo = None if target is None else SLOMonitor(
+        serve_slos(ttft_p99_s=target), registry=MetricsRegistry())
+    eng, reqs = primed_engine(params, cfg, device, np, slo=slo)
+    reqs = [dataclasses.replace(r, uid=f"{r.uid}c{c}")
+            for c in range(SLO_COPIES) for r in reqs]
+    admitted = []
+    open_slot = eng.kv.open_slot
+
+    def spy(slot, prompt=None):
+        admitted.append((sum(s is not None for s in eng._slots),
+                         slo is not None and slo.burning("serve_ttft")))
+        return open_slot(slot, prompt)
+    eng.kv.open_slot = spy
+    flash_decode_paged.launches = 0
+    out = eng.run(reqs)
+    launches = flash_decode_paged.launches
+    if set(out) != {r.uid for r in reqs} or any(
+            len(out[r.uid].tokens) != 16 or out[r.uid].failed for r in reqs):
+        fail(f"SLO run (target {target}): not every request completed "
+             "with 16 tokens")
+    deferred = int(eng.metrics.counter("serve/admission_deferred").value)
+    return out, eng.stats(), eng.steps, launches, deferred, admitted, slo
+
+
+def slo_engine_check(params, cfg, device, np):
+    """The SLO-gated engine: a TTFT target every request misses must defer
+    admissions past half the slots once it burns; one no request reaches
+    must schedule exactly as no SLO.  Returns the burning run's
+    flash-decode launches."""
+    out, s, steps, launches, deferred, admitted, slo = slo_run(
+        params, cfg, device, np, SLO_BAD_TTFT_S)
+    half = B // 2
+    late = [live for live, burning in admitted if burning]
+    log(f"SLO-gated engine, TTFT target {SLO_BAD_TTFT_S:g} s: {len(out)} "
+        f"requests, {steps} steps, {deferred} admissions deferred, "
+        f"{len(late)} admissions after the burn began with at most "
+        f"{max(late, default=0)} slots live (bound < {half}); TTFT p50 "
+        f"{s['ttft_p50_s'] * 1e3:.1f} ms, p99 {s['ttft_p99_s'] * 1e3:.1f} "
+        f"ms, {s['tokens_per_s']:.1f} tokens/s; {slo.summary_line()}; "
+        f"flash_decode_paged launches {launches} = {cfg.num_layers} x "
+        f"{steps} steps")
+    if deferred == 0 or not slo.burning("serve_ttft") or not late:
+        fail("the TTFT SLO never burned or no admission was deferred")
+    if max(late) >= half:
+        fail(f"an admission after the burn began found {max(late)} slots "
+             f"live (the gate holds below {half})")
+    if launches != cfg.num_layers * steps:
+        fail(f"SLO run: flash-decode launches {launches} != "
+             f"{cfg.num_layers} x {steps} steps")
+    never = slo_run(params, cfg, device, np, SLO_NEVER_TTFT_S)
+    plain = slo_run(params, cfg, device, np, None)
+    same = {u: c.tokens for u, c in never[0].items()} == \
+        {u: c.tokens for u, c in plain[0].items()}
+    log(f"TTFT target {SLO_NEVER_TTFT_S:g} s (never reached): "
+        f"{never[2]} steps, {never[4]} deferred, TTFT p50 "
+        f"{never[1]['ttft_p50_s'] * 1e3:.1f} ms; without an SLO: "
+        f"{plain[2]} steps, TTFT p50 {plain[1]['ttft_p50_s'] * 1e3:.1f} "
+        f"ms; the same tokens {same}; {never[6].summary_line()}")
+    if never[4] or never[2] != plain[2] or not same:
+        fail("an SLO that never burns changed the schedule or the tokens")
     return launches
 
 
@@ -867,8 +990,8 @@ def fa_work(case, q, k, v, do):
 def phase_fa(torch, device, timer):
     from repro_torch.kernels.flash_attention import kernel as FK
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
-    for i, case in enumerate(FA_CASES + [OPT_FA, WHISPER_FA, WHISPER_XFA,
-                                         QWEN2VL_FA]):
+    for i, case in enumerate(FA_CASES + [OPT_FA, OPT_EDGE_FA, WHISPER_FA,
+                                         WHISPER_XFA, QWEN2VL_FA]):
         causal, window = case[5], case[6]
         kw = dict(causal=causal, window=window)
         for dt in ("float32", "bfloat16"):
@@ -910,6 +1033,8 @@ def phase_fa(torch, device, timer):
             torch.cuda.empty_cache()
 
     timing = time_fa(torch, device, timer, OPT_FA, "opt-1.3b", worst)
+    timing["opt_edge"] = time_fa(torch, device, timer, OPT_EDGE_FA,
+                                 "opt-1.3b edge replica", worst)
     timing["mixtral"] = time_fa(torch, device, timer, MIXTRAL_FA,
                                 "mixtral-8x7b train", worst, hold=True)
     timing["deepseek"] = time_fa(torch, device, timer, DEEPSEEK_FA,
@@ -3512,6 +3637,399 @@ def phase_qwen2_vl(torch, np, device):
     return launches, fa_launches, dec_launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 19: the edge fleet's control loop
+# --------------------------------------------------------------------------- #
+
+def edge_placement(cfg, batch, seq_len):
+    """tests/test_elastic.py's fleet in the port's own records: laptops and
+    phones alternating in pairs, regions alternating one by one over a
+    5 MB/s WAN; ``search_placement`` carves it into 2 pipelines.  Returns
+    (placement, topology)."""
+    from collections import namedtuple
+
+    from repro_torch.core.energy.devices import LAPTOP_M2PRO, SMARTPHONE_SD888
+    from repro_torch.core.net import NetParams, Topology
+    from repro_torch.core.placement import search_placement
+    Edge = namedtuple("Edge", "device_id region spec")
+    fleet = [Edge(i, ("europe", "north_america")[i % 2],
+                  (LAPTOP_M2PRO, SMARTPHONE_SD888)[(i // 2) % 2])
+             for i in range(EDGE_FLEET)]
+    topo = Topology.from_fleet(fleet, params=NetParams(
+        wan_bw_Bps=EDGE_WAN_BPS))
+    spec = search_placement(cfg, [d.spec for d in fleet], topology=topo,
+                            nodes=[str(d.device_id) for d in fleet],
+                            data_parallel=2, batch=2 * batch,
+                            seq_len=seq_len, microbatches=2,
+                            collective="hierarchical")
+    return spec, topo
+
+
+def edge_run(torch, cfg, placement, device, health):
+    """Async local SGD over the placement (per-region K, quorum 2,
+    staleness 1, int8 sync) under the fault plan, the FA-2 and quant8
+    counts set to 0 just before and read just after, each report counted
+    on a tracer.  Returns (result, launches, reports, wall s, peak
+    bytes)."""
+    from repro_torch.core.faultinject import FaultPlan
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
+                                                   quantize_blocks)
+    from repro_torch.obs import Tracer, set_tracer
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import CompressConfig
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    from repro_torch.train.trainer import TrainerConfig
+    Bt, St = EDGE_TRAIN
+    tc = TrainerConfig(steps=EDGE_K * EDGE_UPDATES, batch=Bt, seq_len=St,
+                       attn_impl="kernel", log_every=0, seed=0)
+    # int8 without error feedback: with it, two fp32 error buffers (5.3
+    # GB each) beside the two fp32 deltas the quorum buffers took an
+    # NVIDIA H100 80GB HBM3 to 76.92 GB, and the second run out of memory
+    ls = LocalSGDConfig(replicas=2, inner_steps=EDGE_K, async_mode=True,
+                        quorum=2, staleness_bound=1,
+                        compress=CompressConfig(method="int8",
+                                                error_feedback=False))
+    opt_cfg = adamw.OptConfig(learning_rate=3e-3, warmup_steps=5,
+                              decay_steps=tc.steps)
+    kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+               FK.flash_attention_bwd_dkdv, quantize_blocks,
+               dequantize_blocks)
+    tracer = Tracer(enabled=True, process="phase19")
+    old = set_tracer(tracer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = train_local_sgd(cfg, tc, ls, opt_cfg, placement=placement,
+                              fault_plan=FaultPlan(**EDGE_PLAN),
+                              health=health, device=device)
+        torch.cuda.synchronize()
+    finally:
+        set_tracer(old)
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kernels}
+    reports = sum(e.get("name") == "async_round" for e in tracer.events)
+    return (res, launches, reports, wall,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_edge_fleet(torch, np, device):
+    """(a) the control loop at full width, (b) the elastic checkpoint at 4
+    layers, (c) both launchers with --slo and --health-out."""
+    t0 = time.perf_counter()
+    fleet = edge_fleet_full(torch, np, device)
+    parts = {"(a) full-width fleet": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    elastic_checkpoint(torch, np, device)
+    parts["(b) elastic checkpoint"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    launchers_with_health(torch, device)
+    parts["(c) launchers"] = time.perf_counter() - t1
+    log("phase 19 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return fleet
+
+
+def edge_fleet_full(torch, np, device):
+    from repro_torch.configs import get_config
+    from repro_torch.core.faultinject import FaultPlan
+    from repro_torch.obs import HealthMonitor, MetricsRegistry
+    from repro_torch.obs.health import StragglerDetector
+    from repro_torch.train.local_sgd import (LocalSGDConfig,
+                                             per_replica_inner_steps)
+
+    cfg = get_config("opt-1.3b")
+    Bt, St = EDGE_TRAIN
+    placement, _ = edge_placement(cfg, Bt, St)
+    log(f"edge fleet: {EDGE_FLEET} devices over two regions, WAN "
+        f"{EDGE_WAN_BPS / 1e6:g} MB/s; {placement.describe()}")
+    log(f"placement: boundaries {placement.boundaries}, regions by "
+        f"replica {[placement.replica_regions(r) for r in range(2)]}, "
+        f"region groups {placement.region_groups()}, search_stats "
+        f"{placement.search_stats}")
+    ks = per_replica_inner_steps(LocalSGDConfig(replicas=2,
+                                                inner_steps=EDGE_K),
+                                 placement)
+    plan = FaultPlan(**EDGE_PLAN)
+    truth = {str(r) for r in range(2) if plan.is_straggler(r)}
+    log(f"per-region K {ks}; fault plan {EDGE_PLAN}: stragglers "
+        f"{sorted(truth)} (slowdowns "
+        f"{[round(plan.slowdown(r), 3) for r in range(2)]})")
+    # two replicas are the whole fleet a detector compares against: it
+    # may judge with two entities (its default waits for three)
+    health = HealthMonitor(registry=MetricsRegistry(),
+                           straggler=StragglerDetector(min_entities=2))
+    res, launches, reports, wall, peak = edge_run(torch, cfg, placement,
+                                                  device, health)
+    n_fa = cfg.num_layers * res.inner_steps_total
+    n_q = len(opt_leaf_sizes()) * reports
+    tokens = res.inner_steps_total * Bt * St
+    per_update = {k: 1e3 * v / res.outer_updates
+                  for k, v in res.phase_s.items()}
+    log(f"with the monitor: {res.outer_updates} outer updates, "
+        f"{res.inner_steps_total} inner steps in {reports} reports, "
+        f"{res.health_excluded_updates} updates excluded a detected "
+        f"straggler, {res.dropped_stale} deltas dropped stale, "
+        f"{res.late_merged} merged late; detected stragglers "
+        f"{sorted(health.stragglers())} vs the plan's {sorted(truth)}; "
+        f"{health.summary_line()}")
+    log(f"with the monitor: round losses "
+        f"{[round(x, 4) for x in res.round_losses]}; {wall:.1f} s, "
+        f"{tokens / wall:.0f} tokens/s on the card; device ms an update: "
+        f"inner {per_update.get('inner', 0):.1f}, pseudo-gradient + int8 "
+        f"{per_update.get('pseudograd', 0):.1f}, outer "
+        f"{per_update.get('outer', 0):.1f}; modelled sync "
+        f"{res.comm_time_s_per_round:.3f} s an update, "
+        f"{res.sync_wan_bytes_per_round / 1e9:.3f} GB over the WAN; peak "
+        f"memory {peak / 1e9:.2f} GB")
+    log(f"launches {launches}; expected FA-2 {cfg.num_layers} x "
+        f"{res.inner_steps_total} inner steps = {n_fa} each, quant8 "
+        f"{len(opt_leaf_sizes())} leaves x {reports} reports = {n_q} each")
+    if not all(np.isfinite(res.losses + res.round_losses)) \
+            or not res.round_losses:
+        fail(f"non-finite or missing losses: {res.round_losses}")
+    if any(launches[k] != n_fa for k in list(launches)[:3]) or any(
+            launches[k] != n_q for k in list(launches)[3:]):
+        fail(f"launches {launches} are not {n_fa} (FA-2) and {n_q} "
+             "(quant8) each")
+    if health.stragglers() != truth or not truth:
+        fail(f"detected stragglers {sorted(health.stragglers())} are not "
+             f"the plan's {sorted(truth)}")
+    if res.health_excluded_updates == 0:
+        fail("no outer update went ahead without the detected straggler")
+    vt = res.virtual_time_s
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"between the runs: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated")
+    plain, p_launches, p_reports, p_wall, _ = edge_run(
+        torch, cfg, placement, device, None)
+    log(f"without the monitor: {plain.outer_updates} outer updates, "
+        f"{plain.inner_steps_total} inner steps in {p_reports} reports, "
+        f"{plain.dropped_stale} dropped stale, {p_wall:.1f} s; virtual "
+        f"time {plain.virtual_time_s:.3f} s vs {vt:.3f} s with the "
+        f"monitor ({plain.virtual_time_s / vt:.2f}x); launches "
+        f"{p_launches}")
+    if not all(np.isfinite(plain.round_losses)):
+        fail(f"non-finite losses without the monitor: {plain.round_losses}")
+    if not vt < plain.virtual_time_s:
+        fail(f"the monitored virtual time {vt} is not below the "
+             f"unmonitored {plain.virtual_time_s}")
+    if any(p_launches[k] != cfg.num_layers * plain.inner_steps_total
+           for k in list(p_launches)[:3]) or any(
+               p_launches[k] != len(opt_leaf_sizes()) * p_reports
+               for k in list(p_launches)[3:]):
+        fail(f"launches without the monitor {p_launches} are off")
+    del plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _bits(torch, t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def same_bits(torch, got, want):
+    """Every leaf of ``got`` equal to ``want``'s bit for bit (bf16 as
+    int16 views), on the same device."""
+    from repro_torch.models.params import tree_leaves
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(
+        x.device == y.device and x.dtype == y.dtype
+        and torch.equal(_bits(torch, x), _bits(torch, y))
+        for x, y in zip(a, b))
+
+
+def elastic_checkpoint(torch, np, device):
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointSpec, ckpt, elastic
+    from repro_torch.configs import get_config
+    from repro_torch.core.faultinject import corrupt_file
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    from repro_torch.train.trainer import TrainerConfig, _to_device, train
+
+    full = get_config("opt-1.3b")
+    L = ELASTIC_LAYERS
+    cfg = dataclasses.replace(full, name=f"{full.name}-L{L}", num_layers=L)
+    Bt, St = EDGE_TRAIN
+    placement, topo = edge_placement(cfg, Bt, St)
+    spec = CheckpointSpec.from_placement(placement, replication=1)
+    three, two = (CheckpointSpec(L, b) for b in ELASTIC_SPLITS)
+    log(f"elastic checkpoint at {L} layers: placement boundaries "
+        f"{placement.boundaries} ({placement.num_stages} stages), "
+        f"holders {spec.holders}")
+    tc = TrainerConfig(steps=ELASTIC_ROUNDS, batch=Bt, seq_len=St,
+                       attn_impl="kernel", log_every=0, seed=2)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        t0 = time.perf_counter()
+        res = train_local_sgd(cfg, tc, LocalSGDConfig(
+            replicas=2, inner_steps=1, checkpoint_dir=str(d / "run"),
+            checkpoint_every_rounds=1, checkpoint_replication=1),
+            placement=placement, device=device)
+        state = res.outer_state
+        step = ckpt.latest_complete_step(d / "run")
+        m = ckpt._read_manifest(ckpt._step_dir(d / "run", step))
+        nbytes = sum(f.stat().st_size
+                     for f in ckpt._step_dir(d / "run", step).iterdir())
+        log(f"sync local SGD over the placement: {res.rounds} rounds, "
+            f"round losses {[round(x, 4) for x in res.round_losses]}, "
+            f"{time.perf_counter() - t0:.1f} s; step {step}: layout "
+            f"{m['layout']}, boundaries {m['boundaries']}, replication "
+            f"{m['replication']}, {nbytes / 1e9:.3f} GB on disk")
+        if step != ELASTIC_ROUNDS or m["layout"] != "layer_sliced" \
+                or m["boundaries"] != placement.boundaries:
+            fail("the placement-driven run did not write its layer-sliced "
+                 "checkpoints")
+        # the neighbour holding shard s's copy (writer s + 1) on its own disk
+        s = 1 % spec.num_shards
+        holder = (s + 1) % spec.num_shards
+        ckpt.save_sharded(d / "neighbour", step, state, spec, holder)
+        a, b = spec.slices()[s]
+        victim = max((p for p in ckpt._step_dir(d / "run", step).iterdir()
+                      if f".L{a:05d}-{b:05d}" in p.name),
+                     key=lambda p: (p.stat().st_size, p.name)).name
+        corrupt_file(ckpt._step_dir(d / "run", step) / victim, seed=step)
+        damaged = ckpt.damaged_files(d / "run", step)
+        node = placement.pipelines[0][holder].node
+        rep = ckpt.heal_step(d / "run", step,
+                             sources=[(node, d / "neighbour")])
+        cost = elastic.heal_cost(topo, [
+            (h["source"], placement.pipelines[0][s].node, h["bytes"])
+            for h in rep.healed])
+        log(f"bit rot in {victim}: damaged_files {damaged}; heal_step "
+            f"fetched {rep.bytes_fetched} bytes from {rep.per_source_bytes}"
+            f" (priced {cost.time_s:.3f} s, {cost.wan_bytes:.0f} WAN "
+            f"bytes)")
+        # (the CRC-checked restore below reads the mended file)
+        if damaged != [(victim, "corrupt")] or not rep.ok or \
+                [h["file"] for h in rep.healed] != [victim]:
+            fail("damaged_files / heal_step did not name and mend the "
+                 "rotten shard")
+        t0 = time.perf_counter()
+        got = ckpt.restore_for_placement(d / "run", three, state, step)
+        part = ckpt.restore_for_placement(d / "run", three, state, step,
+                                          stage=2)
+        wq = part["params"]["decoder"]["g0"]["s0_attn"]["wq"]
+        crop = torch.equal(_bits(torch, wq), _bits(
+            torch, state["params"]["decoder"]["g0"]["s0_attn"]["wq"][2:4]))
+        exact = same_bits(torch, got, state)
+        # the restored state as the 3-stage checkpoint, resharded onto 2
+        # stages and back: the files must come back byte for byte
+        ckpt.save_for_placement(d / "s3", step, got, three)
+        ckpt.reshard(d / "s3", two, state, out_directory=d / "s2")
+        ckpt.reshard(d / "s2", three, state, out_directory=d / "s3b")
+        files = [{p.name: p.read_bytes() for p in
+                  ckpt._step_dir(d / x, step).iterdir()}
+                 for x in ("s3", "s3b")]
+        log(f"restore_for_placement onto {three.boundaries}: every leaf "
+            f"the card's state bit for bit {exact}, stage 2 cropped "
+            f"{crop}; reshard {three.boundaries} -> {two.boundaries} -> "
+            f"{three.boundaries}: files equal {files[0] == files[1]} "
+            f"({len(files[0])} files); {time.perf_counter() - t0:.1f} s")
+        if not (exact and crop and files[0] == files[1]):
+            fail("the elastic restore or the 3 -> 2 -> 3 reshard lost bits")
+        del res, state, got, part, files
+        torch.cuda.empty_cache()
+
+        # the trainer's checkpoint_placement: save, restore, resume
+        t0 = time.perf_counter()
+        params = init_params(cfg, device=device, seed=3)
+        kw = dict(batch=Bt, seq_len=St, attn_impl="kernel", log_every=0,
+                  seed=3, checkpoint_dir=str(d / "trainer"),
+                  checkpoint_placement=placement, checkpoint_replication=1)
+        train(cfg, TrainerConfig(steps=2, checkpoint_every=2, **kw),
+              params=params, device=device)
+        like = {"params": tree_map(torch.empty_like, params)}
+        like["opt"] = adamw.init_opt_state(like["params"], adamw.OptConfig())
+        saved = ckpt.restore_for_placement(d / "trainer", three, like)
+        ok = (same_bits(torch, saved["params"], params)
+              and int(saved["opt"]["step"]) == 2)
+        resumed = train(cfg, TrainerConfig(steps=1, checkpoint_every=0,
+                                           resume=True, **kw),
+                        params=init_params(cfg, device=device, seed=4),
+                        device=device)
+        batch = _to_device(next(make_batch_fn(cfg, Bt, St, 3)), device)
+        with torch.no_grad():
+            loss0 = float(M.forward_train(saved["params"], cfg, batch,
+                                          attn_impl="kernel")[0])
+        log(f"trainer checkpoint_placement: step 2 restored onto "
+            f"{three.boundaries} bit for bit {ok}, opt step "
+            f"{int(saved['opt']['step'])}; resumed from step "
+            f"{resumed.resumed_from_step}, first loss "
+            f"{resumed.losses[0]:.6f} vs the saved params' {loss0:.6f}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not ok or resumed.resumed_from_step != 2 or \
+                abs(resumed.losses[0] - loss0) > 1e-6 * abs(loss0):
+            fail("the trainer's layer-sliced checkpoint did not restore or "
+                 "resume exactly")
+    torch.cuda.empty_cache()
+
+
+def launchers_with_health(torch, device):
+    """Both launchers in-process with --slo and --health-out; every
+    artifact they write must pass ``repro_torch.obs.validate``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.obs import get_tracer, set_tracer
+    from repro_torch.obs.validate import validate
+    old = get_tracer()
+    with tempfile.TemporaryDirectory() as d:
+        runs = {
+            "train": (train_launcher, [
+                "--torch-device", str(device), "--arch", "opt-1.3b", "--local-sgd", "--async",
+                "--replicas", "4", "--inner-steps", "2", "--steps", "12",
+                "--batch", "2", "--seq", "128", "--quorum", "4",
+                "--staleness-bound", "2", "--straggler-frac", "0.3",
+                "--fault-seed", "3", "--slo", "tokens_per_s=1e12",
+                "--health-out", f"{d}/train_health.jsonl",
+                "--trace-out", f"{d}/train_trace.json",
+                "--metrics-out", f"{d}/train_metrics.jsonl"]),
+            "serve": (serve_launcher, [
+                "--torch-device", str(device), "--arch", "qwen2-7b", "--full", "--batch", "24",
+                "--max-new", "16", "--slo", f"ttft={SLO_BAD_TTFT_S},itl=10",
+                "--health-out", f"{d}/serve_health.jsonl",
+                "--trace-out", f"{d}/serve_trace.json",
+                "--metrics-out", f"{d}/serve_metrics.jsonl"])}
+        for name, (mod, argv) in runs.items():
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    mod.main(argv)
+            finally:
+                set_tracer(old)
+            lines = [l for l in out.getvalue().splitlines()
+                     if "slo:" in l or "health:" in l or "final loss" in l
+                     or "engine:" in l]
+            log(f"{name} launcher ({time.perf_counter() - t0:.1f} s): "
+                + " | ".join(lines))
+            for kind in ("health.jsonl", "trace.json", "metrics.jsonl"):
+                path = f"{d}/{name}_{kind}"
+                try:
+                    counts = validate(path)
+                except (OSError, ValueError) as e:
+                    fail(f"the {name} launcher's {kind} fails "
+                         f"repro_torch.obs.validate: {e}")
+                log(f"  {name}_{kind} valid: " + " ".join(
+                    f"{k}={v}" for k, v in sorted(counts.items())))
+            torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3548,7 +4066,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 19)) if args.phases is None
+    wanted = (set(range(1, 20)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -3592,18 +4110,19 @@ def main(argv=None) -> int:
     run(16, phase_granite, torch, np, device)
     run(17, phase_whisper, torch, np, device)
     run(18, phase_qwen2_vl, torch, np, device)
+    run(19, phase_edge_fleet, torch, np, device)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
-    if wanted != set(range(1, 19)):
+    if wanted != set(range(1, 20)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
     # the kernels line: launches and timing on this slice's paths where a
-    # kernel lies on one (flash-decode: phase 18's qwen2-vl engine at group
-    # 6, D 128; the FA-2 kernels: phase 17's whisper train steps, timed at
-    # its encoder's shape; the SSD scan: phase 13's jamba prefill), else
-    # on the path that runs it; each row also keeps the earlier paths'
-    # launches and timing
+    # kernel lies on one (flash-decode: phase 2's SLO-gated qwen2-7b
+    # engine; the FA-2 and quant8 kernels: phase 19's edge fleet, opt-1.3b
+    # at 2 x 2048 tokens a replica), else on the path that runs it (the
+    # SSD scan: phase 13's jamba prefill); each row also keeps the earlier
+    # paths' launches and timing
     worst, timing = got[1]
     fa_worst, fa_timing = got[3]
     q_worst, q_timing = got[5]
@@ -3614,31 +4133,38 @@ def main(argv=None) -> int:
     granite_train, granite_engine = got[16]
     whisper_train, whisper_prefill = got[17]
     qwen2_vl_train, qwen2_vl_prefill, qwen2_vl_engine = got[18]
+    engine_launches, slo_launches = got[2]
+    edge = got[19]
     fa = "src/repro/kernels/flash_attention/kernel.py"
     qwen2 = {k: v for k, v in timing.items()
              if k not in ("granite", "qwen2_vl")}
     rows = [{"name": "flash_decode_paged", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_attention/decode.py:132",
-             "launches": qwen2_vl_engine, "max_abs_err": worst,
-             **timing["qwen2_vl"],
-             "shape": "qwen2-vl-2b decode, B 8 x 2048 tokens, "
-                      + str(QWEN2VL_DECODE),
+             "launches": slo_launches, "max_abs_err": worst, **qwen2,
+             "shape": "qwen2-7b decode, B 8 x 2048 tokens, "
+                      + str((H, K, D)),
+             "at_qwen2_vl_2b": {"shape": str(QWEN2VL_DECODE),
+                                **timing["qwen2_vl"]},
              "at_granite_3_2b": {"shape": str(GRANITE_DECODE),
                                  **timing["granite"]},
-             "at_qwen2_7b": {"shape": str((H, K, D)), **qwen2},
-             "launches_by_path": {"qwen2-vl-2b engine (phase 18)":
+             "launches_by_path": {"qwen2-7b SLO-gated engine (phase 2)":
+                                  slo_launches,
+                                  "qwen2-vl-2b engine (phase 18)":
                                   qwen2_vl_engine,
                                   "granite-3-2b engine (phase 16)":
                                   granite_engine,
-                                  "qwen2-7b engine (phase 2)": got[2],
+                                  "qwen2-7b engine (phase 2)":
+                                  engine_launches,
                                   "mixtral-8x7b engine (phase 10)":
                                       got[10][0]}}]
     for name, kern, src, line in (
             ("flash_attention_fwd", "fwd", "flash_attn_fwd.cu", 86),
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
-        by_path = {"whisper-medium train, 8 steps (phase 17)":
+        by_path = {"opt-1.3b edge fleet, async local SGD (phase 19)":
+                   edge[name],
+                   "whisper-medium train, 8 steps (phase 17)":
                    whisper_train[name],
                    "qwen2-vl-2b train, 8 steps (phase 18)":
                    qwen2_vl_train[name],
@@ -3659,10 +4185,13 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": whisper_train[name],
+                     "launches": edge[name],
                      "max_abs_err": fa_worst[kern],
-                     **fa_timing["whisper"][kern],
-                     "shape": "whisper-medium encoder " + str(WHISPER_FA),
+                     **fa_timing["opt_edge"][kern],
+                     "shape": "opt-1.3b edge replica " + str(OPT_EDGE_FA),
+                     "at_whisper_medium_encoder": {
+                         "shape": str(WHISPER_FA),
+                         **fa_timing["whisper"][kern]},
                      "at_whisper_cross_attention": {
                          "shape": str(WHISPER_XFA),
                          **fa_timing["whisper_cross"][kern]},
@@ -3680,9 +4209,14 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/quant8.cu",
                      "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
-                     "launches": ls_launches[name],
+                     "launches": edge[name],
                      "max_abs_err": max(q_worst, c_worst),
-                     **q_timing[kern]})
+                     **q_timing[kern],
+                     "shape": "opt-1.3b's largest leaf, fp32, block 256",
+                     "launches_by_path": {
+                         "opt-1.3b edge fleet, async local SGD (phase 19)":
+                         edge[name],
+                         "opt-1.3b local SGD (phase 6)": ls_launches[name]}})
     mamba = {k: v for k, v in ssd_timing.items() if k != "jamba"}
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/csrc/ssd_scan.cu",

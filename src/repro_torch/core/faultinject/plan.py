@@ -1,5 +1,5 @@
 """Deterministic fault injection for the edge fleet (a copy of
-``repro.core.faultinject.plan`` without the checkpoint bit-rot helper).
+``repro.core.faultinject.plan``).
 
 The common case on "sparingly used connected edge AI devices" is
 failure: stragglers on slow radio links, devices vanishing mid-round,
@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -236,3 +237,23 @@ class FaultInjector:
     # consumers control the timestamp/attrs; these just shorten access)
     def __getattr__(self, name):
         return getattr(self.plan, name)
+
+
+def corrupt_file(path, *, seed: int = 0, flips: int = 8) -> int:
+    """Deterministically bit-rot ``path``: XOR ``flips`` bytes at seeded
+    offsets past the first 128 bytes (so an ``.npy`` header still parses
+    and the rot is only catchable by checksum, like real silent disk
+    corruption).  Returns the number of bytes flipped."""
+    p = Path(path)
+    data = bytearray(p.read_bytes())
+    if not data:
+        return 0
+    start = min(128, max(0, len(data) - 1))
+    rng = np.random.default_rng([int(seed) & 0xFFFFFFFF,
+                                 zlib.crc32(p.name.encode())])
+    n = min(flips, len(data) - start) or 1
+    offs = rng.integers(start, len(data), size=n)
+    for o in offs:
+        data[int(o)] ^= 0xFF
+    p.write_bytes(bytes(data))
+    return n

@@ -74,6 +74,10 @@ def decode_flops(cfg: ModelConfig, batch: int, cache_len: int) -> float:
                     + ssm_step)
 
 
+def param_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> float:
+    return cfg.param_count() * dtype_bytes
+
+
 def kv_cache_bytes(cfg: ModelConfig, batch: int, cache_len: int,
                    dtype_bytes: int = 2) -> float:
     if cfg.attention == "mla":

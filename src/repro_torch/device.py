@@ -13,12 +13,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means the CUDA card; there is no silent CPU fallback.
 
     Raises when CUDA is asked for (explicitly or by default) and no card is
-    present — pass ``device="cpu"`` to run the plain PyTorch versions."""
+    present — pass ``device="cpu"`` to run the plain PyTorch versions.
+    ``cuda`` without an index becomes the current card's ``cuda:<n>``, the
+    device its tensors report."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the "
-            "CPU explicitly")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU explicitly")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -12,6 +12,12 @@ warmup runs before the
 timing window so the kernel build and first-launch costs stay out of
 tokens/s.  ``--torch-device cpu`` runs the plain PyTorch versions on the
 CPU.
+
+``--slo ttft=0.5,itl=0.2`` monitors the serve SLOs with burn rates (the
+engine defers admissions past half its slots while the TTFT SLO burns)
+and prints their verdicts; ``--health-out health.jsonl`` writes the SLO
+verdicts and the alert record, which ``python -m repro_torch.obs.validate``
+checks.
 """
 
 from __future__ import annotations
@@ -54,6 +60,14 @@ def main(argv=None) -> None:
                     help="write a Chrome-trace/Perfetto JSON timeline")
     ap.add_argument("--metrics-out", default=None,
                     help="write the engine metrics registry as JSONL")
+    ap.add_argument("--slo", default=None, metavar="K=V[,K=V...]",
+                    help="monitor serve SLOs (the engine defers "
+                         "admissions while the TTFT SLO burns); keys: "
+                         "ttft=<p99 s>, itl=<inter-token p99 s>, "
+                         "gco2e=<budget>, horizon=<s> (e.g. "
+                         "--slo ttft=0.5,gco2e=2)")
+    ap.add_argument("--health-out", default=None,
+                    help="write the SLO verdicts + alert record as JSONL")
     args = ap.parse_args(argv)
 
     import torch
@@ -63,7 +77,8 @@ def main(argv=None) -> None:
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
     from repro_torch.models import params as P
-    from repro_torch.obs import Tracer, get_tracer, set_tracer
+    from repro_torch.obs import (HealthMonitor, SLOMonitor, Tracer,
+                                 get_tracer, serve_slos, set_tracer)
 
     dev = resolve_device(args.torch_device)
     energy = get_device(args.device)
@@ -74,17 +89,35 @@ def main(argv=None) -> None:
     params = P.init_params(cfg, device=dev, seed=0)
     if args.trace_out or args.metrics_out:
         set_tracer(Tracer(enabled=True, process=f"serve:{cfg.name}"))
+    slo = health = None
+    if args.slo is not None or args.health_out is not None:
+        health = HealthMonitor()
+        kv = dict(p.split("=", 1) for p in (args.slo or "").split(",") if p)
+        slo = SLOMonitor(serve_slos(
+            ttft_p99_s=float(kv.get("ttft", 0.5)),
+            inter_token_p99_s=float(kv.get("itl", 0.2)),
+            gco2e_budget=float(kv.get("gco2e", 0)),
+            horizon_s=float(kv.get("horizon", 3600.0))),
+            registry=health.registry)
     if args.legacy or not M.paged_decode_supported(cfg):
         _run_legacy(args, cfg, params, energy, dev)
+        if slo is not None:
+            print(f"[serve] {slo.summary_line()}")
     else:
-        _run_engine(args, cfg, params, energy, dev)
+        _run_engine(args, cfg, params, energy, dev, slo=slo, health=health)
+    if args.health_out and health is not None:
+        health.dump_jsonl(args.health_out, slo=slo,
+                          meta={"arch": cfg.name, "requests": args.batch,
+                                "torch_device": str(dev)})
+        print(f"[serve] health record: {args.health_out}")
     if args.trace_out:
         get_tracer().save_chrome_trace(args.trace_out)
         print(f"[serve] trace: {args.trace_out} "
               f"({len(get_tracer().events)} events)")
 
 
-def _run_engine(args, cfg, params, energy, dev) -> None:
+def _run_engine(args, cfg, params, energy, dev, slo=None,
+                health=None) -> None:
     import numpy as np
 
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
@@ -100,7 +133,8 @@ def _run_engine(args, cfg, params, energy, dev) -> None:
                         cache_dtype=args.kv_dtype,
                         prefill_chunk=args.prefill_chunk,
                         prefix_sharing=not args.no_prefix_sharing)
-    engine = ServeEngine(params, cfg, ecfg, device=energy, torch_device=dev)
+    engine = ServeEngine(params, cfg, ecfg, device=energy, torch_device=dev,
+                         slo=slo)
     engine.warmup()
     engine.reset_stats()
 
@@ -137,6 +171,16 @@ def _run_engine(args, cfg, params, energy, dev) -> None:
                   "max_new": args.max_new, "attn_impl": args.attn_impl,
                   "torch_device": str(dev)})
         print(f"[serve] metrics: {args.metrics_out}")
+    if slo is not None:
+        # carbon spend paces against the budget over the serving window
+        slo.observe("serve_gco2e", s["carbon_g"], t=0.0)
+        slo.observe("serve_gco2e", 0.0, t=max(engine.wall_s, 1e-9))
+        deferred = int(engine.metrics.counter(
+            "serve/admission_deferred").value)
+        print(f"[serve] {slo.summary_line()} | admissions deferred "
+              f"under burn: {deferred}")
+    if health is not None:
+        print(f"[serve] health: {health.summary_line()}")
 
 
 def _run_legacy(args, cfg, params, energy, dev) -> None:

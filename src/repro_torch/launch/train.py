@@ -16,9 +16,16 @@ carbon of the run on ``--device``'s energy profile.
 seed-replayable fault plan (``--fault-seed``).  ``--checkpoint-dir`` with
 ``--checkpoint-every`` (steps, or rounds under ``--local-sgd``) saves
 checkpoints in the JAX package's format; ``--resume`` restores the newest
-complete one first.  ``--health-out``, ``--slo``, ``--mesh`` and
-``--host-devices`` wait for the ports of ``obs/health.py``, ``obs/slo.py``
-and the multi-device paths, and raise.
+complete one first.  ``--mesh`` and ``--host-devices`` wait for the port
+of the multi-device paths, and raise.
+
+Health: ``--health-out health.jsonl`` attaches the streaming detectors
+(stragglers / link degradation / loss spikes — the async quorum then
+excludes *detected* stragglers) and writes their alert record;
+``--slo tokens_per_s=500,gco2e=5`` adds burn-rate-monitored SLOs, with a
+one-line verdict summary at the end of the run.  Check the record with
+``python -m repro_torch.obs.validate health.jsonl`` and read it with
+``python -m repro_torch.obs.analyze alerts health.jsonl``.
 
 Telemetry: ``--trace-out trace.json`` writes a Chrome-trace / Perfetto
 timeline of the step phases (data / fwd_bwd_opt / metrics drain);
@@ -32,6 +39,10 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
         --local-sgd --replicas 2 --inner-steps 2 --steps 8 --batch 2 \\
         --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
+        --local-sgd --async --replicas 4 --inner-steps 2 --steps 12 \\
+        --batch 2 --seq 16 --straggler-frac 0.3 --fault-seed 3 \\
+        --health-out health.jsonl --slo tokens_per_s=500
 """
 
 from __future__ import annotations
@@ -94,18 +105,26 @@ def main(argv=None) -> None:
                     help="per-round crash probability per replica")
     ap.add_argument("--link-flap-prob", type=float, default=0.0,
                     help="per-round link flap probability per replica")
-    for flag in ("--health-out", "--slo", "--mesh"):
-        ap.add_argument(flag, default=None, help="not ported yet: raises")
+    ap.add_argument("--slo", default=None, metavar="K=V[,K=V...]",
+                    help="monitor train SLOs and print end-of-run "
+                         "verdicts; keys: tokens_per_s=<floor>, "
+                         "staleness=<bound>, gco2e=<budget>, "
+                         "horizon=<s> (e.g. --slo tokens_per_s=500,"
+                         "gco2e=5)")
+    ap.add_argument("--health-out", default=None,
+                    help="attach the streaming health detectors "
+                         "(straggler / link / loss-spike) and write "
+                         "their alert record + SLO verdicts as JSONL")
+    ap.add_argument("--mesh", default=None,
+                    help="not ported yet (the multi-device slice): raises")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="not ported yet: raises")
+                    help="not ported yet (the multi-device slice): raises")
     args = ap.parse_args(argv)
-    waiting = {"health_out": "obs/health.py", "slo": "obs/slo.py",
-               "mesh": "the multi-device paths",
-               "host_devices": "the multi-device paths"}
-    for name, what in waiting.items():
+    for name in ("mesh", "host_devices"):
         if getattr(args, name):
-            raise NotImplementedError(f"--{name.replace('_', '-')} waits "
-                                      f"for the port of {what}")
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} waits for the port of the "
+                "multi-device paths (sharding, pipeline, dry-run)")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume needs --checkpoint-dir")
 
@@ -116,7 +135,8 @@ def main(argv=None) -> None:
     from repro_torch.core.energy.devices import get_device
     from repro_torch.core.energy.monitor import ComponentModel, EnergyMonitor
     from repro_torch.device import resolve_device
-    from repro_torch.obs import MetricsRegistry, Tracer, get_tracer, set_tracer
+    from repro_torch.obs import (HealthMonitor, MetricsRegistry, SLOMonitor,
+                                 Tracer, get_tracer, set_tracer, train_slos)
     from repro_torch.train.trainer import TrainerConfig, train
 
     dev = resolve_device(args.torch_device)
@@ -132,6 +152,17 @@ def main(argv=None) -> None:
                           process=f"train:{cfg.name}"))
     monitor = EnergyMonitor(ComponentModel.for_device(
         get_device(args.device)))
+    health = slo = None
+    if args.health_out is not None or args.slo is not None:
+        health = HealthMonitor(registry=registry)
+        if args.slo is not None:
+            kv = dict(p.split("=", 1) for p in args.slo.split(",") if p)
+            slo = SLOMonitor(train_slos(
+                tokens_per_s_floor=float(kv.get("tokens_per_s", 0)),
+                staleness_bound=float(kv.get("staleness", 0)),
+                gco2e_budget=float(kv.get("gco2e", 0)),
+                horizon_s=float(kv.get("horizon", 3600.0))),
+                registry=health.registry)
     local = args.local_sgd or args.async_mode
     tc = TrainerConfig(steps=args.steps, batch=args.batch, seq_len=args.seq,
                        microbatches=args.microbatches, remat=args.remat,
@@ -158,10 +189,12 @@ def main(argv=None) -> None:
                             staleness_bound=args.staleness_bound)
         res = train_local_sgd(
             cfg, tc, ls, monitor=None if args.async_mode else monitor,
-            metrics=registry, fault_plan=fault_plan, device=dev)
+            metrics=registry, fault_plan=fault_plan, health=health,
+            device=dev)
         tokens_s = res.steps_per_s * args.batch * args.seq
     else:
-        res = train(cfg, tc, monitor=monitor, metrics=registry, device=dev)
+        res = train(cfg, tc, monitor=monitor, metrics=registry,
+                    health=health, device=dev)
         tokens_s = res.steady_steps_per_s * args.batch * args.seq
 
     led = CarbonLedger()
@@ -181,6 +214,24 @@ def main(argv=None) -> None:
             faults = " ".join(f"{k}={v}"
                               for k, v in sorted(res.fault_counts.items()))
             print(f"[train] faults: {faults}")
+    if slo is not None:
+        tok_s = getattr(res, "virtual_tokens_per_s", 0.0) \
+            or res.steps_per_s * args.batch * args.seq
+        slo.observe("train_tokens_per_s", tok_s)
+        elapsed = getattr(res, "virtual_time_s", 0.0) \
+            or args.steps / max(res.steps_per_s, 1e-9)
+        slo.observe("train_gco2e", led.operational_kg * 1000, t=0.0)
+        slo.observe("train_gco2e", 0.0, t=elapsed)
+    if health is not None:
+        print(f"[train] health: {health.summary_line()}")
+    if slo is not None:
+        print(f"[train] {slo.summary_line()}")
+    if args.health_out:
+        health.dump_jsonl(args.health_out, slo=slo,
+                          meta={"arch": cfg.name, "steps": args.steps,
+                                "local_sgd": local,
+                                "torch_device": str(dev)})
+        print(f"[train] health record: {args.health_out}")
     if args.trace_out:
         get_tracer().save_chrome_trace(args.trace_out)
         print(f"[train] trace: {args.trace_out} "

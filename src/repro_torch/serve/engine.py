@@ -40,6 +40,12 @@ force deterministic slot preemptions (``crashes(uid, step)`` — a serving
 worker blip), which is how the requeue bound and deadline behavior are
 exercised reproducibly.
 
+SLO brownout: with ``slo=`` (a :class:`repro_torch.obs.SLOMonitor`) the
+engine feeds it every TTFT and inter-token observation, and while the
+``serve_ttft`` SLO burns, admission stops filling slots past half
+occupancy (``serve/admission_deferred`` counts each deferral) until the
+burn recovers.
+
 The pools are updated in place (``index_put_`` / page copies), which is
 what buffer donation bought the JAX engine.  The engine runs on the card
 unless ``torch_device="cpu"`` is asked for; it never falls back quietly.
@@ -153,9 +159,12 @@ class ServeEngine:
                  torch_device: DeviceLike = None,
                  intensity_kg_per_kwh: Optional[float] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None,
+                 slo=None):
         """``device`` is the energy profile; ``torch_device`` is where the
-        model runs (the card unless "cpu" is asked for)."""
+        model runs (the card unless "cpu" is asked for); ``slo`` an
+        optional :class:`repro_torch.obs.SLOMonitor` that gates
+        admission."""
         if not M.paged_decode_supported(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: paged serving needs attn/mlp/moe-only decoders "
@@ -204,6 +213,11 @@ class ServeEngine:
         # preemptions) always flow through an injector so they land on
         # the obs timeline with the validated fault schema
         self.injector = FaultInjector(fault_plan, registry=self.metrics)
+        # the engine feeds the SLO monitor every TTFT / inter-token
+        # observation, and while "serve_ttft" burns, admission tightens to
+        # half the slots (brownout: protect in-flight latency, shed queue
+        # pressure through the TTFT-deadline machinery) until it recovers
+        self.slo = slo
 
         self._depths = [g.depth for g in MP.decoder_groups(cfg)]
         # per-block KV bytes across all layers (for peak-memory stats)
@@ -252,8 +266,19 @@ class ServeEngine:
 
     def _admit(self) -> None:
         free = self.kv.free_slots()
+        live = self.ecfg.max_slots - len(free)
         while free and self._waiting \
                 and self.kv.can_admit(list(self._waiting[0].prompt)):
+            if self.slo is not None and live >= 1 \
+                    and live >= max(1, self.ecfg.max_slots // 2) \
+                    and self.slo.burning("serve_ttft"):
+                # TTFT SLO burning: stop filling slots past half occupancy
+                # so in-flight prefills finish sooner; the queue drains
+                # through the deadline machinery instead of piling more
+                # concurrent work onto a latency breach
+                self.metrics.counter("serve/admission_deferred").inc(1)
+                break
+            live += 1
             req = self._waiting.popleft()
             slot = free.pop(0)
             # longest cached prefix maps in read-only; those positions are
@@ -467,6 +492,9 @@ class ServeEngine:
                     # at submit and only the FIRST ever token stops it
                     self.metrics.histogram("serve/ttft_s").observe(
                         rt.first_token_s - rt.submit_s)
+                    if self.slo is not None:
+                        self.slo.observe("serve_ttft",
+                                         rt.first_token_s - rt.submit_s)
             if s.fed >= len(s.req.prompt):          # this logit row counts
                 tok = int(sampled[i])
                 s.generated.append(tok)
@@ -481,6 +509,8 @@ class ServeEngine:
                         self.metrics.histogram(
                             "serve/inter_token_s",
                             lo=1e-7, hi=3600.0).observe(gap)
+                        if self.slo is not None:
+                            self.slo.observe("serve_inter_token", gap)
                     rt.last_token_s = now
                 done = (len(s.generated) >= s.req.max_new
                         or (s.req.eos_id >= 0 and tok == s.req.eos_id))

@@ -30,9 +30,17 @@ Two outer-loop modes, as in the JAX package:
   With ``quorum = replicas`` and ``staleness_bound = 0`` it is
   bit-identical to the synchronous loop.
 
-Both modes drive a modelled virtual fleet clock (``nominal_step_s`` per
-inner step) and consume a seeded :class:`FaultPlan` (stragglers,
-crash/rejoin, link flaps) exactly as the JAX package does.
+Both modes drive a modelled virtual fleet clock (per-replica step times
+from a placement's device specs, or ``nominal_step_s``) and consume a
+seeded :class:`FaultPlan` (stragglers, crash/rejoin, link flaps) exactly as
+the JAX package does.  A :class:`~repro_torch.core.placement.PlacementSpec`
+maps the replicas onto its region groups: the sync is priced per stage
+slot over that slot's replica nodes, each region runs its own K (slow
+regions proportionally fewer inner steps), and checkpoints are written
+layer-sliced by its stage boundaries with neighbour copies.  A
+:class:`~repro_torch.obs.HealthMonitor` sees only observed durations and
+losses; in async mode the quorum barrier shrinks past the replicas it has
+flagged as stragglers.
 
 The replicas run one after the other on one device.  The JAX loop kept
 every array immutable; here the train step updates its parameters in
@@ -64,10 +72,12 @@ from repro_torch.core import flops as F
 from repro_torch.core.energy.monitor import EnergyMonitor
 from repro_torch.core.faultinject import FaultInjector, FaultPlan
 from repro_torch.core.net import sync_cost
+from repro_torch.core.placement import PlacementSpec
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import params as PM
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.health import HealthMonitor
 from repro_torch.obs.metrics import MetricsRegistry, fetch_scalars
 from repro_torch.obs.trace import get_tracer
 from repro_torch.optim import adamw
@@ -90,7 +100,7 @@ class LocalSGDConfig:
     compress: Optional[CompressConfig] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every_rounds: int = 0
-    checkpoint_replication: int = 1  # layer-sliced copies: not ported yet
+    checkpoint_replication: int = 1  # §5 neighbour shard copies
     resume: bool = False             # restore newest complete ckpt first
     # ---- bounded-staleness async outer loop -------------------------
     async_mode: bool = False         # quorum-gated outer updates
@@ -111,7 +121,8 @@ class LocalSGDResult:
     comm_time_s_per_round: float = 0.0       # modelled, if topology given
     comm_time_s_per_step: float = 0.0        # amortized over K inner steps
     energy_wh: float = 0.0
-    replica_regions: List[str] = field(default_factory=list)  # placement
+    replica_regions: List[str] = field(default_factory=list)  # per replica,
+                                             # when a placement maps them
     sync_wan_bytes_per_round: float = 0.0    # modelled WAN share
     # ---- async / fault-injection accounting -------------------------
     mode: str = "sync"
@@ -126,8 +137,10 @@ class LocalSGDResult:
     virtual_time_s: float = 0.0              # modelled fleet wall-clock
     virtual_tokens_per_s: float = 0.0        # contributed tokens / vclock
     fault_counts: Dict[str, int] = field(default_factory=dict)
-    # health= is not ported yet: these stay at their defaults
-    health_excluded_updates: int = 0
+    # ---- health-driven response accounting ---------------------------
+    health_excluded_updates: int = 0         # outer updates that went
+                                             # ahead without a detected
+                                             # straggler (quorum shrunk)
     health_summary: Optional[Dict[str, Any]] = None
     # ---- the port's own ------------------------------------------------
     # device seconds over the run: "inner", "pseudograd", "outer"
@@ -184,28 +197,84 @@ def _outer_update(global_params: Leaves, mean_delta: Leaves,
     return out
 
 
-def per_replica_inner_steps(ls: LocalSGDConfig, placement=None
+def _replica_speeds(placement: Optional[PlacementSpec]
+                    ) -> Optional[List[float]]:
+    """Effective FLOP/s per replica, gated by its slowest stage device
+    (the pipeline bound); None without a placement."""
+    if placement is None:
+        return None
+    return [min(sp.device.effective_flops for sp in pipe)
+            for pipe in placement.pipelines]
+
+
+def per_replica_inner_steps(ls: LocalSGDConfig,
+                            placement: Optional[PlacementSpec] = None
                             ) -> List[int]:
-    """Per-replica K.  Without a placement every replica runs the global
-    K; deriving K from a placement's region groups waits for the port of
-    ``core/placement``."""
-    if placement is not None:
-        raise NotImplementedError("per-region K from a placement waits for "
-                                  "the port of core/placement")
-    return [ls.inner_steps] * ls.replicas
+    """Per-replica K derived from the placement's region groups: every
+    replica in a region shares that region's K, scaled by the region's
+    slowest replica relative to the fastest region — slow regions run
+    proportionally fewer inner steps so rounds finish together instead
+    of the fleet idling on the slowest radio link.  Without a placement
+    every replica runs the global K."""
+    R = ls.replicas
+    speeds = _replica_speeds(placement)
+    if speeds is None:
+        return [ls.inner_steps] * R
+    groups = placement.region_groups()
+    region_speed = {reg: min(speeds[r] for r in reps)
+                    for reg, reps in groups.items()}
+    fastest = max(region_speed.values())
+    ks = [0] * R
+    for reg, reps in groups.items():
+        k = max(1, round(ls.inner_steps * region_speed[reg] / fastest))
+        for r in reps:
+            ks[r] = k
+    return ks
 
 
-def _price_sync_comm(ls: LocalSGDConfig, topology, sync_algorithm: str,
-                     global_params: Leaves) -> Tuple[float, float]:
-    """(modelled outer-sync seconds per round, WAN bytes per round) over
-    the topology's first ``replicas`` devices; zeros without one."""
-    if topology is None:
-        return 0.0, 0.0
+def _replica_step_times(ls: LocalSGDConfig,
+                        placement: Optional[PlacementSpec],
+                        step_flops: float) -> List[float]:
+    """Modelled seconds per inner step, per replica (virtual clock)."""
+    speeds = _replica_speeds(placement)
+    if speeds is None:
+        return [ls.nominal_step_s] * ls.replicas
+    return [step_flops / s for s in speeds]
+
+
+def _price_sync_comm(ls: LocalSGDConfig, placement: Optional[PlacementSpec],
+                     topology, sync_algorithm: str, global_params: Leaves
+                     ) -> Tuple[float, float, List[str]]:
+    """(modelled outer-sync seconds per round, WAN bytes per round,
+    replica -> region map) over the placement or the topology's first
+    ``replicas`` devices; zeros without either."""
+    if topology is None and placement is None:
+        return 0.0, 0.0, []
     n_elems = sum(x.numel() for x in global_params)
+    if placement is not None:
+        # each stage slot syncs its layer shard over that slot's replica
+        # group (disjoint links: concurrent across slots, the slowest
+        # slot gates); a region-grouped placement pays intra-region rates
+        # for most of the volume
+        topo = placement.topology
+        L = placement.num_layers
+        t_round = 0.0
+        wan = 0.0
+        for i, group in enumerate(placement.dp_groups()):
+            shard = int(n_elems * placement.layer_counts[i] / L)
+            c = sync_cost(topo, group, shard, algorithm=sync_algorithm,
+                          compress=ls.compress, dtype_bytes=4)
+            t_round = max(t_round, c.time_s)
+            wan += c.wan_bytes
+        regions = [""] * ls.replicas
+        for reg, reps in placement.region_groups().items():
+            for r in reps:
+                regions[r] = reg
+        return t_round, wan, regions
     group = topology.devices[:ls.replicas]
     c = sync_cost(topology, group, n_elems, algorithm=sync_algorithm,
                   compress=ls.compress, dtype_bytes=4)
-    return c.time_s, c.wan_bytes
+    return c.time_s, c.wan_bytes, []
 
 
 def _restore_outer_state(ls: LocalSGDConfig, global_params: PyTree,
@@ -225,12 +294,20 @@ def _restore_outer_state(ls: LocalSGDConfig, global_params: PyTree,
     return state["params"], state["outer_m"], found
 
 
-def _write_checkpoint(ls: LocalSGDConfig, global_params: PyTree,
-                      momentum: PyTree, round_no: int, tr) -> None:
+def _write_checkpoint(ls: LocalSGDConfig,
+                      placement: Optional[PlacementSpec],
+                      state: Dict[str, PyTree], round_no: int, tr) -> None:
     with tr.span("checkpoint", "local_sgd",
                  metric="local_sgd/checkpoint_s", round=round_no):
-        ckpt.save(ls.checkpoint_dir, round_no,
-                  {"params": global_params, "outer_m": momentum})
+        if placement is not None:
+            # stage slots shard the outer state by the spec's boundaries
+            # (each slot's nodes hold its layer range; replication adds
+            # §5 neighbour copies)
+            ckpt.save_for_placement(
+                ls.checkpoint_dir, round_no, state, placement,
+                replication=ls.checkpoint_replication)
+        else:
+            ckpt.save(ls.checkpoint_dir, round_no, state)
         ckpt.prune(ls.checkpoint_dir)
 
 
@@ -341,17 +418,19 @@ class _Fleet:
                 "outer_m": self.tree(self.mom)}
 
 
-def _check_args(ls: LocalSGDConfig, topology, placement, health) -> int:
-    if placement is not None:
-        raise NotImplementedError("placement= waits for the port of "
-                                  "core/placement")
-    if health is not None:
-        raise NotImplementedError("health= waits for the port of "
-                                  "obs/health.py")
+def _check_args(ls: LocalSGDConfig, topology, placement) -> int:
     if ls.replicas < 1 or ls.inner_steps < 1:
         raise ValueError(
             f"replicas={ls.replicas} and inner_steps={ls.inner_steps} "
             "must both be >= 1")
+    if placement is not None:
+        if topology is not None:
+            raise ValueError("pass either topology= or placement=, not "
+                             "both (the placement carries its topology)")
+        if placement.data_parallel != ls.replicas:
+            raise ValueError(
+                f"placement has {placement.data_parallel} replica "
+                f"pipelines but LocalSGDConfig.replicas={ls.replicas}")
     if topology is not None and len(topology.devices) < ls.replicas:
         raise ValueError(
             f"topology has {len(topology.devices)} devices but "
@@ -372,7 +451,8 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
                     monitor: Optional[EnergyMonitor] = None,
                     metrics: Optional[MetricsRegistry] = None,
                     fault_plan: Optional[FaultPlan] = None,
-                    health=None, params: Optional[PyTree] = None,
+                    health: Optional[HealthMonitor] = None,
+                    params: Optional[PyTree] = None,
                     device: DeviceLike = None) -> LocalSGDResult:
     """Run ``max(1, tc.steps // K)`` whole sync rounds of K inner steps
     per replica on ``device`` (the card unless ``"cpu"`` is asked for).
@@ -382,12 +462,19 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
     ``init_params(seed=tc.seed)``.  ``topology`` (a
     :class:`repro_torch.core.net.Topology` of at least ``ls.replicas``
     devices) makes the result carry the modelled wide-area sync time per
-    round under ``sync_algorithm``.  ``fault_plan`` injects stragglers,
-    crash/rejoin churn and link jitter into the virtual clock (and, in
-    async mode, into which deltas arrive when).  ``placement=`` and
-    ``health=`` raise ``NotImplementedError`` until ``core/placement`` and
-    ``obs/health.py`` are ported."""
-    Q = _check_args(ls, topology, placement, health)
+    round under ``sync_algorithm``.  ``placement`` (a
+    :class:`~repro_torch.core.placement.PlacementSpec` with
+    ``ls.replicas`` pipelines) maps each replica onto its region group
+    instead: the sync is priced per stage slot over that slot's replica
+    nodes, the virtual clock runs each replica at its slowest stage
+    device's speed, async mode runs per-region K, and checkpoints are
+    written layer-sliced by its stage boundaries.  ``fault_plan`` injects
+    stragglers, crash/rejoin churn and link jitter into the virtual clock
+    (and, in async mode, into which deltas arrive when).  ``health`` (a
+    :class:`~repro_torch.obs.HealthMonitor`) sees only observed durations
+    and losses, never the plan; in async mode the quorum barrier shrinks
+    past the replicas it flags as stragglers."""
+    Q = _check_args(ls, topology, placement)
     dev = resolve_device(device)
     if ls.async_mode:
         if monitor is not None:
@@ -395,9 +482,10 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
                 "EnergyMonitor needs real per-step wall-clock, which the "
                 "async engine's virtual clock replaces")
         return _train_async(cfg, tc, ls, opt_cfg, topology=topology,
+                            placement=placement,
                             sync_algorithm=sync_algorithm, metrics=metrics,
                             fault_plan=fault_plan, quorum=Q, params=params,
-                            dev=dev)
+                            dev=dev, health=health)
     opt_cfg = opt_cfg or adamw.OptConfig(
         learning_rate=3e-4, warmup_steps=max(10, tc.steps // 20),
         decay_steps=tc.steps)
@@ -413,9 +501,9 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
     inj = FaultInjector(fault_plan, registry=metrics) \
         if fault_plan is not None else None
     wire_b = fleet.wire_b
-    comm_round_s, wan_round = _price_sync_comm(ls, topology, sync_algorithm,
-                                               fleet.glob)
-    step_times = [ls.nominal_step_s] * R     # modelled seconds a step
+    comm_round_s, wan_round, replica_regions = _price_sync_comm(
+        ls, placement, topology, sync_algorithm, fleet.glob)
+    step_times = _replica_step_times(ls, placement, step_flops)
     vclock = 0.0
     t0 = time.perf_counter()
     for rnd in range(rounds):
@@ -440,6 +528,7 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
             # factor; a crash stalls the whole round until the device
             # rejoins and redoes its work (the trajectory is unchanged)
             dur_r = ls.inner_steps * step_times[r]
+            jit = 0.0
             if inj is not None:
                 slow = inj.plan.slowdown(r)
                 dur_r *= slow
@@ -457,6 +546,12 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
                              rejoin_rounds=wait)
                     res.crashes += 1
                     dur_r *= 1 + wait
+            if health is not None:
+                # what the spans measure: the compute side of the round and
+                # the replica's sync/link time (sync mode still waits for
+                # everyone; detection lets the summary see the straggler)
+                health.observe_step(r, dur_r - jit, ts_s=vclock)
+                health.observe_link(r, comm_round_s + jit, ts_s=vclock)
             round_dur = max(round_dur, dur_r)
 
         with fleet.clock.phase("outer"), \
@@ -474,8 +569,7 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
             metrics.counter("local_sgd/rounds").inc(1)
         if ls.checkpoint_dir and ls.checkpoint_every_rounds \
                 and (rnd + 1) % ls.checkpoint_every_rounds == 0:
-            st = fleet.state()
-            _write_checkpoint(ls, st["params"], st["outer_m"],
+            _write_checkpoint(ls, placement, fleet.state(),
                               start_round + rnd + 1, tr)
         # one host sync per round: replica-0 per-step losses + fleet mean
         with tr.span("metrics_drain", "local_sgd"):
@@ -483,6 +577,8 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         res.losses.extend(fetched[:-1])
         round_loss = fetched[-1]
         res.round_losses.append(round_loss / R)
+        if health is not None:
+            health.observe_loss(round_loss / R, ts_s=vclock)
         if metrics is not None:
             for x in fetched[:-1]:
                 metrics.histogram("local_sgd/loss", lo=1e-4, hi=1e4) \
@@ -510,11 +606,14 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
                                     * tc.seq_len / vclock)
     if inj is not None:
         res.fault_counts = dict(inj.counts)
+    if health is not None:
+        res.health_summary = health.summary()
     if monitor is not None:
         res.energy_wh = monitor.total_wh
-    if topology is not None:
+    if topology is not None or placement is not None:
         res.comm_time_s_per_round = comm_round_s
         res.sync_wan_bytes_per_round = wan_round
+        res.replica_regions = replica_regions
         res.comm_time_s_per_step = comm_round_s / ls.inner_steps
     res.phase_s = fleet.clock.totals()
     res.outer_state = fleet.state()
@@ -530,13 +629,17 @@ class _Replica:
     start_version: int = 0           # global version of that snapshot
     round_idx: int = 0               # personal round counter (plan keys)
     idle: bool = False               # reported, waiting for next update
+    start_t: float = 0.0             # virtual time the round began (what
+                                     # overdue detection measures against)
 
 
 def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
                  opt_cfg: Optional[adamw.OptConfig], *, topology,
+                 placement: Optional[PlacementSpec],
                  sync_algorithm: str, metrics: Optional[MetricsRegistry],
                  fault_plan: Optional[FaultPlan], quorum: int,
-                 params: Optional[PyTree], dev: torch.device
+                 params: Optional[PyTree], dev: torch.device,
+                 health: Optional[HealthMonitor] = None
                  ) -> LocalSGDResult:
     """Event-driven bounded-staleness async outer loop on the virtual
     clock.  The outer update applies the moment ``quorum`` replicas have
@@ -546,7 +649,14 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
     and dropped (the replica re-synced) past it.  A crashed replica's
     work is lost; it rejoins ``rejoin_after`` rounds later and re-syncs.
     Event ties break on replica id and every fault draw is keyed, so a
-    run replays bit for bit."""
+    run replays bit for bit.
+
+    With ``health``, the quorum barrier additionally shrinks past
+    replicas the monitor currently flags as stragglers and has no report
+    from: an update applies once every *unflagged* outstanding replica
+    (up to the configured quorum) has reported.  Detection is fed from
+    observed per-report durations plus overdue checks on periodic health
+    ticks — the plan never leaks into the decision."""
     opt_cfg = opt_cfg or adamw.OptConfig(
         learning_rate=3e-4, warmup_steps=max(10, tc.steps // 20),
         decay_steps=tc.steps)
@@ -555,10 +665,12 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
     start_round = fleet.start_round
     R = ls.replicas
     S = ls.staleness_bound
-    ks = per_replica_inner_steps(ls)
-    step_times = [ls.nominal_step_s] * R     # modelled seconds a step
-    comm_round_s, wan_round = _price_sync_comm(ls, topology, sync_algorithm,
-                                               fleet.glob)
+    ks = per_replica_inner_steps(ls, placement)
+    step_flops = F.train_flops(cfg, tc.batch, tc.seq_len,
+                               remat=tc.remat != "none")
+    step_times = _replica_step_times(ls, placement, step_flops)
+    comm_round_s, wan_round, replica_regions = _price_sync_comm(
+        ls, placement, topology, sync_algorithm, fleet.glob)
     wire_b = fleet.wire_b
     tr = get_tracer()
     inj = FaultInjector(fault_plan, registry=metrics)
@@ -580,6 +692,7 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         """Begin replica r's next personal round at virtual time t."""
         rep = reps[r]
         rep.idle = False
+        rep.start_t = t
         rep.start_params = fleet.glob
         rep.start_version = version
         slow = plan.slowdown(r)
@@ -636,6 +749,8 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
             loss_dev = loss_dev + reports[r][2]
         round_loss = fetch_scalars([loss_dev])[0] / len(order)
         res.round_losses.append(round_loss)
+        if health is not None:
+            health.observe_loss(round_loss, ts_s=t)
         res.contributed_steps += sum(ks[r] for r in order)
         if metrics is not None:
             metrics.counter("local_sgd/pseudograd_bytes").inc(
@@ -650,6 +765,46 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         reports.clear()
         return t + comm_round_s
 
+    # the health-driven barrier: never wait on a DETECTED straggler.  The
+    # effective quorum shrinks by the flagged replicas still outstanding;
+    # detection comes from observed report durations plus overdue checks
+    # on periodic ticks — the fault plan is never consulted for this
+    tick_s = 0.5 * min(ks[i] * step_times[i] for i in range(R))
+    tick_pending = False
+
+    def _overdue_scan(t: float) -> None:
+        for i in range(R):
+            if not reps[i].idle and i not in reports:
+                health.check_overdue(i, t - reps[i].start_t, ts_s=t)
+
+    def _quorum_eff() -> int:
+        if health is None:
+            return quorum
+        outstanding_flagged = sum(
+            1 for i in range(R)
+            if health.is_straggler(i) and not reps[i].idle
+            and i not in reports)
+        return max(1, min(quorum, R - outstanding_flagged))
+
+    def _maybe_update(t: float) -> Optional[float]:
+        """Apply the outer update if the (health-shrunk) quorum is met;
+        returns the update's completion time, else None."""
+        q_eff = _quorum_eff()
+        if not reports or len(reports) < q_eff:
+            return None
+        if q_eff < quorum:
+            res.health_excluded_updates += 1
+        return _apply_update(t)
+
+    def _after_update(t_up: float) -> None:
+        if ls.checkpoint_dir and ls.checkpoint_every_rounds \
+                and version % ls.checkpoint_every_rounds == 0:
+            _write_checkpoint(ls, placement, fleet.state(),
+                              start_round + version, tr)
+        for i in range(R):
+            if reps[i].idle:
+                _start_round(i, t_up)
+
     vclock = 0.0
     t0 = time.perf_counter()
     for r in range(R):
@@ -657,6 +812,20 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
     while version < rounds and events:
         t, r, kind = heapq.heappop(events)
         vclock = max(vclock, t)
+        if kind == "health_tick":
+            tick_pending = False
+            if health is not None and reports:
+                _overdue_scan(t)
+                t_up = _maybe_update(t)
+                if t_up is not None:
+                    vclock = max(vclock, t_up)
+                    if version >= rounds:
+                        break
+                    _after_update(t_up)
+                elif not tick_pending:
+                    tick_pending = True
+                    heapq.heappush(events, (t + tick_s, -1, "health_tick"))
+            continue
         rep = reps[r]
         if kind == "rejoin":
             # the crashed device is back but its local state is gone:
@@ -681,6 +850,14 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         tr.complete("async_round", ts_s=t - dur, dur_s=dur,
                     cat="local_sgd", track=f"replica:{r}",
                     staleness=stale, k=ks[r])
+        if health is not None:
+            # what the spans measured for this report: compute time and
+            # link time, separately (the async_round / outer_sync split)
+            jit = plan.jitter_s(r, rep.round_idx - 1)
+            health.observe_step(r, ks[r] * step_times[r] * plan.slowdown(r),
+                                ts_s=t)
+            health.observe_link(r, comm_round_s + jit, ts_s=t)
+            _overdue_scan(t)
         if stale > S:
             # past the hard bound: drop the delta and re-sync the replica
             # from the current global (it lost K_r steps of work)
@@ -696,20 +873,17 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         reports[r] = (delta, 1.0 / (1.0 + stale), last_loss)
         del delta
         rep.idle = True
-        if len(reports) < quorum:
-            continue
-        t_up = _apply_update(t)
-        vclock = max(vclock, t_up)
-        if version >= rounds:
-            break
-        if ls.checkpoint_dir and ls.checkpoint_every_rounds \
-                and version % ls.checkpoint_every_rounds == 0:
-            st = fleet.state()
-            _write_checkpoint(ls, st["params"], st["outer_m"],
-                              start_round + version, tr)
-        for i in range(R):
-            if reps[i].idle:
-                _start_round(i, t_up)
+        t_up = _maybe_update(t)
+        if t_up is not None:
+            vclock = max(vclock, t_up)
+            if version >= rounds:
+                break
+            _after_update(t_up)
+        elif health is not None and not tick_pending:
+            # quorum not met: schedule an overdue check so a straggler can
+            # be detected (and the barrier shrunk) before it reports
+            tick_pending = True
+            heapq.heappush(events, (t + tick_s, -1, "health_tick"))
 
     wall = time.perf_counter() - t0
     res.rounds = version
@@ -724,9 +898,12 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         res.virtual_tokens_per_s = (res.contributed_steps * tc.batch
                                     * tc.seq_len / vclock)
     res.fault_counts = dict(inj.counts)
-    if topology is not None:
+    if health is not None:
+        res.health_summary = health.summary()
+    if topology is not None or placement is not None:
         res.comm_time_s_per_round = comm_round_s
         res.sync_wan_bytes_per_round = wan_round
+        res.replica_regions = replica_regions
         res.comm_time_s_per_step = comm_round_s / ls.inner_steps
     res.phase_s = fleet.clock.totals()
     res.outer_state = fleet.state()

@@ -15,8 +15,11 @@ The hot loop never waits for the card unless asked to:
 Passing an ``EnergyMonitor`` opts back into one sync per step: energy
 accounting needs each step's true wall-clock time.  ``checkpoint_dir`` /
 ``checkpoint_every`` save ``{"params", "opt"}`` in the JAX package's
-leaf-modulo layout (``repro_torch.checkpoint``), and ``resume`` restores
-the newest complete checkpoint, written by either package, first.
+format (``repro_torch.checkpoint``): the leaf-modulo layout, or with
+``checkpoint_placement`` the elastic layer-sliced one, sharded by the
+placement's stage boundaries with ``checkpoint_replication`` neighbour
+copies.  ``resume`` restores the newest complete checkpoint, written by
+either package under any layout and boundaries, first.
 """
 
 from __future__ import annotations
@@ -52,8 +55,9 @@ class TrainerConfig:
     log_every: int = 10
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
-    checkpoint_placement: Any = None   # layer-sliced saves: not ported yet
-    checkpoint_replication: int = 0
+    checkpoint_placement: Any = None   # PlacementSpec/CheckpointSpec: save
+                                       # layer-sliced by stage (elastic)
+    checkpoint_replication: int = 0    # §5 neighbour shard copies
     resume: bool = False        # restore the newest complete checkpoint
     remat: str = "none"         # "none" | "full" | "dots" | "dots_no_batch"
     attn_impl: str = "kernel"   # "naive" | "chunked" | "kernel"
@@ -92,7 +96,7 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device
 def train(cfg: ModelConfig, tc: TrainerConfig,
           opt_cfg: Optional[adamw.OptConfig] = None,
           monitor: Optional[EnergyMonitor] = None,
-          metrics: Optional[MetricsRegistry] = None, *,
+          metrics: Optional[MetricsRegistry] = None, health=None, *,
           params: Optional[PyTree] = None,
           device: DeviceLike = None) -> TrainerResult:
     """Train ``cfg`` for ``tc.steps`` steps on ``device`` (the card unless
@@ -100,10 +104,9 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
     example bridged from the JAX package), updated in place; by default
     they are drawn with ``init_params(seed=tc.seed)``.  ``metrics`` opts
     into loss / grad-norm histograms, batched in a
-    :class:`DeviceAccumulator` and drained at the log-window syncs."""
-    if tc.checkpoint_placement is not None:
-        raise NotImplementedError("layer-sliced checkpoints by placement "
-                                  "wait for the port of core/placement")
+    :class:`DeviceAccumulator` and drained at the log-window syncs.
+    ``health`` (a :class:`repro_torch.obs.HealthMonitor`) receives every
+    loss the loop fetches, at the same sync points, never adding one."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or adamw.OptConfig(
         learning_rate=3e-4, warmup_steps=max(10, tc.steps // 20),
@@ -169,6 +172,8 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
             if sync_every_step:
                 host = fetch([mx])[0]                # one sync per step
                 result.losses.append(host["loss"])
+                if health is not None:
+                    health.observe_loss(host["loss"])
                 if metrics is not None:
                     metrics.histogram("train/loss", lo=1e-4, hi=1e4) \
                         .observe(host["loss"])
@@ -196,6 +201,9 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
                         if acc is not None:
                             acc.drain()
                     result.losses.extend(m["loss"] for m in fetched)
+                    if health is not None:
+                        for m in fetched:
+                            health.observe_loss(m["loss"])
                     host = fetched[-1]
                     pending.clear()
                 print(f"step {step:5d}  loss {host['loss']:.4f}  "
@@ -206,12 +214,23 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
                 with tr.span("checkpoint", "train",
                              metric="train/checkpoint_s",
                              step=start_step + step + 1):
-                    ckpt.save(tc.checkpoint_dir, start_step + step + 1,
-                              {"params": params, "opt": opt_state})
+                    state = {"params": params, "opt": opt_state}
+                    if tc.checkpoint_placement is not None:
+                        ckpt.save_for_placement(
+                            tc.checkpoint_dir, start_step + step + 1, state,
+                            tc.checkpoint_placement,
+                            replication=tc.checkpoint_replication)
+                    else:
+                        ckpt.save(tc.checkpoint_dir, start_step + step + 1,
+                                  state)
                     ckpt.prune(tc.checkpoint_dir)
     if pending:
         with tr.span("metrics_drain", "train"):
-            result.losses.extend(m["loss"] for m in fetch(pending))
+            fetched = fetch(pending)        # one bulk sync at the end
+        result.losses.extend(m["loss"] for m in fetched)
+        if health is not None:
+            for m in fetched:
+                health.observe_loss(m["loss"])
     if acc is not None:
         acc.drain()
     if dev.type == "cuda":

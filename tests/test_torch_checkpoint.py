@@ -30,6 +30,7 @@ from repro_torch.train import local_sgd as TL  # noqa: E402
 from repro_torch.train import trainer as TT  # noqa: E402
 
 from test_torch_helpers import bridged  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 from test_torch_train import TRAIN_ARCHS, train_configs  # noqa: E402
 
 L = 4
@@ -162,6 +163,7 @@ def test_incomplete_step_raises_and_restore_falls_back(tmp_path):
     st = port_state()
     TC.save(tmp_path, 1, st)
     TC.save(tmp_path, 2, st)
+    TC.save(tmp_path / "neighbour", 2, st)
     (tmp_path / "step_00000002" /
      TC._leaf_name("['opt']['step']")).unlink()
     with pytest.raises(TC.IncompleteCheckpointError, match="opt.*step"):
@@ -175,8 +177,14 @@ def test_incomplete_step_raises_and_restore_falls_back(tmp_path):
         st)))
     with pytest.raises(ValueError, match="tree structure"):
         TC.restore(tmp_path, {"params": st["params"]})
-    with pytest.raises(NotImplementedError, match="heal_step"):
-        TC.restore(tmp_path, st, sources=[tmp_path])
+    # a neighbour's copy heals the missing file (sources=)
+    rep = TC.HealReport()
+    got = TC.restore(tmp_path, st, step=2,
+                     sources=[tmp_path / "neighbour"], heal_report=rep)
+    assert [h["reason"] for h in rep.healed] == ["missing"]
+    assert TC.complete_steps(tmp_path) == [1, 2]
+    assert_bitexact(got, jax.tree.map(np.asarray, bridge.params_to_numpy(
+        st)))
 
 
 def test_prune_keeps_the_newest_complete_steps(tmp_path):
@@ -231,10 +239,15 @@ def test_trainer_resume_matches_jax_resume(tmp_path):
             np.testing.assert_allclose(a, ref[key], rtol=1e-4, atol=1e-6,
                                        err_msg=key)
     assert TC.latest_complete_step(tmp_path / "port") == 6
-    # checkpoint_placement is still the JAX package's alone
-    with pytest.raises(NotImplementedError, match="core/placement"):
-        TT.train(tcfg, TT.TrainerConfig(checkpoint_placement=object(),
-                                        **kw), device="cpu")
+    # checkpoint_placement saves layer-sliced (its resume parity is in
+    # tests/test_torch_elastic.py)
+    from repro_torch.checkpoint import CheckpointSpec as TCS
+    TT.train(tcfg, TT.TrainerConfig(
+        steps=1, checkpoint_every=1, checkpoint_dir=str(tmp_path / "lay"),
+        checkpoint_placement=TCS(tcfg.num_layers, (0, 1, tcfg.num_layers)),
+        **kw), device="cpu")
+    m = TC._read_manifest(TC._step_dir(tmp_path / "lay", 1))
+    assert m["layout"] == "layer_sliced" and m["boundaries"] == [0, 1, 2]
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

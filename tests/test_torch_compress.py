@@ -26,6 +26,7 @@ from repro_torch.optim import compress as TC  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
 
 from test_torch_helpers import bridged, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 from test_torch_train import (GRAD_TOL, TRAIN_ARCHS,  # noqa: E402
                               np_batch, train_configs)
 

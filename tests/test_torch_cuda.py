@@ -7,8 +7,12 @@ prefill against its oracle path and its dense decode, the MoE layer
 on the card against the CPU, two mixtral-smoke train steps on the
 card against the same steps on the CPU, full-width mixtral's routes and
 gradients under remat, deepseek-smoke's train steps and dense decode,
-and whisper-smoke's and qwen2-vl-smoke's train steps on the card against
-the CPU.  Every test here skips without CUDA.
+whisper-smoke's and qwen2-vl-smoke's train steps on the card against
+the CPU, and the edge fleet's control loop: the engine's SLO admission
+gate, a layer-sliced checkpoint of card tensors restored onto another
+stage split, and async local SGD whose health monitor excludes the same
+straggler on the card as on the CPU.  Every test here skips without
+CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -932,3 +936,121 @@ def test_cuda_qwen2_vl_smoke_train_steps_equal_the_cpu(cuda):
     assert not cpu[2] and card[2] == {
         f"fa_bwd_dkdv_kernel<float, {hd}, {hd}>": 2 * cfg.num_layers}
     _assert_steps_equal(cpu, card)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_slo_gate_defers_past_half_the_slots(cuda):
+    """While the TTFT SLO burns (a target every request misses, windows of
+    4 and 16), admission stops past half the slots on the card as on the
+    CPU: the same deferrals, steps and greedy ids, flash-decode in every
+    layer of every step."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.obs import MetricsRegistry, SLOMonitor, SLOSpec
+    cfg = dataclasses.replace(get_config("qwen2-7b-smoke"), num_kv_heads=2,
+                              param_dtype="float32", compute_dtype="float32")
+    prompts = [list(map(int, np.random.RandomState(i).randint(
+        0, cfg.vocab_size, 3 + 2 * i))) for i in range(12)]
+    weights = init_params(cfg, device="cpu", seed=0)
+
+    def run(dev):
+        slo = SLOMonitor([SLOSpec("serve_ttft", "latency", 1e-9,
+                                  objective=0.9, fast_window=4,
+                                  slow_window=16)],
+                         registry=MetricsRegistry())
+        eng = ServeEngine(tree_map(lambda t: t.to(dev), weights), cfg,
+                          EngineConfig(max_slots=4, block_size=4,
+                                       num_blocks=64, max_blocks_per_seq=12,
+                                       cache_dtype="float32"),
+                          torch_device=dev, slo=slo)
+        live = []
+        open_slot = eng.kv.open_slot
+
+        def spy(slot, prompt=None):
+            live.append((sum(s is not None for s in eng._slots),
+                         slo.burning("serve_ttft")))
+            return open_slot(slot, prompt)
+        eng.kv.open_slot = spy
+        before = flash_decode_paged.launches
+        out = eng.run([Request(uid=f"r{i}", prompt=p, max_new=4)
+                       for i, p in enumerate(prompts)])
+        return ({u: c.tokens for u, c in out.items()}, eng.steps,
+                eng.metrics.counter("serve/admission_deferred").value,
+                live, flash_decode_paged.launches - before)
+
+    card, cpu = run(cuda), run(torch.device("cpu"))
+    assert card[:3] == cpu[:3] and card[2] > 0
+    assert all(n < 2 for n, burning in card[3] if burning)
+    assert any(burning for _, burning in card[3])
+    assert card[4] == cfg.num_layers * card[1] and cpu[4] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_layer_sliced_checkpoint_round_trips_onto_the_card(cuda,
+                                                                tmp_path):
+    """save_for_placement of card tensors (bf16 and fp32) and
+    restore_for_placement onto another stage split: every leaf comes back
+    on the prototype's device, bit for bit; a stage restore crops."""
+    from repro_torch.checkpoint import CheckpointSpec, ckpt
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(get_config("opt-125m-smoke"), num_layers=4)
+    params = init_params(cfg, device=cuda, seed=3)
+    state = {"params": params,
+             "outer_m": tree_map(lambda p: torch.randn(
+                 p.shape, device=cuda, dtype=torch.float32), params)}
+    ckpt.save_for_placement(tmp_path, 1, state,
+                            CheckpointSpec(4, (0, 1, 3, 4)), replication=1)
+    got = ckpt.restore_for_placement(tmp_path, [0, 2, 4], state)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    for a, b in zip(tree_leaves(got), tree_leaves(state)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(bits(a), bits(b))
+    part = ckpt.restore_for_placement(tmp_path, [0, 2, 4], state, stage=1)
+    wq = part["params"]["decoder"]["g0"]["s0_attn"]["wq"]
+    assert wq.device.type == "cuda" and wq.shape[0] == 2
+    assert torch.equal(bits(wq), bits(params["decoder"]["g0"]["s0_attn"]
+                                      ["wq"][2:4]))
+
+
+@pytest.mark.cuda
+def test_cuda_async_local_sgd_with_health_excludes_as_on_the_cpu(cuda):
+    """Async local SGD with a health monitor at reduced depth: 2 replicas,
+    one a straggler of the plan, quorum 2, staleness 1 and int8 sync
+    through the kernels; the card and the CPU detect the same straggler,
+    exclude the same updates and end at the same virtual time, from the
+    same weights (drawn on the CPU), within the int8 local-SGD loss bar
+    of ``tests/test_torch_local_sgd.py`` (a pseudo-gradient element on a
+    rounding tie may take the other int8 code)."""
+    from repro_torch.core.faultinject import FaultPlan
+    from repro_torch.models.params import tree_map
+    from repro_torch.obs import HealthMonitor, MetricsRegistry
+    from repro_torch.obs.health import StragglerDetector
+    from repro_torch.optim.compress import CompressConfig
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    from repro_torch.train.trainer import TrainerConfig
+    cfg = dataclasses.replace(get_config("opt-125m-smoke"),
+                              param_dtype="float32", compute_dtype="float32")
+    tc = TrainerConfig(steps=12, batch=2, seq_len=64, log_every=0)
+    ls = LocalSGDConfig(replicas=2, inner_steps=2, async_mode=True,
+                        quorum=2, staleness_bound=1,
+                        compress=CompressConfig(method="int8"))
+
+    def run(dev):
+        hm = HealthMonitor(registry=MetricsRegistry(),
+                           straggler=StragglerDetector(min_entities=2))
+        res = train_local_sgd(cfg, tc, ls, fault_plan=FaultPlan(
+            seed=6, straggler_frac=0.5), health=hm, device=dev,
+            params=tree_map(lambda t: t.to(dev),
+                            init_params(cfg, device="cpu", seed=0)))
+        return res, hm
+
+    (card, chm), (cpu, phm) = run(cuda), run(torch.device("cpu"))
+    assert chm.stragglers() == phm.stragglers() == {"0"}
+    assert card.health_excluded_updates == cpu.health_excluded_updates > 0
+    assert card.virtual_time_s == cpu.virtual_time_s
+    assert card.dropped_stale == cpu.dropped_stale
+    assert [(a.kind, a.entity, a.ts_s) for a in chm.alerts] == \
+        [(a.kind, a.entity, a.ts_s) for a in phm.alerts]
+    np.testing.assert_allclose(card.round_losses, cpu.round_losses,
+                               rtol=1e-3)

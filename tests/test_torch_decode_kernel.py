@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
 
 from test_torch_cuda import CASES, IDS, inputs  # noqa: E402
 from test_torch_helpers import t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

@@ -42,6 +42,7 @@ from repro_torch.train import step as TS  # noqa: E402
 from repro_torch.train import trainer as TT  # noqa: E402
 
 from test_torch_helpers import configs, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 from test_torch_model import TOL  # noqa: E402
 from test_torch_train import GRAD_TOL, LOSS_RTOL, assert_tree_close  # noqa: E402
 

@@ -17,6 +17,7 @@ from repro_torch.core.faultinject import FaultPlan  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
 
 from test_torch_helpers import bridged, configs  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 STATS = ("steps", "tokens_generated", "prefix_hit_tokens", "cow_forks_total",
          "peak_cache_bytes", "requests_failed")

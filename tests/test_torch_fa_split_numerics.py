@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     NEG_INF, visible)
 
 from test_torch_cuda import FA_CASES, FA_IDS, fa_inputs  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 # the card test's bars: out after both sides round to bf16; dk and dv fp32
 OUT_TOL = dict(rtol=2.0 ** -7, atol=1e-5)

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_reference)
 
 from test_torch_cuda import FA_CASES, FA_IDS, fa_inputs  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 # the JAX package's own bars (tests/test_kernels.py): forward 2e-6 in
 # fp32 and 2e-2 in bf16, gradients 1e-3

@@ -16,6 +16,20 @@ from repro.models import params as JP  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config as torch_config  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one CPU thread for a module's tests (autouse where a test
+    module imports it): the tiny shapes gain nothing from more, and under
+    several pytest workers every process's threads contend for the cores
+    (two files took 841 s with torch's default threads, 112 s with one,
+    six copies at once on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (arch, patch): GQA g=2 with QKV bias; the paper's OPT (learned positions,
 # LayerNorm, GELU, tied padded head); GQA g=7, qwen2-7b's own group size
 PARITY_ARCHS = [

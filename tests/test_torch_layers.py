@@ -17,6 +17,7 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 from test_torch_helpers import ARCH_IDS, PARITY_ARCHS, bridged, configs, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

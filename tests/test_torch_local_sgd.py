@@ -4,7 +4,8 @@ chunked attention path on both sides): the K=1 anchor to the plain
 trainer, the synchronous trajectory with and without int8-compressed
 sync, the modelled wide-area sync, the async engine's exact reduction to
 the sync loop, its fault accounting under a seeded plan, and the
-refusals of what is not ported yet."""
+argument checks.  Placement- and health-driven runs are held to the JAX
+package in ``tests/test_torch_elastic.py``."""
 
 import dataclasses
 import functools
@@ -31,6 +32,7 @@ from repro_torch.train import local_sgd as TL  # noqa: E402
 from repro_torch.train import trainer as TT  # noqa: E402
 
 from test_torch_helpers import bridged  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 from test_torch_train import TRAIN_ARCHS, train_configs  # noqa: E402
 
 JCFG, TCFG = train_configs(*TRAIN_ARCHS[0])
@@ -172,12 +174,17 @@ def test_config_and_result_fields_match_jax():
 def test_refusals_of_what_is_not_ported_and_bad_knobs():
     tc = TT.TrainerConfig(steps=2, **KW)
     ls = TL.LocalSGDConfig(replicas=2, inner_steps=1)
-    with pytest.raises(NotImplementedError, match="core/placement"):
-        TL.train_local_sgd(TCFG, tc, ls, placement=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="obs/health"):
-        TL.train_local_sgd(TCFG, tc, ls, health=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="core/placement"):
-        TL.per_replica_inner_steps(ls, placement=object())
+    # placement= and health= are ported: a placement must come without a
+    # topology and carry one pipeline a replica
+    from repro_torch.core.placement import ordered_placement
+    two = ordered_placement(TCFG, [LAPTOP_M2PRO], data_parallel=2)
+    with pytest.raises(ValueError, match="either topology= or placement="):
+        TL.train_local_sgd(TCFG, tc, ls, placement=two, device="cpu",
+                           topology=Topology.from_specs([LAPTOP_M2PRO] * 2))
+    with pytest.raises(ValueError, match="2 replica pipelines"):
+        TL.train_local_sgd(TCFG, tc, dataclasses.replace(ls, replicas=3),
+                           placement=two, device="cpu")
+    assert TL.per_replica_inner_steps(ls, placement=two) == [1, 1]
     with pytest.raises(ValueError, match="quorum"):
         TL.train_local_sgd(TCFG, tc, dataclasses.replace(
             ls, async_mode=True, quorum=5), device="cpu")
@@ -230,7 +237,16 @@ def test_launcher_runs_local_sgd_on_the_cpu(mode, capsys):
     out = capsys.readouterr().out
     assert "[train] final loss" in out
     assert ("[train] async:" in out) == (mode != "sync")
-    for flag in (["--health-out", "h.jsonl"], ["--slo", "x=1"],
-                 ["--mesh", "1,1"], ["--host-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="waits for"):
+    for flag in (["--mesh", "1,1"], ["--host-devices", "2"]):
+        with pytest.raises(NotImplementedError, match="multi-device"):
             train.main(["--torch-device", "cpu", *flag])
+    # --health-out and --slo are ported: the record passes the validator
+    import tempfile
+    from repro_torch.obs.validate import validate
+    with tempfile.TemporaryDirectory() as d:
+        train.main(argv + ["--health-out", f"{d}/h.jsonl",
+                           "--slo", "tokens_per_s=1e12"])
+        assert validate(f"{d}/h.jsonl")["slo"] == 1
+    out = capsys.readouterr().out
+    assert "[train] health: alerts:" in out
+    assert "train_tokens_per_s:BREACH" in out

@@ -25,6 +25,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import params as TP  # noqa: E402
 
 from test_torch_helpers import bridged, configs, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 # fp32 throughout; the two packages sum in different orders (the scan's
 # decays carry cumsums of up to a chunk of terms)

@@ -38,6 +38,7 @@ from repro_torch.serve import step as TSS  # noqa: E402
 from repro_torch.train import trainer as TT  # noqa: E402
 
 from test_torch_helpers import bridged, configs, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 from test_torch_model import TOL  # noqa: E402
 from test_torch_moe import TOL as MOE_TOL  # noqa: E402
 from test_torch_train import GRAD_TOL, np_batch  # noqa: E402

@@ -14,6 +14,7 @@ from repro.serve.paged_cache import PagedKVCache  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 from test_torch_helpers import ARCH_IDS, PARITY_ARCHS, bridged, configs, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 # fp32 throughout; the two packages sum in different orders
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -26,6 +26,7 @@ from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 
 from test_torch_helpers import bridged, configs, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 ARCH = "mixtral-8x7b"
 PATCH = dict(sliding_window=6, num_kv_heads=2)

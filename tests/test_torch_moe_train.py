@@ -33,6 +33,7 @@ from repro_torch.train import step as TS  # noqa: E402
 from repro_torch.train import trainer as TT  # noqa: E402
 
 from test_torch_helpers import bridged, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 from test_torch_moe import moe_configs  # noqa: E402
 from test_torch_train import (GRAD_TOL, LOSS_RTOL,  # noqa: E402
                               assert_tree_close, np_batch)

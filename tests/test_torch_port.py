@@ -22,6 +22,7 @@ from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.sampling import sample_tokens  # noqa: E402
 
 from test_torch_helpers import ARCH_IDS, PARITY_ARCHS, bridged, configs  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -83,7 +84,13 @@ def test_package_imports_with_jax_blocked():
               "repro_torch.configs.llama3_405b",
               "repro_torch.configs.whisper_medium",
               "repro_torch.configs.qwen2_vl_2b",
-              "repro_torch.launch.specs"):
+              "repro_torch.launch.specs",
+              "repro_torch.obs.health", "repro_torch.obs.slo",
+              "repro_torch.obs.analyze", "repro_torch.obs.validate",
+              "repro_torch.core.placement", "repro_torch.core.placement.spec",
+              "repro_torch.core.placement.search",
+              "repro_torch.core.planner.dtfm",
+              "repro_torch.checkpoint.spec", "repro_torch.checkpoint.elastic"):
         assert m in mods, m
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\nimport importlib\n"
@@ -240,3 +247,21 @@ def test_serve_launcher_runs_on_the_cpu(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "9 tokens" in text and "attn=kernel" in text
     assert out.read_text().count("\n") > 3
+
+
+def test_resolve_device_names_the_current_card_for_cuda(monkeypatch):
+    """The trainer and local SGD check that caller weights live on their
+    device: tensors made on ``"cuda"`` report ``cuda:<n>``, so ``"cuda"``
+    (and the default) resolve to that indexed device and a plain ``!=``
+    holds them."""
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    cuda0, cuda1 = torch.device("cuda:0"), torch.device("cuda:1")
+    assert resolve_device(None) == cuda0 and resolve_device("cuda") == cuda0
+    assert resolve_device(torch.device("cuda")) == cuda0
+    assert resolve_device("cuda:1") == cuda1 != cuda0
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")

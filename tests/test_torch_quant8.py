@@ -26,6 +26,7 @@ from repro_torch.kernels.quant8 import ref as tref  # noqa: E402
 from test_torch_cuda import (QUANT_CASES, QUANT_IDS,  # noqa: E402
                              SHAPES, quant_input)
 from test_torch_helpers import t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 
 def _jax_padded(x, block):

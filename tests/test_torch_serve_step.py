@@ -18,6 +18,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve import step as TS  # noqa: E402
 
 from test_torch_helpers import bridged, configs, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # (arch, patch, id): Mamba2 through ssm_decode; qwen2 (GQA g=2, QKV bias,

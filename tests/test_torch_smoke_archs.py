@@ -18,6 +18,7 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 # the assigned architectures, as ``repro/configs/registry.py`` lists them
 ARCHS = ["qwen2-vl-2b", "mamba2-130m", "jamba-v0.1-52b", "deepseek-v3-671b",

@@ -15,6 +15,7 @@ from repro.kernels.ssd_scan.ops import ssd as jax_ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as TK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as TR  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 # b, s, h, g, p, n, chunk — the JAX package's SSD_CASES
 # (tests/test_kernels.py): one group, g=2, g=4 with a ragged s=100, and a

@@ -26,6 +26,7 @@ from repro_torch.kernels.ssd_scan import ref as R  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import exp_fp64  # noqa: E402
 
 from test_torch_ssd_scan import SSD_CASES, SSD_IDS, ssd_inputs  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 
 def _bf16_operand(v, split):

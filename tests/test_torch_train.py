@@ -36,6 +36,7 @@ from repro_torch.train import step as TS  # noqa: E402
 from repro_torch.train import trainer as TT  # noqa: E402
 
 from test_torch_helpers import bridged, t  # noqa: E402
+from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 # (arch, reduced widths, patch): reduced opt-125m with head_dim 32 and
 # head_dim 64 (learned positions, LayerNorm, GELU, tied padded head), and
@@ -295,17 +296,23 @@ def test_trainer_sync_path_metrics_and_refusals():
     assert len(mon.samples) == 3 and sync.energy_wh > 0
     assert reg.snapshot()["train/loss"]["count"] == 3
     assert reg.snapshot()["train/tokens"]["value"] == 3 * 2 * 16
-    # checkpointing runs now (resume parity is in
-    # test_torch_checkpoint.py); placement-sliced saves are still refused
+    # checkpointing runs (resume parity is in test_torch_checkpoint.py),
+    # placement-sliced saves too (test_torch_elastic.py)
     import tempfile
     from repro_torch.checkpoint import ckpt
     with tempfile.TemporaryDirectory() as d:
         TT.train(tcfg, TT.TrainerConfig(checkpoint_dir=d, checkpoint_every=3,
                                         **kw), device="cpu")
         assert ckpt.latest_complete_step(d) == 3
-    with pytest.raises(NotImplementedError, match="core/placement"):
-        TT.train(tcfg, TT.TrainerConfig(checkpoint_placement=object(), **kw),
-                 device="cpu")
+    from repro_torch.checkpoint import CheckpointSpec
+    with tempfile.TemporaryDirectory() as d:
+        TT.train(tcfg, TT.TrainerConfig(
+            checkpoint_dir=d, checkpoint_every=3, checkpoint_replication=1,
+            checkpoint_placement=CheckpointSpec(tcfg.num_layers,
+                                                (0, 1, tcfg.num_layers)),
+            **kw), device="cpu")
+        assert ckpt.latest_complete_step(d) == 3
+        assert ckpt._read_manifest(ckpt._step_dir(d, 3))["replication"] == 1
     tp = TM_params(tcfg)
     with pytest.raises(ValueError, match="params must live on"):
         TT.train(tcfg, TT.TrainerConfig(**kw),
