@@ -189,7 +189,32 @@ Phases (any failure exits nonzero):
    ``checkpoint_placement`` save, whose resume starts from it; (c) both
    launchers in-process with ``--slo`` and ``--health-out`` (training
    reduced, serving full-width qwen2-7b), their artifacts passing
-   ``repro_torch.obs.validate``.
+   ``repro_torch.obs.validate``;
+20. the carbon-aware fleet, through the torch twins of the examples:
+   (a) ``examples/torch_quickstart.py``'s ``run`` trains opt-1.3b at full
+   width and depth, bf16, 8 steps of 4 x 2048 tokens under the laptop's
+   component energy model and the edge carbon ledger (24 x 8 launches of
+   each FA-2 kernel), with the card's ``power.draw`` sampled over the
+   steps: ms and J a step measured beside ``train_time_s`` and
+   ``train_energy_wh`` of ``CLOUD_H100``, the paper's model of this card
+   (nothing asserted on them); (b) ``examples/torch_diloco_edge.py``'s
+   ``run`` at opt-1.3b full width: 2 replicas, K 2, 2 rounds of 2 x 2048,
+   int8 hierarchical sync over the example's two-region 4 MB/s fleet (17
+   leaves x 2 replicas x 2 rounds launches of each quant8 kernel), its
+   modelled sync against the naive fp32 ring; (c)
+   ``examples/torch_serve_batched.py``: ``run_engine`` on full-width
+   qwen2-7b (the example's 6 requests, 4 slots, 8-token pages,
+   flash-decode in every layer every step), its greedy ids held to
+   ``greedy_generate``'s at fp32 compute, and ``run_dense`` on
+   full-width mamba2-130m, ms a decode step against
+   ``decode_hbm_bytes`` / 3.35 TB/s; (d) on the host,
+   ``examples/torch_edge_carbon_sim.py``'s policies at its defaults for
+   opt-125m and opt-1.3b, each run twice and equal field for field, and
+   the offload table; (e) on the host, a 10^5-device
+   ``synthetic_fleet`` searched by ``search_placement_fleet`` for
+   opt-1.3b and its 200-round churn sim, sync against async (quorum
+   0.9); at 10^4 devices the scalar and vectorized ``FleetSim`` engines
+   bit for bit, and the batched sync lanes against the scalar model.
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -1929,7 +1954,13 @@ def phase_mamba(torch, np, device):
         f"{gen_ms / steps:.3f} ms a step, {Bd * new / (gen_ms / 1e3):.1f} "
         f"new tokens/s ({Bd * (Sd + new - 1) / (gen_ms / 1e3):.1f} tokens "
         f"through the step a second); every id < {cfg.vocab_size}")
-    profile_fn(torch, gen, gen_ms / steps, steps, "ssd_")
+    # the profile reads a shorter run of the same steps (16 prompt tokens
+    # and 8 new), as phase 14's does: the profiler's bookkeeping grows
+    # with the operations, and 95 steps of ~1,000 launches each kept the
+    # phase over 100 s
+    short = prompt[:, :16]
+    profile_fn(torch, lambda: greedy_generate(params, cfg, short, 8),
+               gen_ms / steps, 16 + 8 - 1, "ssd_")
 
     # (c) decode_step token by token == the kernel prefill, fp32 weights
     Bc, Sc = MAMBA_AGREE
@@ -4030,6 +4061,441 @@ def launchers_with_health(torch, device):
             torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# Phase 20: the carbon-aware fleet (the torch twins of the examples)
+# --------------------------------------------------------------------------- #
+
+# (a) quickstart: phase 4's opt-1.3b shape, batch x seq x steps
+FLEET_TRAIN = (4, 2048, 8)
+# (b) DiLoCo: replicas, K, rounds, batch x seq a replica
+FLEET_DILOCO = (2, 2, 2, 2, 2048)
+# (c) the serve example's request set
+FLEET_SERVE = dict(requests=6, prompt_len=16, max_new=24)
+# (d) the carbon sim's steps, the example's default
+FLEET_SIM_STEPS = 300
+# (e) fleet scale: the search's fleet and its churn sim's rounds; the
+# engines' parity fleet and its rounds (the JAX benchmark's 20 cut to 10:
+# the scalar engine draws one generator per device and fault a round)
+FLEET_N, FLEET_ROUNDS = 100_000, 200
+FLEET_PARITY_N, FLEET_PARITY_ROUNDS = 10_000, 10
+POWER_SAMPLE_S = 0.05
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module (examples/ is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class PowerSampler:
+    """The card's ``power.draw`` from ``nvidia-smi``, queried every
+    ``POWER_SAMPLE_S`` in a background thread while the with-block runs;
+    ``mean_w(t0, t1)`` averages the samples taken in [t0, t1] of
+    ``time.perf_counter``.  A query that fails or reads no number leaves
+    no sample."""
+
+    def __init__(self):
+        import threading
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        while not self._stop.is_set():
+            t = time.perf_counter()
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=power.draw",
+                     "--format=csv,noheader,nounits", "-i", "0"],
+                    capture_output=True, text=True, timeout=5).stdout
+                self.samples.append(((t + time.perf_counter()) / 2,
+                                     float(out.strip().splitlines()[0])))
+            except (OSError, ValueError, IndexError,
+                    subprocess.SubprocessError):
+                pass
+            self._stop.wait(POWER_SAMPLE_S)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def mean_w(self, t0, t1):
+        w = [p for t, p in self.samples if t0 <= t <= t1]
+        return (sum(w) / len(w) if w else float("nan")), len(w)
+
+
+def counted(kernels):
+    """Set every kernel's count to 0 and return a reader of the counts."""
+    for f in kernels:
+        f.launches = 0
+    return lambda: {f.__name__: f.launches for f in kernels}
+
+
+def fleet_quickstart(torch, np, device):
+    """(a) examples/torch_quickstart.py's ``run`` on full-width opt-1.3b
+    at phase 4's shape, with the card's power sampled over the steps;
+    against the paper's CLOUD_H100 model of the same FLOPs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.core.energy.devices import (CLOUD_H100, train_energy_wh,
+                                                 train_time_s)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    tq = load_example("torch_quickstart")
+    cfg = get_config("opt-1.3b")
+    Bt, St, steps = FLEET_TRAIN
+    torch.cuda.empty_cache()
+    read = counted((FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+                    FK.flash_attention_bwd_dkdv))
+    with PowerSampler() as power:
+        res, ledger, _ = tq.run(cfg, steps=steps, batch=Bt, seq=St,
+                                  device=device)
+        t_end = time.perf_counter()
+    launches = read()
+    step_s = 1.0 / res.steady_steps_per_s
+    watts, n_w = power.mean_w(t_end - (steps - 1) * step_s, t_end)
+    flops = F.train_flops(cfg, Bt, St, remat=False)
+    model_s = train_time_s(CLOUD_H100, flops)
+    model_wh = train_energy_wh(CLOUD_H100, flops)
+    log(f"(a) quickstart twin, opt-1.3b {Bt} x {St}, {steps} steps: losses "
+        f"{[round(x, 4) for x in res.losses]}; measured "
+        f"{1e3 * step_s:.1f} ms a step after the first, "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s by train_flops "
+        f"({100 * flops / step_s / BF16_FLOP_PER_S:.2f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f})")
+    log(f"(a) the card's power.draw over the last {steps - 1} steps: "
+        f"{watts:.1f} W mean of {n_w} samples -> {watts * step_s:.1f} J a "
+        f"step measured; CLOUD_H100 model of the same {flops:.4e} FLOPs: "
+        f"train_time_s {model_s:.4f} s ({model_s / step_s:.2f}x the "
+        f"measured step), train_energy_wh {model_wh:.5f} Wh = "
+        f"{model_wh * 3600:.1f} J ({CLOUD_H100.power_active_w:.0f} W x "
+        f"{CLOUD_H100.effective_flops / 1e12:.2f} TFLOP/s effective; "
+        f"{model_wh * 3600 / (watts * step_s):.2f}x the measured J)")
+    log(f"(a) the example's laptop component model: {res.energy_wh:.4f} Wh "
+        f"over {steps} steps, ledger {ledger.operational_kg * 1000:.4f} "
+        f"gCO2e at EDGE_PUE")
+    n = cfg.num_layers * steps
+    if len(res.losses) != steps or not all(np.isfinite(res.losses)):
+        fail(f"(a) non-finite or missing losses: {res.losses}")
+    if any(v != n for v in launches.values()):
+        fail(f"(a) FA-2 launches {launches} != {cfg.num_layers} x {steps}")
+    return launches, {"step_ms": 1e3 * step_s, "watts": watts,
+                      "j_step": watts * step_s, "model_s": model_s,
+                      "model_j": model_wh * 3600}
+
+
+def fleet_diloco(torch, np, device):
+    """(b) examples/torch_diloco_edge.py's ``run`` on full-width opt-1.3b:
+    int8 hierarchical sync over the example's two-region 4 MB/s fleet."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
+                                                   quantize_blocks)
+    td = load_example("torch_diloco_edge")
+    cfg = get_config("opt-1.3b")
+    R, K, rounds, Bt, St = FLEET_DILOCO
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    read = counted((FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
+                    FK.flash_attention_bwd_dkdv, quantize_blocks,
+                    dequantize_blocks))
+    t0 = time.perf_counter()
+    res, naive = td.run(cfg, replicas=R, rounds=rounds, inner=K, batch=Bt,
+                        seq=St, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    round_ms = 1e3 * R * K / res.steps_per_s
+    sizes = opt_leaf_sizes()
+    wire = sum(n + 4 * (n // 256 + 1) for n in sizes)
+    n_q, n_fa = len(sizes) * R * rounds, cfg.num_layers * R * K * rounds
+    log(f"(b) DiLoCo twin, opt-1.3b, {R} replicas x K {K} x {rounds} rounds "
+        f"of {Bt} x {St}: round losses "
+        f"{[round(x, 4) for x in res.round_losses]}; {round_ms:.1f} ms a "
+        f"round ({wall:.1f} s the call), device ms a round "
+        f"{ {k: round(1e3 * v / rounds, 1) for k, v in res.phase_s.items()} }"
+        f"; modelled int8 hierarchical sync {res.comm_time_s_per_round:.3f} "
+        f"s a round, {res.comm_time_s_per_step:.3f} s a step amortized, "
+        f"against the naive every-step fp32 ring's {naive.time_s:.3f} s "
+        f"({naive.time_s / res.comm_time_s_per_step:.0f}x); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{launches} (expected FA-2 {n_fa}, quant8 {n_q} each)")
+    if not all(np.isfinite(res.losses + res.round_losses)) \
+            or len(res.round_losses) != rounds:
+        fail(f"(b) non-finite or missing losses: {res.round_losses}")
+    if any(launches[k] != n_fa for k in list(launches)[:3]) or any(
+            launches[k] != n_q for k in list(launches)[3:]):
+        fail(f"(b) launches {launches} are not {n_fa} (FA-2) and {n_q} "
+             "(quant8) each")
+    if res.sync_wire_bytes_per_round != wire:
+        fail(f"(b) wire bytes {res.sync_wire_bytes_per_round} != {wire}")
+    return launches, {"round_ms": round_ms}
+
+
+def fleet_serve(torch, np, device):
+    """(c) examples/torch_serve_batched.py: ``run_engine`` on full-width
+    qwen2-7b (flash-decode in every layer every step; greedy ids held to
+    ``greedy_generate``'s at fp32 compute), ``run_dense`` on full-width
+    mamba2-130m; ms a decode step against the HBM bound."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as F
+    from repro_torch.kernels.flash_attention.decode import flash_decode_paged
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serve.step import greedy_generate
+    ts = load_example("torch_serve_batched")
+    kw = FLEET_SERVE
+    cfg = get_config("qwen2-7b")
+    params = init_params(cfg, device=device, seed=0)
+    ts.run_engine(cfg, params, **kw)                    # warm
+    read = counted((flash_decode_paged,))
+    reqs, out, eng = ts.run_engine(cfg, params, **kw)
+    launches = read()
+    steps = eng.steps
+    step_ms = 1e3 * eng.wall_s / steps
+    slots = min(kw["requests"], 4)
+    cache = kw["prompt_len"] + kw["max_new"]
+    bound_ms = 1e3 * F.decode_hbm_bytes(cfg, slots, cache) / HBM_BYTES_PER_S
+    s = eng.stats()
+    if set(out) != {r.uid for r in reqs} or any(
+            len(out[r.uid].tokens) != kw["max_new"] or out[r.uid].failed
+            for r in reqs):
+        fail("(c) not every request completed")
+    if launches["flash_decode_paged"] != cfg.num_layers * steps:
+        fail(f"(c) flash-decode launches {launches} != {cfg.num_layers} x "
+             f"{steps} steps")
+
+    def dense_ids(p, c):
+        ids = {}
+        for r in reqs:
+            g = greedy_generate(p, c, torch.tensor([r.prompt],
+                                                   device=device),
+                                max_new=kw["max_new"])
+            ids[r.uid] = g[0, len(r.prompt):].tolist()
+        return ids
+
+    same16 = sum(out[r.uid].tokens == t
+                 for r, t in zip(reqs, dense_ids(params, cfg).values()))
+    # the gate, at fp32 compute over the same weights (bf16 pages and
+    # dense cache alike): a bf16 logit's rounding can swap a near tie
+    c32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    read32 = counted((flash_decode_paged,))
+    _, out32, eng32 = ts.run_engine(c32, p32, **kw)
+    n32 = read32()["flash_decode_paged"]
+    want = dense_ids(p32, c32)
+    same32 = [out32[r.uid].tokens == want[r.uid] for r in reqs]
+    log(f"(c) serve twin, qwen2-7b engine: {int(s['tokens_generated'])} "
+        f"tokens, {steps} steps, {eng.wall_s:.3f} s, {step_ms:.2f} ms a step "
+        f"(decode_hbm_bytes at {slots} x {cache} / 3.35 TB/s = "
+        f"{bound_ms:.3f} ms, {step_ms / bound_ms:.1f}x), "
+        f"{s['tokens_per_s']:.1f} tokens/s; monitor {s['energy_j']:.2f} J "
+        f"({s['j_per_token']:.3f} J/token) on the laptop-m2pro profile; "
+        f"flash-decode launches {launches['flash_decode_paged']} = "
+        f"{cfg.num_layers} x {steps}; bf16 ids equal to greedy_generate's "
+        f"for {same16} of {len(reqs)} requests (not gated); fp32 compute: "
+        f"{sum(same32)} of {len(reqs)} equal, {n32} launches")
+    if not all(same32) or n32 != c32.num_layers * eng32.steps:
+        fail(f"(c) fp32 engine ids differ from greedy_generate's "
+             f"({same32}) or launches {n32} != {c32.num_layers} x "
+             f"{eng32.steps}")
+    del p32, eng32, eng
+    torch.cuda.empty_cache()
+
+    mcfg = get_config("mamba2-130m")
+    mp = init_params(mcfg, device=device, seed=0)
+    ts.run_dense(mcfg, mp, **kw)                         # warm
+    prompt, gen, wall, mon = ts.run_dense(mcfg, mp, **kw)
+    total = kw["prompt_len"] + kw["max_new"]
+    m_ms = 1e3 * wall / total
+    m_bound = 1e3 * F.decode_hbm_bytes(mcfg, kw["requests"], total) \
+        / HBM_BYTES_PER_S
+    bd = mon.breakdown_j()
+    log(f"(c) serve twin, mamba2-130m dense: {wall:.3f} s for {total} "
+        f"steps of {kw['requests']} rows, {m_ms:.3f} ms a step "
+        f"(decode_hbm_bytes / 3.35 TB/s = {m_bound:.4f} ms, "
+        f"{m_ms / m_bound:.0f}x); monitor {mon.total_j:.3f} J [compute "
+        f"{bd['compute']:.4f} | memory {bd['memory']:.4f} | static "
+        f"{bd['static']:.4f}]")
+    if tuple(gen.shape) != (kw["requests"], total) or not bool(
+            (gen >= 0).all() and (gen < mcfg.vocab_size).all()):
+        fail(f"(c) mamba2-130m ids of shape {tuple(gen.shape)} out of range")
+    return launches, {"step_ms": step_ms, "bound_ms": bound_ms,
+                      "mamba_ms": m_ms, "mamba_bound_ms": m_bound}
+
+
+def fleet_carbon_sim():
+    """(d) examples/torch_edge_carbon_sim.py at its defaults, for opt-125m
+    and opt-1.3b, each policy run twice and held equal field for field;
+    the offload table."""
+    import dataclasses
+
+    from repro_torch.configs.opt import opt_config
+    tc = load_example("torch_edge_carbon_sim")
+    out = {}
+    for name in ("opt-125m", "opt-1.3b"):
+        t0 = time.perf_counter()
+        runs = [tc.compare_policies(opt_config(name), tc.example_fleet(),
+                                    FLEET_SIM_STEPS) for _ in range(2)]
+        dt = (time.perf_counter() - t0) / 2
+        (blind, aware), again = runs
+        if [dataclasses.asdict(r) for r in (blind, aware)] \
+                != [dataclasses.asdict(r) for r in again]:
+            fail(f"(d) {name}: a second run of the same SimConfig differs")
+        if blind.steps_done != FLEET_SIM_STEPS \
+                or aware.steps_done != FLEET_SIM_STEPS:
+            fail(f"(d) {name}: steps done {blind.steps_done}, "
+                 f"{aware.steps_done}")
+        log(f"(d) carbon sim, {name}, {FLEET_SIM_STEPS} steps: blind "
+            f"{blind.wall_time_s / 3600:.2f} h, {blind.carbon_kg * 1e3:.2f} "
+            f"gCO2e; aware {aware.wall_time_s / 3600:.2f} h, "
+            f"{aware.carbon_kg * 1e3:.2f} gCO2e; both policies in {dt:.2f} "
+            f"s on the host; the second runs equal field for field")
+        out[name] = dt
+    tc.offload_table()
+    return out
+
+
+def fleet_scale():
+    """(e) on the host: a 10^5-device fleet searched for opt-1.3b and its
+    200-round churn sim, sync against async (quorum 0.9); at 10^4 devices
+    the scalar and vectorized engines' trajectories, and the batched
+    sync lanes against the scalar model."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.faultinject import FaultPlan
+    from repro_torch.core.net import (NetParams, batched_sync_cost,
+                                      synthetic_fleet, sync_cost)
+    from repro_torch.core.placement import search_placement_fleet
+    from repro_torch.core.sched.fleet_sim import FleetSim, FleetSimConfig
+    cfg = get_config("opt-1.3b")
+    # benchmarks/bench_fleet_scale.py's fault plan
+    plan = FaultPlan(seed=7, straggler_frac=0.1,
+                     straggler_slowdown=(4.0, 8.0), crash_prob=0.005,
+                     rejoin_delay=(2, 5), link_flap_prob=0.05,
+                     link_jitter_s=(0.5, 2.0))
+    n, dp = FLEET_N, FLEET_N // 8
+    fleet = synthetic_fleet(n, region_mix="shuffled", seed=0,
+                            params=NetParams(wan_bw_Bps=5e6))
+    t0 = time.perf_counter()
+    best = search_placement_fleet(fleet, cfg, data_parallel=dp,
+                                  batch=2 * dp, seq_len=2048,
+                                  microbatches=4)
+    search_s = time.perf_counter() - t0
+    rr = best.search_stats["round_robin_step_time_s"]
+    sim = dict(rounds=FLEET_ROUNDS, seed=2, leave_prob=0.01, join_prob=0.2,
+               fault_plan=plan)
+    t0 = time.perf_counter()
+    sync = FleetSim(fleet, FleetSimConfig(mode="sync", **sim)).run()
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asyn = FleetSim(fleet, FleetSimConfig(mode="async", quorum=0.9,
+                                          **sim)).run()
+    async_s = time.perf_counter() - t0
+    log(f"(e) {n:,} devices: search_placement_fleet for opt-1.3b "
+        f"{search_s:.3f} s ({best.strategy}, step {best.step_time_s:.2f} s "
+        f"modelled against round-robin's {rr:.2f} s, ratio "
+        f"{best.step_time_s / rr:.4f}); {FLEET_ROUNDS}-round churn sim sync "
+        f"{sync_s:.2f} s, async q=0.9 {async_s:.2f} s on the host; modelled "
+        f"wall sync/async {sync.wall_time_s / asyn.wall_time_s:.3f}x "
+        f"(BENCH_fleet_scale.json's 10.06 s for search + sync sim at "
+        f"opt-125m and 69.4x are a JAX-package run on a CPU, not the "
+        f"port's)")
+    if not best.step_time_s <= rr or not asyn.wall_time_s < sync.wall_time_s:
+        fail("(e) the search lost to round-robin, or async to sync")
+
+    f4 = synthetic_fleet(FLEET_PARITY_N, region_mix="shuffled", seed=0)
+    sim4 = FleetSim(f4, FleetSimConfig(rounds=FLEET_PARITY_ROUNDS, seed=2,
+                                       leave_prob=0.01, join_prob=0.2,
+                                       fault_plan=plan))
+    t0 = time.perf_counter()
+    rv = sim4.run("vectorized")
+    vec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rs = sim4.run("scalar")
+    scalar_s = time.perf_counter() - t0
+    mism = int(not rv.trajectory_equal(rs)) \
+        + int(rv.region_busy_s != rs.region_busy_s) \
+        + int(rv.wall_time_s != rs.wall_time_s)
+    # every stage slot's DP group of the 10^4 fleet's placement, priced
+    # at once and one by one through the scalar model
+    b4 = search_placement_fleet(f4, cfg, data_parallel=FLEET_PARITY_N // 8,
+                                batch=FLEET_PARITY_N // 4, seq_len=2048,
+                                microbatches=4)
+    S = b4.grid.shape[1]
+    dev = b4.grid.T.ravel()
+    grp = np.repeat(np.arange(S), b4.grid.shape[0])
+    topo = f4.to_topology()
+    lanes = 0
+    t0 = time.perf_counter()
+    for algo in ("ring", "hierarchical"):
+        b = batched_sync_cost(f4, dev, grp, cfg.param_count() // S,
+                              algorithm=algo, dtype_bytes=2)
+        for g in range(S):
+            rows = dev[grp == g]
+            s = sync_cost(topo, [str(f4.node_names[r]) for r in rows],
+                          cfg.param_count() // S, algorithm=algo,
+                          dtype_bytes=2)
+            i = b.group(g)
+            mism += int(not (b.time_s[i] == s.time_s
+                             and b.wire_bytes[i] == s.wire_bytes
+                             and b.wan_bytes[i] == s.wan_bytes))
+            sel = b.member_group == g
+            for d, busy, byts in zip(b.member_device[sel], b.busy_s[sel],
+                                     b.bytes_dev[sel]):
+                name = str(f4.node_names[int(d)])
+                mism += int(not (busy == s.per_device_busy_s[name]
+                                 and byts == s.per_device_bytes[name]))
+                lanes += 1
+    lanes_s = time.perf_counter() - t0
+    log(f"(e) {FLEET_PARITY_N:,} devices, {FLEET_PARITY_ROUNDS} rounds "
+        f"(the JAX benchmark's 20 cut to {FLEET_PARITY_ROUNDS}): "
+        f"vectorized engine "
+        f"{vec_s:.3f} s, scalar {scalar_s:.2f} s ({scalar_s / vec_s:.1f}x); "
+        f"batched sync lanes of {S} DP groups x 2 algorithms against the "
+        f"scalar model, {lanes:,} member lanes, {lanes_s:.2f} s; "
+        f"{mism} mismatches")
+    if mism:
+        fail(f"(e) {mism} mismatches between the batched and scalar paths")
+    return {"search_s": search_s, "sync_s": sync_s, "async_s": async_s,
+            "vec_s": vec_s, "scalar_s": scalar_s}
+
+
+def phase_fleet(torch, np, device):
+    """Phase 20: (a)-(c) the example twins on the card, (d)-(e) the
+    scheduler and the fleet-scale control plane on the host.  Returns
+    the launches of each kernel on the phase's path."""
+    parts, launches = {}, {}
+    for label, fn, args in (
+            ("(a) quickstart", fleet_quickstart, (torch, np, device)),
+            ("(b) diloco", fleet_diloco, (torch, np, device)),
+            ("(c) serve", fleet_serve, (torch, np, device)),
+            ("(d) carbon sim", fleet_carbon_sim, ()),
+            ("(e) fleet scale", fleet_scale, ())):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        parts[label] = time.perf_counter() - t0
+        if isinstance(got, tuple):
+            for k, v in got[0].items():
+                launches.setdefault(k, {})[label] = v
+        torch.cuda.empty_cache()
+    log("phase 20 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4066,7 +4532,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 20)) if args.phases is None
+    wanted = (set(range(1, 21)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -4111,18 +4577,20 @@ def main(argv=None) -> int:
     run(17, phase_whisper, torch, np, device)
     run(18, phase_qwen2_vl, torch, np, device)
     run(19, phase_edge_fleet, torch, np, device)
+    run(20, phase_fleet, torch, np, device)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
-    if wanted != set(range(1, 20)):
+    if wanted != set(range(1, 21)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
-    # the kernels line: launches and timing on this slice's paths where a
-    # kernel lies on one (flash-decode: phase 2's SLO-gated qwen2-7b
-    # engine; the FA-2 and quant8 kernels: phase 19's edge fleet, opt-1.3b
-    # at 2 x 2048 tokens a replica), else on the path that runs it (the
-    # SSD scan: phase 13's jamba prefill); each row also keeps the earlier
-    # paths' launches and timing
+    # the kernels line: launches on this slice's path where a kernel lies
+    # on it (phase 20's example twins: flash-decode in the qwen2-7b serve
+    # twin, the FA-2 kernels in the opt-1.3b quickstart and DiLoCo twins,
+    # quant8 in the DiLoCo twin's int8 sync), else on the path that runs
+    # it (the SSD scan: phase 13's jamba prefill); timing at the shapes of
+    # the earlier slices' paths; each row also keeps the earlier paths'
+    # launches
     worst, timing = got[1]
     fa_worst, fa_timing = got[3]
     q_worst, q_timing = got[5]
@@ -4135,20 +4603,32 @@ def main(argv=None) -> int:
     qwen2_vl_train, qwen2_vl_prefill, qwen2_vl_engine = got[18]
     engine_launches, slo_launches = got[2]
     edge = got[19]
+    fleet = got[20]
+    fleet_path = {"(a) quickstart": "opt-1.3b quickstart twin (phase 20)",
+                  "(b) diloco": "opt-1.3b DiLoCo twin (phase 20)",
+                  "(c) serve": "qwen2-7b serve twin (phase 20)"}
+
+    def on_fleet(name):
+        """(launches on phase 20's path, launches by its parts)."""
+        parts = fleet.get(name, {})
+        return (sum(parts.values()),
+                {fleet_path[k]: v for k, v in parts.items()})
     fa = "src/repro/kernels/flash_attention/kernel.py"
     qwen2 = {k: v for k, v in timing.items()
              if k not in ("granite", "qwen2_vl")}
+    decode_n, decode_by = on_fleet("flash_decode_paged")
     rows = [{"name": "flash_decode_paged", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/flash_attention/decode.py:132",
-             "launches": slo_launches, "max_abs_err": worst, **qwen2,
+             "launches": decode_n, "max_abs_err": worst, **qwen2,
              "shape": "qwen2-7b decode, B 8 x 2048 tokens, "
                       + str((H, K, D)),
              "at_qwen2_vl_2b": {"shape": str(QWEN2VL_DECODE),
                                 **timing["qwen2_vl"]},
              "at_granite_3_2b": {"shape": str(GRANITE_DECODE),
                                  **timing["granite"]},
-             "launches_by_path": {"qwen2-7b SLO-gated engine (phase 2)":
+             "launches_by_path": {**decode_by,
+                                  "qwen2-7b SLO-gated engine (phase 2)":
                                   slo_launches,
                                   "qwen2-vl-2b engine (phase 18)":
                                   qwen2_vl_engine,
@@ -4162,7 +4642,9 @@ def main(argv=None) -> int:
             ("flash_attention_fwd", "fwd", "flash_attn_fwd.cu", 86),
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
-        by_path = {"opt-1.3b edge fleet, async local SGD (phase 19)":
+        fleet_n, fleet_by = on_fleet(name)
+        by_path = {**fleet_by,
+                   "opt-1.3b edge fleet, async local SGD (phase 19)":
                    edge[name],
                    "whisper-medium train, 8 steps (phase 17)":
                    whisper_train[name],
@@ -4185,7 +4667,7 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": edge[name],
+                     "launches": fleet_n,
                      "max_abs_err": fa_worst[kern],
                      **fa_timing["opt_edge"][kern],
                      "shape": "opt-1.3b edge replica " + str(OPT_EDGE_FA),
@@ -4206,14 +4688,16 @@ def main(argv=None) -> int:
                      "launches_by_path": by_path})
     for name, kern, line in (("quantize_blocks", "quantize", 21),
                              ("dequantize_blocks", "dequantize", 30)):
+        fleet_n, fleet_by = on_fleet(name)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/quant8.cu",
                      "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
-                     "launches": edge[name],
+                     "launches": fleet_n,
                      "max_abs_err": max(q_worst, c_worst),
                      **q_timing[kern],
                      "shape": "opt-1.3b's largest leaf, fp32, block 256",
                      "launches_by_path": {
+                         **fleet_by,
                          "opt-1.3b edge fleet, async local SGD (phase 19)":
                          edge[name],
                          "opt-1.3b local SGD (phase 6)": ls_launches[name]}})

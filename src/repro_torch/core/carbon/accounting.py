@@ -84,3 +84,12 @@ class CarbonLedger:
             d["embodied_kg"] += e.embodied_kg
             d["operational_kg"] += e.operational_kg
         return out
+
+
+def device_operational_kwh(device: DeviceSpec, hours_active_per_day: float,
+                           years: float, *, baseline_hours: float = 0.0
+                           ) -> float:
+    """kWh over ``years`` of use: active training hours + baseline use."""
+    days = years * 365.0
+    return days * (hours_active_per_day * device.power_active_w
+                   + baseline_hours * device.power_idle_w) / 1000.0

@@ -1,5 +1,6 @@
 """Device catalog — the analytic edge/cloud substrate (a copy of
-``repro.core.energy.devices``; the serving engine prices its steps with it).
+``repro.core.energy.devices``; the trainer, the serving engine and the
+scheduler price with it).
 
 Every constant cites its source.  MFU values are calibrated ONCE against the
 paper's Table 1 wall-times (OPT-125m, 100 steps, batch 16, seq 512) and then
@@ -134,3 +135,12 @@ CATALOG: Dict[str, DeviceSpec] = {d.name: d for d in [
 
 def get_device(name: str) -> DeviceSpec:
     return CATALOG[name]
+
+
+def train_time_s(device: DeviceSpec, flops: float) -> float:
+    return flops / device.effective_flops
+
+
+def train_energy_wh(device: DeviceSpec, flops: float) -> float:
+    """Single-device training energy (paper Table 1 reproduction)."""
+    return device.power_active_w * train_time_s(device, flops) / 3600.0

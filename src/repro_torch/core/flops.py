@@ -1,11 +1,13 @@
-"""Analytic FLOP / byte models (the parts of ``repro.core.flops`` the
-trainer and the serving engine price their steps with).
+"""Analytic FLOP / byte models (a copy of ``repro.core.flops``): what the
+trainer, the serving engine, the planners and the carbon models price with.
 
 train step     : 6·N·D  (+ attention term 12·L·S²·H·hd·(1/2 causal) x3)
 decode (1 tok) : 2·N_active·B (+ cache-read attention term)
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
@@ -78,6 +80,13 @@ def param_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> float:
     return cfg.param_count() * dtype_bytes
 
 
+def train_state_bytes(cfg: ModelConfig, param_dtype: int = 2,
+                      moment_dtype: int = 4) -> float:
+    """weights + grads + two Adam moments."""
+    n = cfg.param_count()
+    return n * (param_dtype + 4 + 2 * moment_dtype)
+
+
 def kv_cache_bytes(cfg: ModelConfig, batch: int, cache_len: int,
                    dtype_bytes: int = 2) -> float:
     if cfg.attention == "mla":
@@ -93,3 +102,27 @@ def kv_cache_bytes(cfg: ModelConfig, batch: int, cache_len: int,
         total += n_ssm * batch * 4 * (
             ssm.num_heads(cfg.d_model) * ssm.head_dim * ssm.d_state)
     return total
+
+
+def activation_bytes(cfg: ModelConfig, batch: int, seq_len: int,
+                     dtype_bytes: int = 2) -> float:
+    """Layer-boundary activations (what the idealized DAG method transmits)."""
+    return cfg.num_layers * batch * seq_len * cfg.d_model * dtype_bytes
+
+
+def decode_hbm_bytes(cfg: ModelConfig, batch: int, cache_len: int,
+                     dtype_bytes: int = 2) -> float:
+    """Weights read once + cache read once per decode step."""
+    return (cfg.active_param_count() * dtype_bytes
+            + kv_cache_bytes(cfg, batch, cache_len, dtype_bytes))
+
+
+def summary(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, float]:
+    return {
+        "params": cfg.param_count(),
+        "params_active": cfg.active_param_count(),
+        "train_flops": train_flops(cfg, batch, seq_len),
+        "fwd_flops": fwd_flops(cfg, batch, seq_len),
+        "param_bytes_bf16": param_bytes(cfg),
+        "train_state_bytes": train_state_bytes(cfg),
+    }

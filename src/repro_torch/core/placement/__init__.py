@@ -8,12 +8,10 @@ wide-area :class:`~repro_torch.core.net.Topology`, and which
 planner prices placements (:mod:`repro_torch.core.planner.dtfm`),
 :func:`search_placement` picks the cheapest, local SGD maps its replicas
 onto the spec's region groups (per-region inner-step counts, per-slot
-sync pricing) and the elastic checkpoints shard the training state by its
-stage boundaries.
-
-This package exports the spec and the search.  The batched fleet-scale
-search (``repro.core.placement.fleet``) waits for the port of
-``core/net/fleet_arrays.py`` and the batched collectives.
+sync pricing), the elastic checkpoints shard the training state by its
+stage boundaries, and the orchestrator replans through the same search on
+churn.  :func:`search_placement_fleet` is the batched search over
+:class:`~repro_torch.core.net.FleetArrays` for fleets of 10⁴–10⁶ devices.
 """
 
 from repro_torch.core.placement.spec import PlacementSpec, StagePlacement
@@ -21,9 +19,13 @@ from repro_torch.core.placement.search import (balanced_boundaries,
                                                ordered_placement,
                                                round_robin_placement,
                                                search_placement)
+from repro_torch.core.placement.fleet import (FleetPlacement,
+                                              price_fleet_grid,
+                                              search_placement_fleet)
 
 __all__ = [
     "PlacementSpec", "StagePlacement",
     "balanced_boundaries", "ordered_placement", "round_robin_placement",
     "search_placement",
+    "FleetPlacement", "price_fleet_grid", "search_placement_fleet",
 ]

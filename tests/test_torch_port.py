@@ -26,6 +26,10 @@ from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+# the torch twins of the examples: scripts beside the JAX ones
+TWINS = sorted((ROOT / "examples").glob("torch_*.py"))
+TWIN_NAMES = ["torch_diloco_edge", "torch_edge_carbon_sim",
+              "torch_quickstart", "torch_serve_batched"]
 
 
 # the dense parity archs, and the jamba hybrid's ssm + mlp + attn + moe
@@ -90,11 +94,27 @@ def test_package_imports_with_jax_blocked():
               "repro_torch.core.placement", "repro_torch.core.placement.spec",
               "repro_torch.core.placement.search",
               "repro_torch.core.planner.dtfm",
-              "repro_torch.checkpoint.spec", "repro_torch.checkpoint.elastic"):
+              "repro_torch.checkpoint.spec", "repro_torch.checkpoint.elastic",
+              "repro_torch.core.carbon.llmcarbon",
+              "repro_torch.core.carbon.offload",
+              "repro_torch.core.planner.idealized",
+              "repro_torch.core.sched.thermal",
+              "repro_torch.core.sched.carbon_aware",
+              "repro_torch.core.sched.faults",
+              "repro_torch.core.sched.orchestrator",
+              "repro_torch.core.sched.fleet_sim",
+              "repro_torch.core.net.fleet_arrays",
+              "repro_torch.core.placement.fleet"):
         assert m in mods, m
+    assert [f.stem for f in TWINS] == TWIN_NAMES
+    twins = [str(f) for f in TWINS]
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\nimport importlib\n"
+            "import importlib.util\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            f"for i, f in enumerate({twins!r}):\n"
+            "    s = importlib.util.spec_from_file_location(f'twin{i}', f)\n"
+            "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
             "print('ok', len(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(ROOT / "src"),
@@ -105,8 +125,8 @@ def test_package_imports_with_jax_blocked():
 
 
 def test_no_file_of_the_port_imports_jax_or_repro():
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
+    assert len(files) > 20 and len(TWINS) == 4
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
@@ -265,3 +285,36 @@ def test_resolve_device_names_the_current_card_for_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+
+
+def _load_twin(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"twin_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", TWIN_NAMES)
+def test_example_twins_raise_without_a_card_unless_asked_for_the_cpu(
+        name, monkeypatch, capsys):
+    """Each twin defaults to the card and raises without one, as the
+    launchers do; ``--torch-device cpu`` runs it (at a tiny size)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    twin = _load_twin(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        twin.main([])
+    small = {"torch_quickstart": ["--steps", "2", "--batch", "2",
+                                  "--seq", "16"],
+             "torch_diloco_edge": ["--rounds", "1", "--inner", "2",
+                                   "--batch", "2", "--seq", "16"],
+             "torch_serve_batched": ["--arch", "qwen2-7b", "--requests",
+                                     "2", "--max-new", "3"],
+             "torch_edge_carbon_sim": ["--steps", "10"]}[name]
+    twin.main(small + ["--torch-device", "cpu"])
+    out = capsys.readouterr().out
+    assert {"torch_quickstart": "operational CO2 :",
+            "torch_diloco_edge": "naive every-step sync:",
+            "torch_serve_batched": "served 2 requests",
+            "torch_edge_carbon_sim": "net reduction"}[name] in out
