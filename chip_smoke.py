@@ -214,7 +214,24 @@ Phases (any failure exits nonzero):
    ``synthetic_fleet`` searched by ``search_placement_fleet`` for
    opt-1.3b and its 200-round churn sim, sync against async (quorum
    0.9); at 10^4 devices the scalar and vectorized ``FleetSim`` engines
-   bit for bit, and the batched sync lanes against the scalar model.
+   bit for bit, and the batched sync lanes against the scalar model;
+21. the DT-FM hybrid data + pipeline executor (``repro_torch.distributed``),
+   its ranks gloo processes sharing the card (activations staged through
+   host memory): (a) at opt-1.3b width and 4 layers in fp32 over the
+   non-uniform boundaries [0, 3, 4], the pipelined loss and every
+   gradient leaf gathered to rank 0 against the single-process
+   ``forward_train`` at phase 4's fp32 bars, on a 1 x 2 mesh, then a
+   2 x 2 mesh against the 1 x 2 run; (b) opt-1.3b at full width and
+   depth, bf16, on 1 x 4 ranks, 4 steps of 4 x 2048 tokens in 4
+   microbatches with the uniform split and 4 with the split
+   ``ordered_placement`` gives three laptops and a phone, each step's
+   loss within phase 4's bf16 bar of the single-process trainer, 384
+   launches of each FA-2 kernel a run summed over the ranks, each rank's
+   step split into busy, host staging, send/recv and all-reduce time
+   and its peak memory, beside ``dtfm``'s model of the same fleet; (c)
+   ``examples/torch_decentralized_pipeline.py``'s ``run`` on a 2 x 2 mesh
+   (60 steps of its defaults' 8 x 128), its loss check and plan
+   printout.
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -1016,7 +1033,8 @@ def phase_fa(torch, device, timer):
     from repro_torch.kernels.flash_attention import kernel as FK
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     for i, case in enumerate(FA_CASES + [OPT_FA, OPT_EDGE_FA, WHISPER_FA,
-                                         WHISPER_XFA, QWEN2VL_FA]):
+                                         WHISPER_XFA, QWEN2VL_FA,
+                                         OPT_PIPE_FA]):
         causal, window = case[5], case[6]
         kw = dict(causal=causal, window=window)
         for dt in ("float32", "bfloat16"):
@@ -1060,6 +1078,8 @@ def phase_fa(torch, device, timer):
     timing = time_fa(torch, device, timer, OPT_FA, "opt-1.3b", worst)
     timing["opt_edge"] = time_fa(torch, device, timer, OPT_EDGE_FA,
                                  "opt-1.3b edge replica", worst)
+    timing["opt_pipe"] = time_fa(torch, device, timer, OPT_PIPE_FA,
+                                 "opt-1.3b DT-FM pipeline microbatch", worst)
     timing["mixtral"] = time_fa(torch, device, timer, MIXTRAL_FA,
                                 "mixtral-8x7b train", worst, hold=True)
     timing["deepseek"] = time_fa(torch, device, timer, DEEPSEEK_FA,
@@ -4496,6 +4516,299 @@ def phase_fleet(torch, np, device):
     return launches
 
 
+
+# --------------------------------------------------------------------------- #
+# Phase 21: the DT-FM hybrid data + pipeline executor
+# --------------------------------------------------------------------------- #
+
+# (a) the fp32 gate: opt-1.3b width at 4 layers, B x S tokens in MB
+# microbatches over the non-uniform boundaries, on a 1 x 2 and a 2 x 2
+# (data, stage) mesh (2 rows a data rank, 1 a microbatch)
+PIPE_GATE = dict(layers=4, batch=4, seq=2048, microbatches=2,
+                 boundaries=[0, 3, 4], meshes=((1, 2), (2, 2)))
+# (b) opt-1.3b at full width and depth, bf16, on 1 x 4 gloo ranks sharing
+# the card: batch x seq tokens in microbatches, steps a run, uniform and
+# then the heterogeneous fleet's split (three laptops and a phone, as in
+# examples/decentralized_pipeline.py:108-116)
+PIPE_TRAIN = dict(batch=4, seq=2048, microbatches=4, steps=4, stages=4)
+# (c) examples/torch_decentralized_pipeline.py's run at its 14M geometry
+# and defaults on a 2 x 2 mesh, 60 of its 200 steps (its loss falls from
+# about 8.9 to 4.5 in the first 20)
+PIPE_EXAMPLE = dict(data=2, stages=2, steps=60, batch=8, seq=128,
+                    microbatches=4)
+# the pipeline's attention, one microbatch of (b): held and timed in
+# phase 3 (the kernels line's shape for rows 2-4)
+OPT_PIPE_FA = (1, 2048, 32, 32, 64, True, 0)
+
+
+def pipe_gate(torch, np, device):
+    """(a) The pipelined fp32 loss and every gradient leaf, gathered to
+    rank 0, against the single-process ``forward_train`` with autograd on
+    the card from the same weights (``init_params(seed=0)``) and batch, at
+    phase 4's fp32 bars; then the 2 x 2 mesh against the 1 x 2 run."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.distributed import pipeline as P
+    from repro_torch.distributed import runtime
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.optim import adamw
+    g = PIPE_GATE
+    cfg = dataclasses.replace(get_config("opt-1.3b"), num_layers=g["layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    nb = next(make_batch_fn(cfg, g["batch"], g["seq"], seed=0))
+    params = init_params(cfg, device=device, seed=0)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = M.forward_train(params, cfg, {
+        k: torch.from_numpy(v).to(device) for k, v in nb.items()})
+    ref = [t.cpu() for t in torch.autograd.grad(loss, leaves)]
+    ref_loss = float(loss.detach())
+    ref_norm = float(adamw.global_norm(ref))
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+    tol = STEP_TOL["float32"]
+
+    def held(label, got_loss, got, want_loss, want):
+        dl = abs(got_loss - want_loss)
+        errs = [(float((a - b).abs().max()),
+                 FA_TOL["float32"]["grad"] * max(1.0, float(b.abs().max())))
+                for a, b in zip(got, want)]
+        dg = abs(float(adamw.global_norm(got)) - float(adamw.global_norm(
+            want))) / float(adamw.global_norm(want))
+        worst = max(e / b for e, b in errs)
+        log(f"(a) {label}: loss {got_loss:.6f} vs {want_loss:.6f} (|diff| "
+            f"{dl:.3e}, bound {tol['loss']:.0e}); grad norm relative diff "
+            f"{dg:.3e} (bound {tol['gnorm']:.0e}); {len(errs)} leaves, "
+            f"worst max_abs_err / bound {worst:.3f}")
+        if not (dl <= tol["loss"] and dg <= tol["gnorm"] and worst <= 1.0):
+            fail(f"(a) {label}: the pipeline's fp32 loss or gradients "
+                 "disagree")
+
+    runs = {}
+    for data, stages in g["meshes"]:
+        t0 = time.perf_counter()
+        res = runtime.spawn([functools.partial(
+            P.evaluate, cfg=cfg, batch=nb, num_microbatches=g["microbatches"],
+            boundaries=g["boundaries"], seed=0, grads=True)],
+            data=data, stages=stages, transport="gloo", device=device)
+        out = res.values[0][0]
+        runs[(data, stages)] = (out["loss"], tree_leaves(out["grads"]))
+        n = g["layers"] * g["microbatches"] * data
+        log(f"(a) {data} x {stages} mesh, boundaries {g['boundaries']}, "
+            f"{g['batch']} x {g['seq']} tokens in {g['microbatches']} "
+            f"microbatches a data rank: {time.perf_counter() - t0:.1f} s "
+            f"the spawn; FA-2 launches {res.launches[0]} (expected {n} each)")
+        if any(v != n for v in res.launches[0].values()):
+            fail(f"(a) FA-2 launches {res.launches[0]} != {n} each")
+        if len({v["loss"] for v in res.values[0]}) != 1:
+            fail(f"(a) ranks report different losses: {res.values[0]}")
+    one, two = (runs[m] for m in g["meshes"])
+    held("1 x 2 vs single process", *one, ref_loss, ref)
+    held("2 x 2 vs 1 x 2", *two, *one)
+    log(f"(a) single-process grad norm {ref_norm:.6f}")
+
+
+def single_process_steps(torch, cfg, opt_cfg, device, steps, batch, seq):
+    """The single-process steps the pipeline must reproduce: the trainer's
+    weights (``init_params(seed=0)``), batches (``make_batch_fn`` with
+    seed 0) and step (``make_train_step``), one synchronised step at a
+    time.  Returns (losses, pre-clip grad norms, host ms a step)."""
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    params = init_params(cfg, device=device, seed=0)
+    opt = adamw.init_opt_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, attn_impl="kernel")
+    data = make_batch_fn(cfg, batch, seq, seed=0)
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        b = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt, mets = step_fn(params, opt, b)
+        losses.append(float(mets["loss"]))
+        norms.append(float(mets["grad_norm"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    del params, opt
+    torch.cuda.empty_cache()
+    return losses, norms, ms
+
+
+def pipe_train(torch, np, device):
+    """(b) Full-width opt-1.3b, bf16, on 1 x 4 gloo ranks: 4 steps uniform
+    and 4 with the heterogeneous fleet's split, each step's loss and
+    pre-clip grad norm within phase 4's bf16 bars of the single-process
+    step on the same weights and batches, 384 launches of each FA-2
+    kernel a run; the step's time split on every rank beside the DT-FM
+    model of the same fleet."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.energy.devices import LAPTOP_M2PRO, SMARTPHONE_SD888
+    from repro_torch.core.placement import ordered_placement
+    from repro_torch.core.planner import dtfm
+    from repro_torch.distributed import pipeline as P
+    from repro_torch.distributed import runtime
+    from repro_torch.optim import adamw
+    t = PIPE_TRAIN
+    cfg = get_config("opt-1.3b")
+    S, MB, steps = t["stages"], t["microbatches"], t["steps"]
+    opt_cfg = adamw.OptConfig(learning_rate=3e-4, warmup_steps=10,
+                              decay_steps=steps)
+    fleet = [LAPTOP_M2PRO] * (S - 1) + [SMARTPHONE_SD888]
+    spec = ordered_placement(cfg, fleet)
+    if spec.num_stages != S:
+        fail(f"(b) the placement found {spec.num_stages} stages, not {S}")
+    ref_losses, ref_norms, ref_ms = single_process_steps(
+        torch, cfg, opt_cfg, device, steps, t["batch"], t["seq"])
+    ref_step_ms = float(np.median(ref_ms[1:]))
+    moves = [abs(b - a) for a, b in zip(ref_losses, ref_losses[1:])]
+    tol = STEP_TOL["bfloat16"]
+    log(f"(b) single-process steps, {steps} of {t['batch']} x {t['seq']}: "
+        f"losses {ref_losses}, grad norms {ref_norms}, "
+        f"{ref_step_ms:.1f} ms a step after the first (median); the loss "
+        f"moves by {[f'{m:.4f}' for m in moves]} from step to step (the "
+        f"loss bar {tol['loss']:.0e})")
+    kw = dict(cfg=cfg, opt_cfg=opt_cfg, steps=steps, batch=t["batch"],
+              seq_len=t["seq"], num_microbatches=MB, seed=0)
+    t0 = time.perf_counter()
+    res = runtime.spawn([functools.partial(P.train, **kw),
+                         functools.partial(P.train, boundaries=spec.boundaries,
+                                           **kw)],
+                        stages=S, transport="gloo", device=device)
+    log(f"(b) the spawn of {S} ranks and both runs: "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = cfg.num_layers * MB * steps
+    plans = {"uniform": dtfm.plan(cfg, [LAPTOP_M2PRO] * S, batch=t["batch"],
+                                  seq_len=t["seq"], microbatches=MB),
+             "non-uniform": dtfm.plan_placement(
+                 cfg, spec, batch=t["batch"], seq_len=t["seq"],
+                 microbatches=MB)}
+    bubble = (S - 1) / (MB + S - 1)
+    timing = {}
+    for label, runs, launches, kernels in zip(
+            ("uniform", "non-uniform"), res.values, res.launches,
+            res.kernels):
+        losses, norms = runs[0].losses, runs[0].grad_norms
+        diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        gdiffs = [abs(a - b) / b for a, b in zip(norms, ref_norms)]
+        bounds = [r.layers for r in runs]
+        log(f"(b) {label} split, layers {bounds} "
+            f"({[b - a for a, b in bounds]} a stage): losses {losses}, "
+            f"|diff| to the single process {[f'{d:.2e}' for d in diffs]} "
+            f"(bound {tol['loss']:.0e}); grad norms {norms}, relative diff "
+            f"{[f'{d:.2e}' for d in gdiffs]} (bound {tol['gnorm']:.0e}); "
+            f"FA-2 launches {launches} (expected {n} each)")
+        log(f"(b) {label}: FA-2 launches by instantiation {kernels}")
+        if any(v != n for v in launches.values()):
+            fail(f"(b) {label}: FA-2 launches {launches} != {n} each")
+        if len(losses) != steps or not all(np.isfinite(losses)) or any(
+                d > tol["loss"] for d in diffs):
+            fail(f"(b) {label}: losses {losses} against the single "
+                 f"process's {ref_losses}")
+        if len(norms) != steps or not all(np.isfinite(norms)) or any(
+                d > tol["gnorm"] for d in gdiffs):
+            fail(f"(b) {label}: grad norms {norms} against the single "
+                 f"process's {ref_norms}")
+        if any(r.losses != losses or r.grad_norms != norms for r in runs):
+            fail(f"(b) {label}: ranks report different losses or norms")
+        after = slice(1, None)          # the steps after the first
+
+        def med(xs):
+            return float(np.median(xs[after]))
+        per_rank = []
+        for r, run in enumerate(runs):
+            wall, ev = med(run.wall_ms), med(run.event_ms)
+            copy, wait, ar = med(run.copy_ms), med(run.wait_ms), \
+                med(run.allreduce_ms)
+            n_copy = med(run.copies)
+            per_rank.append(dict(wall_ms=wall, event_ms=ev, copy_ms=copy,
+                                 copies=n_copy, wait_ms=wait,
+                                 allreduce_ms=ar,
+                                 busy_ms=wall - copy - wait - ar,
+                                 peak_gb=run.peak_bytes / 1e9))
+            log(f"(b) {label} rank {r} (layers {run.layers}): step wall "
+                f"{wall:.1f} ms (CUDA events {ev:.1f}), busy "
+                f"{wall - copy - wait - ar:.1f}, host staging {copy:.1f} ms "
+                f"over {n_copy:.0f} copies ({copy / max(n_copy, 1):.2f} ms "
+                f"a copy), blocked in send/recv {wait:.1f}, all-reduce "
+                f"{ar:.1f}; peak {run.peak_bytes / 1e9:.2f} GB; wall by "
+                f"step {[round(x, 1) for x in run.wall_ms]}")
+        plan = plans[label]
+        timing[label] = dict(step_ms=per_rank[0]["wall_ms"], ranks=per_rank,
+                             model_s=plan.step_time_s,
+                             model_bubble=plan.bubble_fraction)
+        log(f"(b) {label}: {per_rank[0]['wall_ms']:.1f} ms a pipelined "
+            f"step on rank 0 (median of steps 2-{steps}); schedule bubble "
+            f"(S-1)/(MB+S-1) = {bubble:.4f}; dtfm model of the same fleet "
+            f"{plan.step_time_s:.4f} s a step, bubble "
+            f"{plan.bubble_fraction:.4f}; the single-process step "
+            f"{ref_step_ms:.1f} ms.  {S} processes "
+            "time-share one card without overlap: not a fleet's step")
+    log(f"(b) boundaries: uniform {P.resolve_boundaries(cfg, S)}, the "
+        f"heterogeneous fleet's {spec.boundaries} "
+        f"({spec.layer_counts} layers a stage)")
+    return {k: sum(l[k] for l in res.launches) for k in res.launches[0]}, \
+        timing
+
+
+def pipe_example(torch, np, device):
+    """(c) examples/torch_decentralized_pipeline.py's ``run`` on a 2 x 2
+    mesh: its loss check passes and it printed the plan the host computes
+    for the same fleet."""
+    import contextlib
+    import io
+    ex = load_example("torch_decentralized_pipeline")
+    cfg = ex.model_config(14)
+    e = PIPE_EXAMPLE
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = ex.run(cfg, device=device, **e)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    _, lines = ex.plan_report(cfg, data=e["data"], stages=e["stages"],
+                              batch=e["batch"], seq=e["seq"],
+                              microbatches=e["microbatches"])
+    log(f"(c) example twin, {e}: {wall:.1f} s; its printout:\n"
+        + text.rstrip())
+    ex.check_learned(res.losses)
+    if "\n".join(lines) not in text:
+        fail("(c) the example's plan printout differs from the host's")
+    if res.nonuniform_loss is None or not np.isfinite(res.nonuniform_loss):
+        fail(f"(c) the non-uniform split did not run: {res.spec.boundaries}")
+    n = cfg.num_layers * e["microbatches"] * e["data"] * e["steps"]
+    if any(v != n for v in res.launches[0].values()):
+        fail(f"(c) FA-2 launches {res.launches[0]} != {n} each")
+    log(f"(c) FA-2 launches: training {res.launches[0]}, the non-uniform "
+        f"forward {res.launches[1]}")
+    return res.launches
+
+
+def phase_pipeline(torch, np, device):
+    """Phase 21: (a) the fp32 gate, (b) full-width opt-1.3b over four
+    stage ranks, (c) the example twin.  Returns (b)'s launches summed
+    over its two runs, and its timing."""
+    parts = {}
+    t0 = time.perf_counter()
+    pipe_gate(torch, np, device)
+    parts["(a) fp32 gate"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, timing = pipe_train(torch, np, device)
+    parts["(b) full width"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe_example(torch, np, device)
+    parts["(c) example"] = time.perf_counter() - t0
+    log("phase 21 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return launches, timing
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4532,7 +4845,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 21)) if args.phases is None
+    wanted = (set(range(1, 22)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -4578,19 +4891,19 @@ def main(argv=None) -> int:
     run(18, phase_qwen2_vl, torch, np, device)
     run(19, phase_edge_fleet, torch, np, device)
     run(20, phase_fleet, torch, np, device)
+    run(21, phase_pipeline, torch, np, device)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
-    if wanted != set(range(1, 21)):
+    if wanted != set(range(1, 22)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
     # the kernels line: launches on this slice's path where a kernel lies
-    # on it (phase 20's example twins: flash-decode in the qwen2-7b serve
-    # twin, the FA-2 kernels in the opt-1.3b quickstart and DiLoCo twins,
-    # quant8 in the DiLoCo twin's int8 sync), else on the path that runs
-    # it (the SSD scan: phase 13's jamba prefill); timing at the shapes of
-    # the earlier slices' paths; each row also keeps the earlier paths'
-    # launches
+    # on it (phase 21's full-width pipeline: the FA-2 kernels, timed at its
+    # microbatch's shape), else on the newest path that runs it (phase
+    # 20's example twins: flash-decode in the qwen2-7b serve twin, quant8
+    # in the DiLoCo twin's int8 sync; the SSD scan: phase 13's jamba
+    # prefill); each row also keeps the earlier paths' launches
     worst, timing = got[1]
     fa_worst, fa_timing = got[3]
     q_worst, q_timing = got[5]
@@ -4604,6 +4917,7 @@ def main(argv=None) -> int:
     engine_launches, slo_launches = got[2]
     edge = got[19]
     fleet = got[20]
+    pipe_launches, _ = got[21]
     fleet_path = {"(a) quickstart": "opt-1.3b quickstart twin (phase 20)",
                   "(b) diloco": "opt-1.3b DiLoCo twin (phase 20)",
                   "(c) serve": "qwen2-7b serve twin (phase 20)"}
@@ -4642,8 +4956,10 @@ def main(argv=None) -> int:
             ("flash_attention_fwd", "fwd", "flash_attn_fwd.cu", 86),
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
-        fleet_n, fleet_by = on_fleet(name)
-        by_path = {**fleet_by,
+        _, fleet_by = on_fleet(name)
+        by_path = {"opt-1.3b DT-FM pipeline, 1 x 4 (phase 21)":
+                   pipe_launches[name],
+                   **fleet_by,
                    "opt-1.3b edge fleet, async local SGD (phase 19)":
                    edge[name],
                    "whisper-medium train, 8 steps (phase 17)":
@@ -4667,10 +4983,14 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": fleet_n,
+                     "launches": pipe_launches[name],
                      "max_abs_err": fa_worst[kern],
-                     **fa_timing["opt_edge"][kern],
-                     "shape": "opt-1.3b edge replica " + str(OPT_EDGE_FA),
+                     **fa_timing["opt_pipe"][kern],
+                     "shape": "opt-1.3b DT-FM pipeline microbatch "
+                              + str(OPT_PIPE_FA),
+                     "at_opt_1.3b_edge_replica": {
+                         "shape": str(OPT_EDGE_FA),
+                         **fa_timing["opt_edge"][kern]},
                      "at_whisper_medium_encoder": {
                          "shape": str(WHISPER_FA),
                          **fa_timing["whisper"][kern]},

@@ -19,9 +19,9 @@ records which topology nodes physically hold each shard — the input to
 :mod:`repro_torch.checkpoint.elastic`'s bytes-actually-missing recovery
 pricing.
 
-The layer-span math (:func:`stage_slices`, :func:`stage_counts`) is the
-JAX pipeline executor's, copied here: the slice a stage checkpoints is
-exactly the slice it executes.
+Layer-range math is the pipeline executor's
+(:func:`repro_torch.distributed.stages.stage_slices`): the slice a stage
+checkpoints is exactly the slice it executes.
 """
 
 from __future__ import annotations
@@ -29,17 +29,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
-
-def stage_slices(bounds: Sequence[int]) -> List[Tuple[int, int]]:
-    """Boundary list -> per-stage [start, stop) layer spans (the JAX
-    package keeps this in its pipeline executor; the slice a stage
-    checkpoints is exactly the slice it executes)."""
-    return list(zip(bounds[:-1], bounds[1:]))
-
-
-def stage_counts(bounds: Sequence[int]) -> List[int]:
-    """Per-stage layer counts for a boundary list."""
-    return [b - a for a, b in zip(bounds[:-1], bounds[1:])]
+from repro_torch.distributed.stages import stage_counts, stage_slices
 
 
 @dataclass(frozen=True)

@@ -16,8 +16,11 @@ carbon of the run on ``--device``'s energy profile.
 seed-replayable fault plan (``--fault-seed``).  ``--checkpoint-dir`` with
 ``--checkpoint-every`` (steps, or rounds under ``--local-sgd``) saves
 checkpoints in the JAX package's format; ``--resume`` restores the newest
-complete one first.  ``--mesh`` and ``--host-devices`` wait for the port
-of the multi-device paths, and raise.
+complete one first.  ``--mesh`` and ``--host-devices`` (the production
+``(data, model)`` mesh) wait for the production-mesh slice of the port
+(sharding, activation constraints, the dry run), and raise; the DT-FM
+pipeline runs through ``repro_torch.distributed`` (see
+``examples/torch_decentralized_pipeline.py``).
 
 Health: ``--health-out health.jsonl`` attaches the streaming detectors
 (stragglers / link degradation / loss spikes — the async quorum then
@@ -116,15 +119,20 @@ def main(argv=None) -> None:
                          "(straggler / link / loss-spike) and write "
                          "their alert record + SLO verdicts as JSONL")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (the multi-device slice): raises")
+                    help="not ported yet (the production-mesh slice: "
+                         "sharding, activation constraints, dry run): "
+                         "raises")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="not ported yet (the multi-device slice): raises")
+                    help="not ported yet (the production-mesh slice: "
+                         "sharding, activation constraints, dry run): "
+                         "raises")
     args = ap.parse_args(argv)
     for name in ("mesh", "host_devices"):
         if getattr(args, name):
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} waits for the port of the "
-                "multi-device paths (sharding, pipeline, dry-run)")
+                f"--{name.replace('_', '-')} waits for the production-mesh "
+                "slice of the port (sharding, activation constraints, "
+                "dry run)")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume needs --checkpoint-dir")
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -70,16 +70,20 @@ def global_norm(leaves: Union[PyTree, List[torch.Tensor]]) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params: PyTree, grads: Union[PyTree, List[torch.Tensor]],
-                  state: Dict[str, Any], cfg: OptConfig
+                  state: Dict[str, Any], cfg: OptConfig, *,
+                  grad_norm: Optional[torch.Tensor] = None
                   ) -> Tuple[PyTree, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  ``grads`` is a tree shaped like
     ``params`` or the list of its leaves in ``tree_leaves`` order.
-    Returns (params, state, {"grad_norm", "lr"}) — the same parameter and
-    moment tensors, updated."""
+    ``grad_norm`` is the global norm the clipping uses when it was reduced
+    outside (a pipeline rank holds one stage's leaves); by default it is
+    :func:`global_norm` of ``grads``.  Returns (params, state,
+    {"grad_norm", "lr"}) — the same parameter and moment tensors,
+    updated."""
     flat_g = grads if isinstance(grads, list) else tree_leaves(grads)
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g) if grad_norm is None else grad_norm
     clip = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
             if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))

@@ -11,8 +11,9 @@ whisper-smoke's and qwen2-vl-smoke's train steps on the card against
 the CPU, and the edge fleet's control loop: the engine's SLO admission
 gate, a layer-sliced checkpoint of card tensors restored onto another
 stage split, and async local SGD whose health monitor excludes the same
-straggler on the card as on the CPU.  Every test here skips without
-CUDA.
+straggler on the card as on the CPU, and the DT-FM pipeline on two gloo
+ranks sharing the card against the single-process loss and gradients.
+Every test here skips without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -1054,3 +1055,55 @@ def test_cuda_async_local_sgd_with_health_excludes_as_on_the_cpu(cuda):
         [(a.kind, a.entity, a.ts_s) for a in phm.alerts]
     np.testing.assert_allclose(card.round_losses, cpu.round_losses,
                                rtol=1e-3)
+
+
+# the train parity bars of tests/test_torch_train.py (fp32, sums in other
+# orders), restated: this file imports nothing of JAX's test side
+PIPE_LOSS_RTOL = 1e-5
+PIPE_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_on_two_gloo_ranks_equals_forward_train(cuda):
+    """tests/test_pipeline.py's tiny OPT, fp32, over 2 stages of gloo ranks
+    on the one card (activations staged through host memory), 2
+    microbatches: the loss and every gradient leaf, gathered to rank 0,
+    equal the single-process ``forward_train`` on the card from the same
+    weights (``init_params(seed=0)`` on the card), and the FA-2 kernels
+    ran once a layer a microbatch, summed over the ranks."""
+    import functools
+
+    from repro_torch.distributed import pipeline as P
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels.build import build_all
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    build_all()                 # the ranks only load the kernels
+    cfg = dataclasses.replace(
+        get_config("opt-125m"), name="opt-pipe-test", num_layers=4,
+        d_model=128, num_heads=4, num_kv_heads=4, head_dim=32, d_ff=256,
+        vocab_size=512, param_dtype="float32", compute_dtype="float32")
+    rs = np.random.RandomState(1)
+    toks = rs.randint(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    nb = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    nb["labels"][0, :5] = -1
+    mb = 2
+    res = runtime.spawn([functools.partial(
+        P.evaluate, cfg=cfg, batch=nb, num_microbatches=mb, seed=0,
+        grads=True)], stages=2, transport="gloo", device=cuda)
+    params = init_params(cfg, device=cuda, seed=0)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = M.forward_train(params, cfg, {k: torch.from_numpy(v).to(cuda)
+                                            for k, v in nb.items()})
+    ref = torch.autograd.grad(loss, leaves)
+    got = res.values[0][0]
+    assert res.values[0][1]["loss"] == got["loss"]
+    np.testing.assert_allclose(got["loss"], float(loss.detach()),
+                               rtol=PIPE_LOSS_RTOL)
+    for g, r in zip(tree_leaves(got["grads"]), ref):
+        np.testing.assert_allclose(g.numpy(), r.cpu().numpy(),
+                                   **PIPE_GRAD_TOL)
+    n = cfg.num_layers * mb
+    assert res.launches[0] == {"flash_attention_fwd": n,
+                               "flash_attention_bwd_dq": n,
+                               "flash_attention_bwd_dkdv": n}

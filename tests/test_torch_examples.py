@@ -14,7 +14,12 @@ from numpy with the same integer seeds, as the twins draw them.  Bars:
   bytes and modelled sync seconds (and the naive ring's) exact;
 * serving: ``mixtral-8x7b-smoke`` through the engine and
   ``mamba2-130m-smoke`` through the dense path, greedy ids equal;
-* carbon sim (60 steps): ``SimResult``s and offload rows equal."""
+* carbon sim (60 steps): ``SimResult``s and offload rows equal;
+* the DT-FM pipeline: its JAX example cannot run on the installed jax
+  (its shard_map pipeline raises ``ShardingTypeError``), so the twin's
+  losses are held to JAX ``make_train_step`` from the same weights on the
+  same batches (rtol 1e-4), its plan and placement to ``dtfm.plan`` and
+  ``ordered_placement`` exactly."""
 
 import dataclasses
 import importlib.util
@@ -223,3 +228,69 @@ def test_carbon_sim_twin_matches_the_jax_example(capsys):
                                        use_paper_counts=True)
     text = capsys.readouterr().out
     assert "carbon-aware saves" in text and "net reduction" in text
+
+
+def test_pipeline_twin_matches_jax_plan_placement_and_train_step(capsys):
+    """The twin at a 1 x 2 mesh, 3 steps of 4 x 32 in 2 microbatches, on
+    the example's 14M geometry (examples/decentralized_pipeline.py:55-58)
+    in fp32."""
+    from repro.configs.opt import opt_config as j_opt
+    from repro.core.energy import devices as JD
+    from repro.core.placement import ordered_placement as j_ordered
+    from repro.core.planner import dtfm as JDT
+    from repro.data.pipeline import make_batch_fn as j_batches
+    from repro.optim import adamw as JA
+    from repro.train import step as JS
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import init_params
+    from test_torch_placement import _plan_view, _spec_view
+
+    tpipe = load("torch_decentralized_pipeline")
+    tcfg = fp32(tpipe.model_config(14))
+    jcfg = fp32(dataclasses.replace(
+        j_opt("opt-125m"), name="opt-14m-pipe", num_layers=8, d_model=384,
+        num_heads=8, num_kv_heads=8, head_dim=48, d_ff=1536,
+        vocab_size=4096))
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jp, tp = bridge(jcfg, tcfg, seed=0)
+    steps, batch, seq, mb = 3, 4, 32, 2
+    res = tpipe.run(tcfg, data=1, stages=2, steps=steps, batch=batch,
+                    seq=seq, microbatches=mb, device="cpu", params=tp)
+
+    # the example's optimizer, JAX's single-device step, the same batches
+    ocfg = JA.OptConfig(learning_rate=3e-4, warmup_steps=20,
+                        decay_steps=steps)
+    jstep = jax.jit(JS.make_train_step(jcfg, ocfg))
+    jopt, data, jlosses = JA.init_opt_state(jp, ocfg), \
+        j_batches(jcfg, batch, seq, seed=0), []
+    for _ in range(steps):
+        jp, jopt, m = jstep(jp, jopt, {k: jnp.asarray(v)
+                                       for k, v in next(data).items()})
+        jlosses.append(float(m["loss"]))
+    np.testing.assert_allclose(res.losses, jlosses, rtol=1e-4)
+
+    jplan = JDT.plan(jcfg, [JD.LAPTOP_M2PRO] * 2, batch=batch, seq_len=seq,
+                     microbatches=mb, data_parallel=1)
+    assert _plan_view(res.plan) == _plan_view(jplan)
+    jspec = j_ordered(jcfg, [JD.LAPTOP_M2PRO, JD.SMARTPHONE_SD888])
+    assert _spec_view(res.spec) == _spec_view(jspec)
+    assert res.spec.layer_counts == jspec.layer_counts == [7, 1]
+
+    # the non-uniform split's loss: the port's forward_train on the same
+    # weights (seed 1) and the batch after the training steps
+    stream = make_batch_fn(tcfg, batch, seq, seed=0)
+    for _ in range(steps):
+        next(stream)
+    nb = {k: torch.from_numpy(v) for k, v in next(stream).items()}
+    ref, _ = TM.forward_train(init_params(tcfg, device="cpu", seed=1),
+                              tcfg, nb)
+    np.testing.assert_allclose(res.nonuniform_loss, float(ref), rtol=1e-5)
+    assert res.launches == [{"flash_attention_fwd": 0,
+                             "flash_attention_bwd_dq": 0,
+                             "flash_attention_bwd_dkdv": 0}] * 2
+    out = capsys.readouterr().out
+    assert "DT-FM analytic plan (2 laptops x 1 pipelines):" in out
+    assert "non-uniform split [7, 1] executes: loss" in out
+    assert "\n".join(tpipe.plan_report(tcfg, data=1, stages=2, batch=batch,
+                                       seq=seq, microbatches=mb)[1]) in out

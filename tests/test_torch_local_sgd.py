@@ -238,7 +238,8 @@ def test_launcher_runs_local_sgd_on_the_cpu(mode, capsys):
     assert "[train] final loss" in out
     assert ("[train] async:" in out) == (mode != "sync")
     for flag in (["--mesh", "1,1"], ["--host-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+        with pytest.raises(NotImplementedError,
+                           match="production-mesh slice"):
             train.main(["--torch-device", "cpu", *flag])
     # --health-out and --slo are ported: the record passes the validator
     import tempfile

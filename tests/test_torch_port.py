@@ -28,7 +28,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 # the torch twins of the examples: scripts beside the JAX ones
 TWINS = sorted((ROOT / "examples").glob("torch_*.py"))
-TWIN_NAMES = ["torch_diloco_edge", "torch_edge_carbon_sim",
+TWIN_NAMES = ["torch_decentralized_pipeline", "torch_diloco_edge",
+              "torch_edge_carbon_sim",
               "torch_quickstart", "torch_serve_batched"]
 
 
@@ -104,7 +105,10 @@ def test_package_imports_with_jax_blocked():
               "repro_torch.core.sched.orchestrator",
               "repro_torch.core.sched.fleet_sim",
               "repro_torch.core.net.fleet_arrays",
-              "repro_torch.core.placement.fleet"):
+              "repro_torch.core.placement.fleet",
+              "repro_torch.distributed", "repro_torch.distributed.pipeline",
+              "repro_torch.distributed.runtime",
+              "repro_torch.distributed.stages", "repro_torch.launch.mesh"):
         assert m in mods, m
     assert [f.stem for f in TWINS] == TWIN_NAMES
     twins = [str(f) for f in TWINS]
@@ -126,7 +130,7 @@ def test_package_imports_with_jax_blocked():
 
 def test_no_file_of_the_port_imports_jax_or_repro():
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
-    assert len(files) > 20 and len(TWINS) == 4
+    assert len(files) > 20 and len(TWINS) == 5
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
@@ -305,7 +309,13 @@ def test_example_twins_raise_without_a_card_unless_asked_for_the_cpu(
     twin = _load_twin(name)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         twin.main([])
-    small = {"torch_quickstart": ["--steps", "2", "--batch", "2",
+    if name == "torch_decentralized_pipeline":     # a 1 x 2 mesh
+        monkeypatch.setattr(twin, "DATA", 1)
+        monkeypatch.setattr(twin, "STAGES", 2)
+    small = {"torch_decentralized_pipeline": ["--steps", "12", "--batch",
+                                              "2", "--seq", "32",
+                                              "--microbatches", "2"],
+             "torch_quickstart": ["--steps", "2", "--batch", "2",
                                   "--seq", "16"],
              "torch_diloco_edge": ["--rounds", "1", "--inner", "2",
                                    "--batch", "2", "--seq", "16"],
@@ -314,7 +324,8 @@ def test_example_twins_raise_without_a_card_unless_asked_for_the_cpu(
              "torch_edge_carbon_sim": ["--steps", "10"]}[name]
     twin.main(small + ["--torch-device", "cpu"])
     out = capsys.readouterr().out
-    assert {"torch_quickstart": "operational CO2 :",
+    assert {"torch_decentralized_pipeline": "executes: loss",
+            "torch_quickstart": "operational CO2 :",
             "torch_diloco_edge": "naive every-step sync:",
             "torch_serve_batched": "served 2 requests",
             "torch_edge_carbon_sim": "net reduction"}[name] in out
