@@ -232,6 +232,20 @@ Phases (any failure exits nonzero):
    ``examples/torch_decentralized_pipeline.py``'s ``run`` on a 2 x 2 mesh
    (60 steps of its defaults' 8 x 128), its loss check and plan
    printout.
+22. the production mesh (``repro_torch.distributed.{sharding,
+   act_sharding,spmd}``): FSDP over ``data`` and Megatron tensor
+   parallelism over ``model`` on a 2 x 2 mesh of gloo ranks sharing the
+   card, every collective staged through host memory (transport
+   ``host``), the FA-2 kernels on each rank's rows and heads: (a)
+   in fp32, opt-1.3b width at 4 layers (4 x 2048 tokens) and qwen2-7b
+   width at 2 (2 x 2048; GQA 28 over 4 with QKV bias), the loss and
+   every gradient leaf gathered from the shards against the
+   single-process ``forward_train`` at phase 4's fp32 bars; (b)
+   full-width, full-depth opt-1.3b, bf16, through ``python -m
+   repro_torch.launch.train --full --mesh 2,2``: 4 steps of 4 x 2048,
+   each step's loss and pre-clip grad norm within phase 4's bf16 bars of
+   the single-process step, 384 launches of each FA-2 kernel, each
+   rank's ms a step, busy ms, collective ms by kind and peak memory.
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -1034,7 +1048,7 @@ def phase_fa(torch, device, timer):
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     for i, case in enumerate(FA_CASES + [OPT_FA, OPT_EDGE_FA, WHISPER_FA,
                                          WHISPER_XFA, QWEN2VL_FA,
-                                         OPT_PIPE_FA]):
+                                         OPT_PIPE_FA, OPT_TP_FA]):
         causal, window = case[5], case[6]
         kw = dict(causal=causal, window=window)
         for dt in ("float32", "bfloat16"):
@@ -1080,6 +1094,8 @@ def phase_fa(torch, device, timer):
                                  "opt-1.3b edge replica", worst)
     timing["opt_pipe"] = time_fa(torch, device, timer, OPT_PIPE_FA,
                                  "opt-1.3b DT-FM pipeline microbatch", worst)
+    timing["opt_tp"] = time_fa(torch, device, timer, OPT_TP_FA,
+                               "opt-1.3b (data, model) mesh rank", worst)
     timing["mixtral"] = time_fa(torch, device, timer, MIXTRAL_FA,
                                 "mixtral-8x7b train", worst, hold=True)
     timing["deepseek"] = time_fa(torch, device, timer, DEEPSEEK_FA,
@@ -4553,40 +4569,14 @@ def pipe_gate(torch, np, device):
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.distributed import pipeline as P
     from repro_torch.distributed import runtime
-    from repro_torch.models import model as M
-    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.params import tree_leaves
     from repro_torch.optim import adamw
     g = PIPE_GATE
     cfg = dataclasses.replace(get_config("opt-1.3b"), num_layers=g["layers"],
                               param_dtype="float32", compute_dtype="float32")
     nb = next(make_batch_fn(cfg, g["batch"], g["seq"], seed=0))
-    params = init_params(cfg, device=device, seed=0)
-    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
-    loss, _ = M.forward_train(params, cfg, {
-        k: torch.from_numpy(v).to(device) for k, v in nb.items()})
-    ref = [t.cpu() for t in torch.autograd.grad(loss, leaves)]
-    ref_loss = float(loss.detach())
+    ref_loss, ref = single_process_grads(torch, cfg, nb, device)
     ref_norm = float(adamw.global_norm(ref))
-    del params, leaves, loss
-    torch.cuda.empty_cache()
-    tol = STEP_TOL["float32"]
-
-    def held(label, got_loss, got, want_loss, want):
-        dl = abs(got_loss - want_loss)
-        errs = [(float((a - b).abs().max()),
-                 FA_TOL["float32"]["grad"] * max(1.0, float(b.abs().max())))
-                for a, b in zip(got, want)]
-        dg = abs(float(adamw.global_norm(got)) - float(adamw.global_norm(
-            want))) / float(adamw.global_norm(want))
-        worst = max(e / b for e, b in errs)
-        log(f"(a) {label}: loss {got_loss:.6f} vs {want_loss:.6f} (|diff| "
-            f"{dl:.3e}, bound {tol['loss']:.0e}); grad norm relative diff "
-            f"{dg:.3e} (bound {tol['gnorm']:.0e}); {len(errs)} leaves, "
-            f"worst max_abs_err / bound {worst:.3f}")
-        if not (dl <= tol["loss"] and dg <= tol["gnorm"] and worst <= 1.0):
-            fail(f"(a) {label}: the pipeline's fp32 loss or gradients "
-                 "disagree")
-
     runs = {}
     for data, stages in g["meshes"]:
         t0 = time.perf_counter()
@@ -4606,8 +4596,9 @@ def pipe_gate(torch, np, device):
         if len({v["loss"] for v in res.values[0]}) != 1:
             fail(f"(a) ranks report different losses: {res.values[0]}")
     one, two = (runs[m] for m in g["meshes"])
-    held("1 x 2 vs single process", *one, ref_loss, ref)
-    held("2 x 2 vs 1 x 2", *two, *one)
+    grads_held(torch, "pipeline 1 x 2 vs single process", *one, ref_loss,
+               ref)
+    grads_held(torch, "pipeline 2 x 2 vs 1 x 2", *two, *one)
     log(f"(a) single-process grad norm {ref_norm:.6f}")
 
 
@@ -4809,6 +4800,220 @@ def phase_pipeline(torch, np, device):
         f"{k} {v:.1f}" for k, v in parts.items()))
     return launches, timing
 
+# --------------------------------------------------------------------------- #
+# Phase 22: the production mesh (FSDP over data, tensor parallelism over
+# model) on gloo ranks sharing the card
+# --------------------------------------------------------------------------- #
+
+# (a) the fp32 gate on a 2 x 2 (data, model) mesh: opt-1.3b width at 4 of
+# 24 layers, 4 x 2048 tokens; qwen2-7b width at 2 layers, 2 x 2048 (GQA
+# 28 over 4 with QKV bias: K/V head-parallel), one spawn
+MESH_GATE = dict(mesh=(2, 2), opt_layers=4, opt_batch=4, qwen_layers=2,
+                 qwen_batch=2, seq=2048)
+# (b) full-width, full-depth opt-1.3b, bf16, through launch/train.py
+# --mesh 2,2: steps of batch x seq
+MESH_TRAIN = dict(mesh="2,2", steps=4, batch=4, seq=2048)
+# one rank's attention on (b)'s path: its 2 rows and 16 of the 32 heads;
+# held and timed in phase 3 (the kernels line's shape for rows 2-4)
+OPT_TP_FA = (2, 2048, 16, 16, 64, True, 0)
+
+
+def grads_held(torch, label, got_loss, got, want_loss, want):
+    """A loss and gradient leaves against the reference's at phase 4's
+    fp32 bars: the loss and global norm within ``STEP_TOL["float32"]``,
+    every leaf within ``FA_TOL``'s gradient bar of its largest value."""
+    from repro_torch.optim import adamw
+    tol = STEP_TOL["float32"]
+    dl = abs(got_loss - want_loss)
+    errs = [(float((a - b).abs().max()),
+             FA_TOL["float32"]["grad"] * max(1.0, float(b.abs().max())))
+            for a, b in zip(got, want)]
+    dg = abs(float(adamw.global_norm(got)) - float(adamw.global_norm(
+        want))) / float(adamw.global_norm(want))
+    worst = max(e / b for e, b in errs)
+    log(f"(a) {label}: loss {got_loss:.6f} vs {want_loss:.6f} (|diff| "
+        f"{dl:.3e}, bound {tol['loss']:.0e}); grad norm relative diff "
+        f"{dg:.3e} (bound {tol['gnorm']:.0e}); {len(errs)} leaves, "
+        f"worst max_abs_err / bound {worst:.3f}")
+    if not (dl <= tol["loss"] and dg <= tol["gnorm"] and worst <= 1.0):
+        fail(f"(a) {label}: the fp32 loss or gradients disagree")
+
+
+def single_process_grads(torch, cfg, nb, device):
+    """(loss, gradient leaves on the CPU) of ``forward_train`` with
+    autograd on the card, from ``init_params(seed=0)``."""
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params, tree_leaves
+    params = init_params(cfg, device=device, seed=0)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = M.forward_train(params, cfg, {
+        k: torch.from_numpy(v).to(device) for k, v in nb.items()})
+    ref = [t.cpu() for t in torch.autograd.grad(loss, leaves)]
+    out = float(loss.detach())
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+    return out, ref
+
+
+def mesh_gate(torch, np, device):
+    """(a) On a 2 x 2 (data, model) mesh of gloo ranks, the fp32 loss and
+    every gradient leaf, gathered from the DTensor shards, against the
+    single-process ``forward_train`` with autograd on the card from the
+    same weights (``init_params(seed=0)``) and batch: opt-1.3b width at 4
+    layers, and qwen2-7b width (GQA, QKV bias) at 2.  Returns the FA-2
+    launches by call."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.distributed import runtime, spmd
+    from repro_torch.models.params import tree_leaves
+    g = MESH_GATE
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    cases = [("opt-1.3b", g["opt_layers"], g["opt_batch"]),
+             ("qwen2-7b", g["qwen_layers"], g["qwen_batch"])]
+    cfgs, batches = [], []
+    for arch, layers, batch in cases:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, **fp32)
+        cfgs.append(cfg)
+        batches.append(next(make_batch_fn(cfg, batch, g["seq"], seed=0)))
+    t0 = time.perf_counter()
+    res = runtime.spawn(
+        [functools.partial(spmd.evaluate, cfg=cfg, batch=nb, seed=0,
+                           grads=True) for cfg, nb in zip(cfgs, batches)],
+        shape=g["mesh"], names=("data", "model"), transport="host",
+        device=device)
+    log(f"(a) {g['mesh']} (data, model) mesh, host transport: "
+        f"{time.perf_counter() - t0:.1f} s the spawn and both cases")
+    ranks = g["mesh"][0] * g["mesh"][1]
+    for (arch, layers, batch), cfg, nb, values, launches in zip(
+            cases, cfgs, batches, res.values, res.launches):
+        n = layers * ranks
+        log(f"(a) {arch} width, {layers} layers, {batch} x {g['seq']} "
+            f"tokens: FA-2 launches {launches} (expected {n} each: a layer "
+            "a rank)")
+        if any(v != n for v in launches.values()):
+            fail(f"(a) {arch}: FA-2 launches {launches} != {n} each")
+        if len({v["loss"] for v in values}) != 1:
+            fail(f"(a) {arch}: ranks report different losses")
+        t0 = time.perf_counter()
+        got = tree_leaves(spmd.join_shards(values, cfg, g["mesh"],
+                                           ("data", "model")))
+        log(f"(a) {arch}: the ranks' gradient blocks joined on the host in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ref_loss, ref = single_process_grads(torch, cfg, nb, device)
+        grads_held(torch, f"{arch} width on the mesh vs single process",
+                   values[0]["loss"], got, ref_loss, ref)
+    return res.launches
+
+
+def mesh_train(torch, np, device):
+    """(b) Full-width, full-depth opt-1.3b, bf16, through ``python -m
+    repro_torch.launch.train --full --arch opt-1.3b --mesh 2,2``: each
+    step's loss and pre-clip grad norm within phase 4's bf16 bars of the
+    single-process step on the same weights and batches, 384 launches of
+    each FA-2 kernel, all the bf16 tensor-core instantiations, and each
+    rank's step split by collective.  Returns (launches, per-rank
+    timing)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import adamw
+    t = MESH_TRAIN
+    cfg = get_config("opt-1.3b")
+    steps = t["steps"]
+    opt_cfg = adamw.OptConfig(learning_rate=3e-4, warmup_steps=10,
+                              decay_steps=steps)    # the launcher's
+    ref_losses, ref_norms, ref_ms = single_process_steps(
+        torch, cfg, opt_cfg, device, steps, t["batch"], t["seq"])
+    ref_step_ms = float(np.median(ref_ms[1:]))
+    tol = STEP_TOL["bfloat16"]
+    argv = ["--arch", "opt-1.3b", "--full", "--mesh", t["mesh"],
+            "--steps", str(steps), "--batch", str(t["batch"]),
+            "--seq", str(t["seq"]), "--torch-device", device.type]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = launcher.main(argv)
+    log(f"(b) python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{time.perf_counter() - t0:.1f} s; its printout:\n"
+        + buf.getvalue().rstrip())
+    runs, launches, kernels = res.values[0], res.launches[0], res.kernels[0]
+    ranks = len(runs)
+    n = cfg.num_layers * steps * ranks
+    losses, norms = runs[0].losses, runs[0].grad_norms
+    diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    gdiffs = [abs(a - b) / b for a, b in zip(norms, ref_norms)]
+    log(f"(b) losses {losses}, single process {ref_losses}, |diff| "
+        f"{[f'{d:.2e}' for d in diffs]} (bound {tol['loss']:.0e}); grad "
+        f"norms {norms}, single process {ref_norms}, relative diff "
+        f"{[f'{d:.2e}' for d in gdiffs]} (bound {tol['gnorm']:.0e}); "
+        f"FA-2 launches {launches} (expected {n} each); by instantiation "
+        f"{kernels}")
+    if any(v != n for v in launches.values()):
+        fail(f"(b) FA-2 launches {launches} != {n} each")
+    if sum(kernels.values()) != 3 * n or any(
+            "_tc_kernel<" not in k for k in kernels):
+        fail(f"(b) not every launch was a bf16 tensor-core kernel: {kernels}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or any(
+            d > tol["loss"] for d in diffs):
+        fail(f"(b) losses {losses} against the single process's "
+             f"{ref_losses}")
+    if len(norms) != steps or not all(np.isfinite(norms)) or any(
+            d > tol["gnorm"] for d in gdiffs):
+        fail(f"(b) grad norms {norms} against the single process's "
+             f"{ref_norms}")
+    if any(r.losses != losses or r.grad_norms != norms for r in runs):
+        fail("(b) ranks report different losses or norms")
+
+    def med(xs):
+        return float(np.median(xs[1:]))          # steps 2..
+    per_rank = []
+    for r, run in enumerate(runs):
+        kinds = sorted({k for d in run.collective_ms for k in d})
+        coll = {k: med([d.get(k, 0.0) for d in run.collective_ms])
+                for k in kinds}
+        calls = {k: med([d.get(k, 0) for d in run.collective_calls])
+                 for k in kinds if k != "host_copy"}
+        mb = {k: med([d.get(k, 0) for d in run.collective_bytes]) / 1e6
+              for k in kinds if k != "host_copy"}
+        per_rank.append(dict(step_ms=med(run.wall_ms),
+                             busy_ms=med(run.busy_ms), collective_ms=coll,
+                             peak_gb=run.peak_bytes / 1e9))
+        log(f"(b) rank {r} {tuple(run.coordinate)}: step "
+            f"{med(run.wall_ms):.1f} ms (median of steps 2-{steps}), busy "
+            f"{med(run.busy_ms):.1f} ms; collectives ms "
+            + ", ".join(f"{k} {v:.1f}" for k, v in coll.items())
+            + "; calls " + ", ".join(f"{k} {v:.0f}" for k, v in calls.items())
+            + "; MB in " + ", ".join(f"{k} {v:.1f}" for k, v in mb.items())
+            + f"; peak {run.peak_bytes / 1e9:.2f} GB; wall by step "
+            f"{[round(x, 1) for x in run.wall_ms]}")
+    log(f"(b) {per_rank[0]['step_ms']:.1f} ms a 2 x 2 step on rank 0 against "
+        f"{ref_step_ms:.1f} ms for the single-process step.  Four processes "
+        "time-share one card, their collectives staged through host "
+        "memory: not four cards' step")
+    return launches, per_rank
+
+
+def phase_mesh(torch, np, device):
+    """Phase 22: (a) the fp32 gate, (b) full-width opt-1.3b through the
+    launcher's --mesh 2,2.  Returns (b)'s launches and timing."""
+    parts = {}
+    t0 = time.perf_counter()
+    mesh_gate(torch, np, device)
+    parts["(a) fp32 gate"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, timing = mesh_train(torch, np, device)
+    parts["(b) full width"] = time.perf_counter() - t0
+    log("phase 22 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return launches, timing
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4845,7 +5050,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 22)) if args.phases is None
+    wanted = (set(range(1, 23)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -4892,15 +5097,17 @@ def main(argv=None) -> int:
     run(19, phase_edge_fleet, torch, np, device)
     run(20, phase_fleet, torch, np, device)
     run(21, phase_pipeline, torch, np, device)
+    run(22, phase_mesh, torch, np, device)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
-    if wanted != set(range(1, 22)):
+    log(f"phases took {sum(walls.values()):.1f} s in all")
+    if wanted != set(range(1, 23)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
     # the kernels line: launches on this slice's path where a kernel lies
-    # on it (phase 21's full-width pipeline: the FA-2 kernels, timed at its
-    # microbatch's shape), else on the newest path that runs it (phase
+    # on it (phase 22's full-width 2 x 2 mesh: the FA-2 kernels, timed at
+    # one rank's shape), else on the newest path that runs it (phase
     # 20's example twins: flash-decode in the qwen2-7b serve twin, quant8
     # in the DiLoCo twin's int8 sync; the SSD scan: phase 13's jamba
     # prefill); each row also keeps the earlier paths' launches
@@ -4918,6 +5125,7 @@ def main(argv=None) -> int:
     edge = got[19]
     fleet = got[20]
     pipe_launches, _ = got[21]
+    mesh_launches, _ = got[22]
     fleet_path = {"(a) quickstart": "opt-1.3b quickstart twin (phase 20)",
                   "(b) diloco": "opt-1.3b DiLoCo twin (phase 20)",
                   "(c) serve": "qwen2-7b serve twin (phase 20)"}
@@ -4957,7 +5165,9 @@ def main(argv=None) -> int:
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
         _, fleet_by = on_fleet(name)
-        by_path = {"opt-1.3b DT-FM pipeline, 1 x 4 (phase 21)":
+        by_path = {"opt-1.3b (data, model) mesh, 2 x 2 (phase 22)":
+                   mesh_launches[name],
+                   "opt-1.3b DT-FM pipeline, 1 x 4 (phase 21)":
                    pipe_launches[name],
                    **fleet_by,
                    "opt-1.3b edge fleet, async local SGD (phase 19)":
@@ -4983,11 +5193,14 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": pipe_launches[name],
+                     "launches": mesh_launches[name],
                      "max_abs_err": fa_worst[kern],
-                     **fa_timing["opt_pipe"][kern],
-                     "shape": "opt-1.3b DT-FM pipeline microbatch "
-                              + str(OPT_PIPE_FA),
+                     **fa_timing["opt_tp"][kern],
+                     "shape": "opt-1.3b 2 x 2 mesh, one rank's rows and "
+                              "heads " + str(OPT_TP_FA),
+                     "at_opt_1.3b_pipeline_microbatch": {
+                         "shape": str(OPT_PIPE_FA),
+                         **fa_timing["opt_pipe"][kern]},
                      "at_opt_1.3b_edge_replica": {
                          "shape": str(OPT_EDGE_FA),
                          **fa_timing["opt_edge"][kern]},

@@ -1,0 +1,206 @@
+"""The production mesh's rank-side calls: FSDP over ``data`` and Megatron
+tensor parallelism over ``model`` (``distributed.sharding``'s rule
+tables), each rank one process of :func:`repro_torch.distributed.runtime.
+spawn`.
+
+The weights are the full tensors every rank holds (bridged from the JAX
+package, or ``init_params(seed)``, the same on every rank), each rank
+keeping its own block (``sharding.shard_params``); the batch likewise
+(``shard_batch``).  The model code then runs on DTensors under the
+ambient mesh (``act_sharding.use_mesh``): DTensor inserts the weight
+all-gathers, the reductions of partial sums and the vocab gather of the
+loss; the FA-2 kernels run on each rank's own rows and heads.
+:func:`evaluate` returns the loss and the full gradient tree;
+:func:`train` runs the port's trainer under the mesh.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import runtime, sharding
+from repro_torch.distributed.act_sharding import use_mesh
+from repro_torch.models import model as M
+from repro_torch.models import params as PM
+from repro_torch.models.config import ModelConfig
+from repro_torch.train import step as TS
+
+PyTree = Any
+
+
+def _params(cfg: ModelConfig, mesh, params: Optional[PyTree], seed: int,
+            dev: torch.device) -> PyTree:
+    if params is None:
+        params = PM.init_params(cfg, device=dev, seed=seed)
+    else:
+        params = PM.tree_map(lambda t: torch.as_tensor(t).to(dev), params)
+    return sharding.shard_params(params, cfg, mesh)
+
+
+def _batch(batch: Dict[str, Any], mesh, dev: torch.device
+           ) -> Dict[str, Any]:
+    full = {k: torch.as_tensor(np.asarray(v)).to(dev)
+            for k, v in batch.items()}
+    return sharding.shard_batch(full, mesh)
+
+
+def evaluate(mesh, cfg: ModelConfig, batch: Dict[str, Any], *,
+             params: Optional[PyTree] = None, seed: int = 0,
+             grads: bool = False, device: DeviceLike = None
+             ) -> Dict[str, Any]:
+    """The loss of ``batch`` (numpy or tensors, the whole batch) under
+    ``params`` (the full tree; ``init_params(seed)`` on the rank's device
+    by default), as {"loss": float} on every rank; with ``grads`` each
+    rank's dict also holds ``shards``, its own blocks of the gradient
+    tree on the CPU, placed as the parameters, and its ``coordinate``
+    (:func:`join_shards` joins the ranks' blocks with no collective)."""
+    dev = resolve_device(device)
+    sp = _params(cfg, mesh, params, seed, dev)
+    b = _batch(batch, mesh, dev)
+    leaves = TS._trainable(sp) if grads else []
+    with use_mesh(mesh), TS.mesh_ops():
+        with torch.set_grad_enabled(grads):
+            loss, _ = M.forward_train(sp, cfg, b)
+        out: Dict[str, Any] = {"loss": float(TS.plain(loss.detach()))}
+        if grads:
+            g = torch.autograd.grad(loss, leaves)
+            g = [TS.placed_like(a, p).to_local().cpu()
+                 for a, p in zip(g, leaves)]
+            out["shards"] = PM.tree_unflatten(sp, g)
+            out["coordinate"] = list(mesh.get_coordinate())
+    return out
+
+
+def join_shards(values: List[Dict[str, Any]], cfg: ModelConfig,
+                shape, names) -> PyTree:
+    """The full gradient tree (CPU tensors) from every rank's
+    :func:`evaluate` blocks on a mesh of ``shape`` named ``names``: each
+    leaf's blocks put back where ``sharding.param_shardings`` placed them
+    (several mesh axes on one dim in mesh order, as
+    ``sharding.shard_tensor`` cut them)."""
+    mesh = sharding.AbstractMesh(tuple(shape), tuple(names))
+    specs = sharding.param_shardings(cfg, mesh)
+    sizes = dict(zip(names, shape))
+
+    def join(spec, blocks):
+        full_shape = list(blocks[0][1].shape)
+        axes = {}
+        for d, part in enumerate(spec):
+            for n in ((part,) if isinstance(part, str) else (part or ())):
+                axes.setdefault(d, []).append(n)
+        for d, ns in axes.items():
+            for n in ns:
+                full_shape[d] *= sizes[n]
+        full = torch.empty(full_shape, dtype=blocks[0][1].dtype)
+        for coord, block in blocks:
+            at = dict(zip(names, coord))
+            index = [slice(None)] * len(full_shape)
+            for d in axes:
+                k = 0
+                for n in names:                 # mesh order, major first
+                    if n in axes[d]:
+                        k = k * sizes[n] + at[n]
+                step = block.shape[d]
+                index[d] = slice(k * step, (k + 1) * step)
+            full[tuple(index)] = block
+        return full
+
+    def walk(spec, trees):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], [(c, t[k]) for c, t in trees])
+                    for k in spec}
+        return join(spec, trees)
+    return walk(specs, [(v["coordinate"], v["shards"]) for v in values])
+
+
+# --------------------------------------------------------------------------- #
+# Training
+# --------------------------------------------------------------------------- #
+
+@dataclass
+class MeshRun:
+    """One rank's training run: the step losses and pre-clip grad norms
+    (the same on every rank), host ms a step (each ending in a
+    synchronisation); inside :func:`runtime.spawn` its collectives a step
+    by kind (ms, calls, bytes sent in; ``runtime.Collectives``) and the
+    rest of the step, ``busy_ms``; its peak device memory (bytes, the
+    card only)."""
+    coordinate: List[int]
+    losses: List[float] = field(default_factory=list)
+    grad_norms: List[float] = field(default_factory=list)
+    wall_ms: List[float] = field(default_factory=list)
+    busy_ms: List[float] = field(default_factory=list)
+    collective_ms: List[Dict[str, float]] = field(default_factory=list)
+    collective_calls: List[Dict[str, int]] = field(default_factory=list)
+    collective_bytes: List[Dict[str, int]] = field(default_factory=list)
+    peak_bytes: int = 0
+
+
+def train(mesh, cfg: ModelConfig, opt_cfg, *, steps: int, batch: int,
+          seq_len: int, params: Optional[PyTree] = None, seed: int = 0,
+          device: DeviceLike = None) -> MeshRun:
+    """``steps`` AdamW steps of the plain train step on the mesh, on
+    batches from :func:`repro_torch.data.pipeline.make_batch_fn` with
+    ``seed`` (every rank draws the same ones), from ``params`` or
+    ``init_params(seed)``: the single-process trainer's weights and
+    batches for the same seed."""
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.optim import adamw
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    sp = _params(cfg, mesh, params, seed, dev)
+    opt = adamw.init_opt_state(sp, opt_cfg)
+    step_fn = TS.make_train_step(cfg, opt_cfg)
+    data = make_batch_fn(cfg, batch, seq_len, seed)
+    run = MeshRun(coordinate=list(mesh.get_coordinate()))
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    coll = runtime.collectives()
+    with use_mesh(mesh):
+        for _ in range(steps):
+            b = _batch(next(data), mesh, dev)
+            if on_card:
+                torch.cuda.synchronize(dev)
+            if coll is not None:
+                coll.reset()
+            t0 = time.perf_counter()
+            sp, opt, mets = step_fn(sp, opt, b)
+            if on_card:
+                torch.cuda.synchronize(dev)
+            wall = 1e3 * (time.perf_counter() - t0)
+            run.wall_ms.append(wall)
+            if coll is not None:
+                run.collective_ms.append(dict(coll.ms))
+                run.collective_calls.append(dict(coll.calls))
+                run.collective_bytes.append(dict(coll.bytes))
+                run.busy_ms.append(wall - sum(
+                    v for k, v in coll.ms.items() if k != "host_copy"))
+            run.losses.append(float(mets["loss"]))
+            run.grad_norms.append(float(mets["grad_norm"]))
+    if on_card:
+        run.peak_bytes = torch.cuda.max_memory_allocated(dev)
+    return run
+
+
+def summary(run: MeshRun) -> str:
+    """One line of a rank's run: medians over the steps after the first
+    of ms a step, busy ms and collective ms by kind, and the peak GB."""
+    def med(xs):
+        xs = sorted(xs[1:] or xs)
+        return xs[len(xs) // 2] if xs else float("nan")
+    line = f"{med(run.wall_ms):.1f} ms a step"
+    if run.collective_ms:
+        kinds = sorted({k for d in run.collective_ms for k in d})
+        line += f", busy {med(run.busy_ms):.1f} ms, " + ", ".join(
+            f"{k} {med([d.get(k, 0.0) for d in run.collective_ms]):.1f}"
+            for k in kinds) + " ms"
+    if run.peak_bytes:
+        line += f", peak {run.peak_bytes / 1e9:.2f} GB"
+    return line

@@ -8,16 +8,21 @@ backward), written as plain torch ops over chunks.  The precision follows
 the JAX twin: inputs keep their dtype, products accumulate in fp32 (here
 by upcasting each operand, where JAX asked for fp32 accumulation), and
 the probabilities and ``ds`` are rounded to the input dtype before the
-products that consume them.  The JAX sharding hints and its tensor-
-parallel K/V repeat are left out: they need a device mesh.
+products that consume them.  Given DTensors (under a ``(data, model)``
+mesh), the attention runs on each rank's own rows and heads
+(:func:`sharded_heads`), after the JAX package's tensor-parallel K/V
+layout (:func:`tp_kv_layout`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.act_sharding import (axis_extent, head_parallel,
+                                                  is_sharded)
 from repro_torch.kernels.flash_attention.ref import NEG_INF, visible
 
 DEFAULT_CHUNK = 512
@@ -30,6 +35,40 @@ def _chunk_scores(qf, k, c0, c1, causal, window, scale):
     ok = visible(qf.shape[3], c1 - c0, causal=causal, window=window,
                  q_offset=-c0, device=qf.device)
     return s.masked_fill(~ok, NEG_INF)
+
+
+def tp_kv_layout(num_heads: int, k: torch.Tensor, v: torch.Tensor):
+    """The GQA / tensor-parallel layout: when the merged head count H
+    divides the ``model`` extent but neither the K/V head count nor the
+    group size does (granite's 32 = 8 x 4 on 16; qwen2-vl-smoke's 4 = 2 x
+    2 on 4), K/V are repeated to H heads before the head split, so each
+    rank holds its own K/V heads and attention stays head-parallel (each
+    query head h reads K/V head h // g, as before).  Otherwise (k, v) as
+    they are; where neither K, g nor H divides, the heads stay whole on
+    every ``model`` rank (:func:`head_parallel`)."""
+    K = k.shape[2]
+    g = num_heads // K
+    tp = axis_extent("model")
+    if tp > 1 and g > 1 and num_heads % tp == 0 and K % tp and g % tp:
+        B, T = k.shape[:2]
+        k = k[:, :, :, None].expand(B, T, K, g, k.shape[-1]) \
+            .reshape(B, T, num_heads, k.shape[-1])
+        v = v[:, :, :, None].expand(B, T, K, g, v.shape[-1]) \
+            .reshape(B, T, num_heads, v.shape[-1])
+    return k, v
+
+
+def sharded_heads(fn: Callable) -> Callable:
+    """``fn(q, k, v, **kw)``, an attention over (B, S, H, D) tensors, that
+    also takes DTensors: K/V in :func:`tp_kv_layout`, then ``fn`` on each
+    rank's local rows and heads (``act_sharding.head_parallel``)."""
+    @functools.wraps(fn)
+    def run(q, k, v, **kw):
+        if not is_sharded(q):
+            return fn(q, k, v, **kw)
+        k, v = tp_kv_layout(q.shape[2], k, v)
+        return head_parallel(fn, q, k, v, **kw)
+    return run
 
 
 class ChunkedAttention(torch.autograd.Function):
@@ -90,6 +129,7 @@ class ChunkedAttention(torch.autograd.Function):
                 None, None)
 
 
+@sharded_heads
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       scale: Optional[float] = None,

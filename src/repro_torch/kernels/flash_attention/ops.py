@@ -6,6 +6,9 @@ and they sit outside :class:`~repro_torch.kernels.flash_attention.kernel.
 FlashAttention`, so autograd through this wrapper reaches the FA-2
 backward kernels.  CUDA tensors launch the kernels, CPU tensors run their
 plain versions (the JAX package's interpret mode has no counterpart).
+DTensors (under a ``(data, model)`` mesh) go in too: the kernels then run
+on each rank's own rows and heads, after the tensor-parallel K/V layout
+(``chunked.sharded_heads``).
 """
 
 from __future__ import annotations
@@ -14,9 +17,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.chunked import sharded_heads
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
 
 
+@sharded_heads
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:

@@ -1,47 +1,72 @@
 """Device meshes (port of ``repro.launch.mesh``).
 
 Functions, not module-level constants: importing this module touches no
-process group.  The edge mesh is a ``torch.distributed.DeviceMesh`` over
-the process group the caller initialised (one process per device;
-:func:`repro_torch.distributed.runtime.spawn` starts them).  The
-production and host meshes belong to the production-mesh slice
-(sharding, activation constraints, the dry run) and are not ported yet.
+process group.  Every mesh is a ``torch.distributed.DeviceMesh`` over the
+process group the caller initialised, one process a device
+(:func:`repro_torch.distributed.runtime.spawn` starts them): the
+production ``(data, model)`` mesh, the host's 1-D data mesh, any
+``(data, model)`` shape the launcher's ``--mesh`` asks for, and the
+DT-FM pipeline's ``(data, stage)`` edge mesh.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch.distributed as dist
 
-_PRODUCTION_SLICE = ("the production-mesh slice of the port (FSDP + TP "
-                     "sharding, activation constraints, the dry run)")
+
+def _world(what: str, needed: int) -> int:
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"{what} needs an initialised process group "
+            "(repro_torch.distributed.runtime.spawn starts one a rank)")
+    world = dist.get_world_size()
+    if needed and world != needed:
+        raise ValueError(f"{what} needs {needed} ranks; the group has "
+                         f"{world}")
+    return world
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """Not ported yet: the JAX package's 16 x 16 (or 2 x 16 x 16) mesh."""
-    raise NotImplementedError(
-        f"make_production_mesh waits for {_PRODUCTION_SLICE}")
+def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], *,
+              device_type: str = "cuda"):
+    """A mesh of ``shape`` named ``names`` over the whole group, rank
+    ``r`` at the row-major coordinate of ``r``; ``device_type`` is where
+    the ranks' tensors live (DTensor issues its collectives there)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != len(names):
+        raise ValueError(f"a mesh of shape {shape} needs {len(shape)} axis "
+                         f"names, got {names}")
+    needed = 1
+    for n in shape:
+        needed *= n
+    _world(f"a {' x '.join(map(str, shape))} {tuple(names)} mesh", needed)
+    return init_device_mesh(device_type, shape, mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The 16 x 16 = 256-device ``(data, model)`` mesh, or 2 x 16 x 16 =
+    512 devices as ``(pod, data, model)``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, names, device_type=device_type)
 
 
 def make_edge_mesh(num_stages: int, data_parallel: int = 1):
     """Edge-fleet mesh for DT-FM pipeline runs: ``("data", "stage")`` of
     shape (data_parallel, num_stages) over the initialised process group,
-    rank ``d * num_stages + s`` at (d, s), on the host: gloo, the
-    runtime's transport, carries host tensors."""
+    rank ``d * num_stages + s`` at (d, s), on the host: the pipeline
+    stages its transfers through host memory."""
     from torch.distributed.device_mesh import init_device_mesh
-    if not dist.is_initialized():
-        raise RuntimeError(
-            "make_edge_mesh needs an initialised process group "
-            "(repro_torch.distributed.runtime.spawn starts one a rank)")
-    world = dist.get_world_size()
-    if world != num_stages * data_parallel:
-        raise ValueError(
-            f"a {data_parallel} x {num_stages} (data, stage) mesh needs "
-            f"{num_stages * data_parallel} ranks; the group has {world}")
+    _world(f"a {data_parallel} x {num_stages} (data, stage) mesh",
+           num_stages * data_parallel)
     return init_device_mesh("cpu", (data_parallel, num_stages),
                             mesh_dim_names=("data", "stage"))
 
 
-def make_host_mesh():
-    """Not ported yet: the JAX package's 1-D data mesh over local
-    devices."""
-    raise NotImplementedError(f"make_host_mesh waits for {_PRODUCTION_SLICE}")
+def make_host_mesh(*, device_type: str = "cuda"):
+    """Every rank of the group on a 1-D ``("data",)`` mesh."""
+    return make_mesh((_world("the host mesh", 0),), ("data",),
+                     device_type=device_type)

@@ -34,6 +34,9 @@ def main(argv=None) -> None:
                     help="max prompt length (requests vary 4..prompt-len)")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="accepted as the JAX launcher does; serving sets "
+                         "no mesh, so it changes nothing")
     ap.add_argument("--device", default="cloud-h100",
                     help="energy/carbon profile from core.energy.devices "
                          "(smartphone-sd888 | laptop-m2pro | cloud-a5000 | "

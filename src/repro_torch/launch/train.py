@@ -16,11 +16,20 @@ carbon of the run on ``--device``'s energy profile.
 seed-replayable fault plan (``--fault-seed``).  ``--checkpoint-dir`` with
 ``--checkpoint-every`` (steps, or rounds under ``--local-sgd``) saves
 checkpoints in the JAX package's format; ``--resume`` restores the newest
-complete one first.  ``--mesh`` and ``--host-devices`` (the production
-``(data, model)`` mesh) wait for the production-mesh slice of the port
-(sharding, activation constraints, the dry run), and raise; the DT-FM
-pipeline runs through ``repro_torch.distributed`` (see
-``examples/torch_decentralized_pipeline.py``).
+complete one first.  The DT-FM pipeline runs through
+``repro_torch.distributed`` (see ``examples/torch_decentralized_pipeline.py``).
+
+Mesh: ``--mesh d,m`` trains on a ``(data, model)`` mesh of d x m ranks
+(``repro_torch.distributed.runtime.spawn``, one process a device, their
+collectives through host memory they share; on the card all of them
+share it): FSDP over ``data`` and Megatron tensor parallelism over
+``model`` (``distributed.sharding``), the plain train step on DTensors
+(``distributed.spmd.train``).  It prints each rank's ms a step, its
+collectives by kind and its peak memory.  ``--host-devices N`` is the
+CPU rank count and must equal d x m; alone it changes nothing.  Local
+SGD, checkpoints, the health and telemetry records, microbatches, remat
+and attention other than the kernels are not yet ported to the mesh
+(``ROADMAP.md`` queue 1) and raise with it.
 
 Health: ``--health-out health.jsonl`` attaches the streaming detectors
 (stragglers / link degradation / loss spikes — the async quorum then
@@ -39,6 +48,10 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch opt-1.3b \\
         --full --batch 4 --seq 2048 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch opt-1.3b \\
+        --full --batch 4 --seq 2048 --steps 4 --mesh 2,2
+    PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
+        --mesh 2,2 --host-devices 4 --steps 3 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
         --local-sgd --replicas 2 --inner-steps 2 --steps 8 --batch 2 \\
         --seq 32
@@ -118,23 +131,16 @@ def main(argv=None) -> None:
                     help="attach the streaming health detectors "
                          "(straggler / link / loss-spike) and write "
                          "their alert record + SLO verdicts as JSONL")
-    ap.add_argument("--mesh", default=None,
-                    help="not ported yet (the production-mesh slice: "
-                         "sharding, activation constraints, dry run): "
-                         "raises")
+    ap.add_argument("--mesh", default=None, metavar="D[,M]",
+                    help="train on a (data, model) mesh of D x M ranks "
+                         "(FSDP over data, tensor parallelism over model)")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="not ported yet (the production-mesh slice: "
-                         "sharding, activation constraints, dry run): "
-                         "raises")
+                    help="CPU rank count of --mesh (must equal D x M)")
     args = ap.parse_args(argv)
-    for name in ("mesh", "host_devices"):
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} waits for the production-mesh "
-                "slice of the port (sharding, activation constraints, "
-                "dry run)")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume needs --checkpoint-dir")
+    if args.mesh:
+        return _train_on_mesh(args)
 
     import torch
 
@@ -252,6 +258,75 @@ def main(argv=None) -> None:
                                   "torch_device": str(dev)})
         print(f"[train] metrics: {args.metrics_out} "
               f"({len(registry.names())} metrics)")
+
+
+# what --mesh does not run yet, and the ROADMAP.md item that takes it up
+MESH_QUEUED = ("ROADMAP.md queue 1 item 4 (--mesh with local SGD, "
+               "checkpoints, the records and the step's options, after the "
+               "dry run)")
+
+
+def _train_on_mesh(args):
+    """``--mesh``: the plain train step on a (data, model) mesh of ranks.
+    Returns the :class:`~repro_torch.distributed.runtime.SpawnResult`
+    (one ``spmd.MeshRun`` a rank)."""
+    import functools
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import runtime, spmd
+    from repro_torch.kernels.build import build_all
+    from repro_torch.optim.adamw import OptConfig
+
+    not_yet = {"--local-sgd": args.local_sgd, "--async": args.async_mode,
+               "--checkpoint-dir": args.checkpoint_dir,
+               "--health-out": args.health_out, "--slo": args.slo,
+               "--trace-out": args.trace_out,
+               "--metrics-out": args.metrics_out,
+               "--microbatches": args.microbatches != 1,
+               "--remat": args.remat != "none",
+               "--attn-impl": args.attn_impl != "kernel"}
+    for flag, given in not_yet.items():
+        if given:
+            raise NotImplementedError(f"--mesh with {flag} waits for "
+                                      f"{MESH_QUEUED}")
+    dims = tuple(int(x) for x in args.mesh.split(","))
+    if not 1 <= len(dims) <= 2 or min(dims) < 1:
+        raise ValueError(f"--mesh takes D or D,M, got {args.mesh!r}")
+    names = ("data", "model")[:len(dims)]
+    world = 1
+    for n in dims:
+        world *= n
+    if args.host_devices and args.host_devices != world:
+        raise ValueError(f"--host-devices {args.host_devices} differs from "
+                         f"the {world} ranks of --mesh {args.mesh}")
+    dev = resolve_device(args.torch_device)
+    cfg = get_config(args.arch if args.full else args.arch + "-smoke")
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev
+    print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params on a "
+          f"{' x '.join(map(str, dims))} {names} mesh of ranks on {where}")
+    if dev.type == "cuda":
+        build_all()                    # the ranks only load the kernels
+    opt_cfg = OptConfig(learning_rate=3e-4,
+                        warmup_steps=max(10, args.steps // 20),
+                        decay_steps=args.steps)     # the trainer's default
+    call = functools.partial(spmd.train, cfg=cfg, opt_cfg=opt_cfg,
+                             steps=args.steps, batch=args.batch,
+                             seq_len=args.seq)
+    res = runtime.spawn([call], shape=dims, names=names, transport="host",
+                        device=dev)
+    runs = res.values[0]
+    for r, run in enumerate(runs):
+        print(f"[train] rank {r} {tuple(run.coordinate)}: "
+              f"{spmd.summary(run)}")
+    steady = runs[0].wall_ms[1:] or runs[0].wall_ms
+    tok_s = args.batch * args.seq / (sorted(steady)[len(steady) // 2] / 1e3)
+    print(f"[train] final loss {runs[0].losses[-1]:.4f}  "
+          f"{tok_s:.0f} tokens/s after the first step  "
+          f"FA-2 launches {res.launches[0]}")
+    return res
 
 
 if __name__ == "__main__":

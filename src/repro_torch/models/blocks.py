@@ -21,6 +21,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.act_sharding import BATCH, constrain, gathered
 from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attn_decode, attn_decode_paged,
@@ -73,6 +74,7 @@ def _remat(fn, remat: str):
 def _sublayer_train(kind: str, p: PyTree, x: torch.Tensor,
                     aux: torch.Tensor, cfg: ModelConfig,
                     ctx: Dict[str, Any]):
+    p = gathered(p)                    # FSDP: the sublayer's whole weights
     if kind == "attn":
         return attn_forward(p, x, cfg, positions=ctx["positions"],
                             causal=ctx.get("causal", True),
@@ -106,6 +108,7 @@ def group_forward(gparams: PyTree, group: ScanGroup, x: torch.Tensor,
         for j, kind in enumerate(group.sublayers):
             h, aux = _sublayer_train(kind, p_unit[f"s{j}_{kind}"], h, aux,
                                      cfg, ctx)
+            h = constrain(h, BATCH, None, None)   # stays batch-sharded
         return h, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

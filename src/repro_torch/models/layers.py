@@ -9,8 +9,11 @@ on tensors over a parameter dict, with the JAX package's conventions kept
 exactly — norm statistics in fp32 with the multiply in the input dtype,
 RoPE over split halves, softmax in fp32.  Large projections are plain
 ``torch.matmul``, as the JAX package left them to XLA; attention itself
-is the FA-2 kernels (train) or the flash-decode kernel (serve).  The JAX
-sharding constraints are left out: they need a device mesh.
+is the FA-2 kernels (train) or the flash-decode kernel (serve).  Under an
+ambient ``(data, model)`` mesh the parameters and activations are
+DTensors: q, k and v are pinned to (batch, heads) as in the JAX package
+(``distributed.act_sharding.constrain``), and the attention runs on each
+rank's own rows and heads.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.chunked import chunked_attention
+from repro_torch.distributed.act_sharding import BATCH, constrain
+from repro_torch.kernels.flash_attention.chunked import (chunked_attention,
+                                                         sharded_heads)
 from repro_torch.kernels.flash_attention.decode import (
     flash_decode_paged, paged_attention_reference)
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -195,9 +200,12 @@ def run_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: Optional[float] = None) -> torch.Tensor:
     """Dispatch: "naive" oracle, "chunked" online softmax (plain torch,
     the JAX package's default), or "kernel" (the FA-2 CUDA kernels; their
-    plain versions on CPU tensors).  All three are differentiable."""
+    plain versions on CPU tensors).  All three are differentiable, and
+    each takes DTensors too, running on each rank's local heads and
+    rows."""
     if impl == "naive":
-        return attention_core(q, k, v, causal=causal, window=window)
+        return sharded_heads(attention_core)(q, k, v, causal=causal,
+                                             window=window)
     if impl == "kernel":
         return flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
@@ -216,9 +224,12 @@ def attn_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _project_qkv(p, h, cfg)
     q = positional(q, positions, cfg)
     k = positional(k, positions, cfg)
+    q = constrain(q, BATCH, None, "model", None)
+    k = constrain(k, BATCH, None, "model", None)
+    v = constrain(v, BATCH, None, "model", None)
     out = run_attention(q, k, v, causal=causal, window=cfg.sliding_window,
                         impl=impl)
-    return x + _out_proj(out, p["wo"])
+    return x + constrain(_out_proj(out, p["wo"]), BATCH, None, None)
 
 
 def xattn_forward(p: Dict[str, Any], x: torch.Tensor, enc: torch.Tensor,
@@ -354,10 +365,15 @@ def attn_decode_paged(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
 
 def mlp_forward(p: Dict[str, Any], x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
+    """Under a mesh the hidden units are pinned column-parallel (rows over
+    the batch, units over ``model``) and the output reduced, as Megatron
+    lays the MLP out."""
     h = norm(p["norm"], x, cfg)
-    wi = p["wi"].to(x.dtype)
+
+    def up(w):
+        return constrain(h @ w.to(x.dtype), BATCH, None, "model")
     if cfg.mlp_activation == "silu":
-        a = F.silu(h @ wi) * (h @ p["wg"].to(x.dtype))
+        a = F.silu(up(p["wi"])) * up(p["wg"])
     else:
-        a = F.gelu(h @ wi, approximate="tanh")     # jax.nn.gelu's default
-    return x + a @ p["wo"].to(x.dtype)
+        a = F.gelu(up(p["wi"]), approximate="tanh")  # jax.nn.gelu's default
+    return x + constrain(a @ p["wo"].to(x.dtype), BATCH, None, None)

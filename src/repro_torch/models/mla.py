@@ -11,7 +11,8 @@ query and the scores are taken in latent space in fp32, with the scale
 1/sqrt(qk_head_dim).  Cache bytes a token: kv_lora_rank +
 qk_rope_head_dim, against 2·H·head_dim for plain multi-head attention.
 The absorbed decode is plain ``einsum``s, as the JAX package computes it
-outside any Pallas kernel.
+outside any Pallas kernel.  Under a ``(data, model)`` mesh q, k and v are
+pinned to (batch, heads) before the attention, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.act_sharding import BATCH, constrain
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_out_proj, _proj_heads, apply_rope,
@@ -70,8 +72,11 @@ def mla_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     H = q_nope.shape[2]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(-1, -1, H, -1)], dim=-1)
+    q = constrain(q, BATCH, None, "model", None)
+    k = constrain(k, BATCH, None, "model", None)
+    v = constrain(v, BATCH, None, "model", None)
     out = run_attention(q, k, v, causal=causal, impl=impl)
-    return x + _out_proj(out, p["wo"])
+    return x + constrain(_out_proj(out, p["wo"]), BATCH, None, None)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

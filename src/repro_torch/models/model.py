@@ -21,6 +21,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.act_sharding import (BATCH, REPLICATED,
+                                                  constrain, gathered,
+                                                  is_sharded,
+                                                  vocab_parallel_embedding)
 from repro_torch.models import params as P
 from repro_torch.models.blocks import (PAGED_SUBLAYERS, _sublayer_train,
                                        group_decode, group_decode_paged,
@@ -35,15 +39,18 @@ PyTree = Any
 def embed_tokens(params: PyTree, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]["tok"]
+    if is_sharded(emb):
+        return vocab_parallel_embedding(tokens, emb).to(
+            getattr(torch, cfg.compute_dtype))
     return emb[tokens.long()].to(getattr(torch, cfg.compute_dtype))
 
 
 def lm_logits(params: PyTree, cfg: ModelConfig,
               h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = h @ params["embed"]["tok"].to(h.dtype).T
+        logits = h @ gathered(params["embed"]["tok"]).to(h.dtype).T
     else:
-        logits = h @ params["lm_head"].to(h.dtype)
+        logits = h @ gathered(params["lm_head"]).to(h.dtype)
     if cfg.padded_vocab_size != cfg.vocab_size:
         # vocab-padding mask: padded ids never win softmax/argmax.  Out of
         # place, since the logits sit under autograd when training.
@@ -56,10 +63,12 @@ def lm_logits(params: PyTree, cfg: ModelConfig,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean CE in fp32.  labels == -1 are ignored.  Returns (loss,
-    number of counted tokens)."""
+    number of counted tokens).  Vocab-sharded logits (a DTensor) are
+    gathered over the vocab first: the log-normaliser needs every row
+    whole (a known cost of the mesh, not of one device)."""
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
-    logits = logits.float()
+    logits = constrain(logits.float(), BATCH, None, REPLICATED)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
@@ -102,7 +111,7 @@ def encoder_forward(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
     enc_ctx = dict(ctx, causal=False, positions=pos[None].expand(B, S))
     for gi, g in enumerate(P.encoder_groups(cfg)):
         x, _ = group_forward(params["encoder"][f"g{gi}"], g, x, cfg, enc_ctx)
-    return norm(params["encoder"]["final_norm"], x, cfg)
+    return norm(gathered(params["encoder"]["final_norm"]), x, cfg)
 
 
 def decoder_trunk(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
@@ -111,7 +120,7 @@ def decoder_trunk(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     for gi, g in enumerate(P.decoder_groups(cfg)):
         x, a = group_forward(params["decoder"][f"g{gi}"], g, x, cfg, ctx)
         aux = aux + a
-    return norm(params["final_norm"], x, cfg), aux
+    return norm(gathered(params["final_norm"]), x, cfg), aux
 
 
 def _embed_with_positions(params: PyTree, cfg: ModelConfig,
@@ -121,7 +130,8 @@ def _embed_with_positions(params: PyTree, cfg: ModelConfig,
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens)
     if "pos" in params["embed"]:
-        x = x + params["embed"]["pos"][:tokens.shape[1]].to(x.dtype)[None]
+        pos = gathered(params["embed"]["pos"])
+        x = x + pos[:tokens.shape[1]].to(x.dtype)[None]
     if "vision_embeds" in batch:
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     return x
@@ -156,7 +166,7 @@ def _mtp_loss(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     prev = h                                              # (B, S, d)
     for k in range(cfg.mtp_depth):
-        mp = params["mtp"][f"d{k}"]
+        mp = gathered(params["mtp"][f"d{k}"])
         shift = k + 1
         prev_trim = prev[:, :-1, :]
         emb_next = embed_tokens(params, cfg, tokens[:, shift:])
@@ -168,7 +178,7 @@ def _mtp_loss(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
         for key, p_sub in sorted(mp["block"].items()):
             x, aux = _sublayer_train(key.split("_", 1)[1], p_sub, x, aux,
                                      cfg, sub_ctx)
-        x = norm(params["final_norm"], x, cfg)
+        x = norm(gathered(params["final_norm"]), x, cfg)
         loss_k, _ = cross_entropy(lm_logits(params, cfg, x),
                                   labels[:, shift:])
         total = total + loss_k
@@ -188,10 +198,11 @@ def forward_train(params: PyTree, cfg: ModelConfig,
     backward kernels; the plain versions on CPU tensors).  All three
     train.  With ``mtp_depth > 0`` the multi-token-prediction loss is
     added and reported as ``mtp_loss``."""
-    x = _embed_with_positions(params, cfg, batch)
+    x = constrain(_embed_with_positions(params, cfg, batch), BATCH, None,
+                  None)
     ctx = _trunk_ctx(params, cfg, batch, x, remat=remat, attn_impl=attn_impl)
     h, aux = decoder_trunk(params, cfg, x, ctx)
-    logits = lm_logits(params, cfg, h)
+    logits = constrain(lm_logits(params, cfg, h), BATCH, None, "model")
     loss, n_tok = cross_entropy(logits, batch["labels"])
     metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n_tok}
     total = loss + aux
@@ -211,11 +222,12 @@ def forward_logits(params: PyTree, cfg: ModelConfig,
     runs every ssm sublayer's scan through the SSD kernel (its plain
     version on CPU tensors; it has no backward); False runs the plain
     ``ssd_reference``, the JAX package's default."""
-    x = _embed_with_positions(params, cfg, batch)
+    x = constrain(_embed_with_positions(params, cfg, batch), BATCH, None,
+                  None)
     ctx = _trunk_ctx(params, cfg, batch, x, attn_impl=attn_impl,
                      use_kernel=use_kernel)
     h, _ = decoder_trunk(params, cfg, x, ctx)
-    return lm_logits(params, cfg, h)
+    return constrain(lm_logits(params, cfg, h), BATCH, None, "model")
 
 
 # --------------------------------------------------------------------------- #
@@ -232,6 +244,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     unless ``device="cpu"`` is asked for."""
     return {f"g{gi}": init_group_cache(g, cfg, batch, max_len, dtype, device)
             for gi, g in enumerate(P.decoder_groups(cfg))}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> PyTree:
+    """:func:`init_cache` as ``meta`` tensors: shapes and dtypes, no
+    storage."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
 
 
 def warm_cross_cache(params: PyTree, cfg: ModelConfig, cache: PyTree,

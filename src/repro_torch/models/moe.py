@@ -12,12 +12,18 @@ dispatches over the flat batch instead, with the capacity of B tokens.
 
 The buffer is laid out expert-major, (E, B·C, d), so each expert's
 weights are read once a call, whatever the batch: the expert products
-are one ``bmm`` per weight over all rows.  The JAX package's buffer is
-(B, E, C, d) with sharding hints on it (``constrain``, ``axis_extent``);
-those are no-ops on one device and are left out, and
-``MoEConfig.layout`` is kept in the config but read by nothing until the
-multi-device slice.  The gathers, scatters and expert products are plain
-PyTorch ops, as the JAX package left them to XLA.
+are one ``bmm`` per weight over all rows.  The gathers, scatters and
+expert products are plain PyTorch ops, as the JAX package left them to
+XLA.
+
+Under a ``(data, model)`` mesh (DTensors) the dispatch plan, the buffer
+fill and the combine run on each rank's own batch rows (``local_map``:
+they are per row), and ``MoEConfig.layout`` places the buffer as the
+JAX package's does: "auto", experts over ``model`` and rows over
+``data``; "ep_full", when the expert count divides model x data, experts
+over both and the rows replicated (every rank plans every row, and its
+experts' weights never move); "unconstrained", nothing pinned, DTensor
+choosing.  The combine gathers the experts' outputs back over the rows.
 """
 
 from __future__ import annotations
@@ -28,6 +34,10 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_sharding import (BATCH, axis_extent,
+                                                  constrain,
+                                                  constrained_placements,
+                                                  is_sharded)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import norm
 
@@ -121,21 +131,77 @@ def _dispatch_combine(h: torch.Tensor, top_w: torch.Tensor,
                       cfg: ModelConfig, C: int) -> torch.Tensor:
     """Batched dispatch.  h: (B, N, d); top_w/top_i: (B, N, k) ->
     (B, N, d)."""
+    if is_sharded(h):
+        return _dispatch_combine_sharded(h, top_w, top_i, p, cfg, C)
+    buf, sort_idx, keep, slot, token_src = _fill(h, top_i,
+                                                 cfg.moe.num_experts, C)
+    out = _expert_ffn(p, buf, cfg)
+    return _combine(out, top_w, sort_idx, keep, slot, token_src)
+
+
+def _fill(h: torch.Tensor, top_i: torch.Tensor, num_experts: int, C: int):
+    """Per-row dispatch of local rows: (buf (E, B·C, d), sort_idx, keep,
+    slot, token_src)."""
     B, N, d = h.shape
-    E = cfg.moe.num_experts
-    sort_idx, keep, slot, token_src = dispatch_plan(top_i, C, E)
+    sort_idx, keep, slot, token_src = dispatch_plan(top_i, C, num_experts)
     src = (torch.arange(B, device=h.device)[:, None] * N + token_src)
-    h_flat = h.reshape(B * N, d)
-    buf = torch.zeros((E * B * C + 1, d), dtype=h.dtype, device=h.device)
-    buf.index_put_((slot.reshape(-1),), h_flat[src.reshape(-1)])
-    out = _expert_ffn(p, buf[:-1].view(E, B * C, d), cfg)
-    out = torch.cat([out.reshape(E * B * C, d),
-                     torch.zeros((1, d), dtype=h.dtype, device=h.device)])
+    buf = torch.zeros((num_experts * B * C + 1, d), dtype=h.dtype,
+                      device=h.device)
+    buf.index_put_((slot.reshape(-1),), h.reshape(B * N, d)[src.reshape(-1)])
+    return (buf[:-1].view(num_experts, B * C, d), sort_idx, keep, slot,
+            token_src)
+
+
+def _combine(out: torch.Tensor, top_w: torch.Tensor, sort_idx: torch.Tensor,
+             keep: torch.Tensor, slot: torch.Tensor,
+             token_src: torch.Tensor) -> torch.Tensor:
+    """The experts' outputs (E, B·C, d) of local rows back to (B, N, d),
+    weighted; dropped assignments read the zero scratch row."""
+    B = sort_idx.shape[0]
+    N = top_w.shape[1]
+    d = out.shape[-1]
+    out = torch.cat([out.reshape(-1, d),
+                     torch.zeros((1, d), dtype=out.dtype, device=out.device)])
     w = torch.gather(top_w.reshape(B, -1), 1, sort_idx) * keep
-    gathered = out[slot.reshape(-1)] * w.reshape(-1, 1).to(h.dtype)
-    y = torch.zeros((B * N, d), dtype=h.dtype, device=h.device)
+    gathered = out[slot.reshape(-1)] * w.reshape(-1, 1).to(out.dtype)
+    src = (torch.arange(B, device=out.device)[:, None] * N + token_src)
+    y = torch.zeros((B * N, d), dtype=out.dtype, device=out.device)
     y.index_add_(0, src.reshape(-1), gathered)
     return y.view(B, N, d)
+
+
+def _dispatch_combine_sharded(h, top_w, top_i, p: Dict[str, Any],
+                              cfg: ModelConfig, C: int):
+    """:func:`_dispatch_combine` for DTensors (see the module docstring)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    m = cfg.moe
+    E = m.num_experts
+    mesh = h.device_mesh
+    ep = axis_extent("model") * axis_extent("data")
+    ep_full = ep > 1 and E % ep == 0 and m.layout == "ep_full"
+    if ep_full:
+        rows = [Replicate()] * mesh.ndim
+    else:
+        rows = [pl if pl == Shard(0) else Replicate()
+                for pl in constrained_placements(h, mesh, BATCH)]
+    slots = [Shard(1) if pl == Shard(0) else Replicate() for pl in rows]
+    h, top_w, top_i = (t.redistribute(mesh, rows) for t in (h, top_w, top_i))
+    buf, sort_idx, keep, slot, token_src = local_map(
+        lambda a, b: _fill(a, b, E, C),
+        out_placements=(slots, rows, rows, rows, rows),
+        in_placements=(rows, rows), device_mesh=mesh)(h, top_i)
+    if m.layout != "unconstrained":
+        e_axes = ("model", "data") if ep_full else "model"
+        buf = constrain(buf, e_axes, None if ep_full else BATCH, None)
+    out = _expert_ffn(p, buf, cfg)
+    if m.layout != "unconstrained":
+        out = constrain(out, e_axes, None if ep_full else BATCH, None)
+    out = out.redistribute(mesh, slots)
+    return local_map(_combine, out_placements=rows,
+                     in_placements=(slots, rows, rows, rows, rows, rows),
+                     device_mesh=mesh)(out, top_w, sort_idx, keep, slot,
+                                       token_src)
 
 
 def moe_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig

@@ -367,6 +367,23 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                     model_spec(cfg))
 
 
+def _leaf_dtype(cfg: ModelConfig, spec: ParamSpec) -> torch.dtype:
+    return torch.float32 if spec.init in FP32_INITS \
+        else getattr(torch, cfg.param_dtype)
+
+
+def abstract_params(cfg: ModelConfig) -> PyTree:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    storage): fp32 for the SSM decay leaves, ``param_dtype`` otherwise."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=_leaf_dtype(cfg, s),
+                                          device="meta"), model_spec(cfg))
+
+
+def param_axes(cfg: ModelConfig) -> PyTree:
+    """Each leaf's logical axis names, one per dim."""
+    return tree_map(lambda s: s.axes, model_spec(cfg))
+
+
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Total (or per-token-active) parameter count.
 

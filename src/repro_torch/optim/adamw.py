@@ -7,7 +7,11 @@ inside the step on >= 2-D leaves only, the new parameter cast back to its
 dtype and the moments stored in ``moment_dtype``.  Where the JAX update
 returned new arrays (and the trainer donated the old ones), this one
 writes parameters and moments in place under ``no_grad``: no second copy
-of the model or its optimizer state is ever allocated.
+of the model or its optimizer state is ever allocated.  On a ``(data,
+model)`` mesh the parameters, gradients and moments are DTensors placed
+alike: the clipping norm is reduced over the whole model and each leaf's
+update runs on the rank's own shards, so no optimizer state is ever
+gathered.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed.act_sharding import is_sharded
 from repro_torch.models.params import tree_leaves, tree_map
 
 PyTree = Any
@@ -54,18 +59,51 @@ def init_opt_state(params: PyTree, cfg: OptConfig) -> Dict[str, Any]:
     """Zero moments beside each parameter, and the step count (a 0-d int
     tensor on the parameters' device, so the update never syncs)."""
     dt = getattr(torch, cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+
+    def zeros(p: torch.Tensor) -> torch.Tensor:
+        if is_sharded(p):                 # the parameter's placements
+            return torch.zeros_like(p, dtype=dt)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
     device = tree_leaves(params)[0].device
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(leaves: Union[PyTree, List[torch.Tensor]]) -> torch.Tensor:
-    """sqrt(Σ x²) over every leaf, in fp32."""
+    """sqrt(Σ x²) over every leaf, in fp32.  For DTensor leaves, the norm
+    of the whole model: each rank sums the squares of its own shards, a
+    leaf replicated over ``r`` ranks counted 1/r a rank, and one reduction
+    over the mesh adds them up; the result is a plain tensor."""
     if not isinstance(leaves, list):
         leaves = tree_leaves(leaves)
+    if leaves and is_sharded(leaves[0]):
+        return _sharded_norm(leaves)
     return torch.stack([x.float().square().sum() for x in leaves]).sum() \
         .sqrt()
+
+
+def _sharded_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = leaves[0].device_mesh
+    parts = []
+    for x in leaves:
+        copies = 1
+        for i, p in enumerate(x.placements):
+            if isinstance(p, Partial):
+                raise ValueError("global_norm takes leaves placed as the "
+                                 "parameters (Shard / Replicate), not "
+                                 "partial sums")
+            if isinstance(p, Replicate):
+                copies *= mesh.size(i)
+        parts.append(x.to_local().float().square().sum() / copies)
+    local = torch.stack(parts).sum()
+    total = DTensor.from_local(local, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return total.full_tensor().sqrt()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_sharded(t) else t
 
 
 @torch.no_grad()
@@ -93,11 +131,15 @@ def apply_updates(params: PyTree, grads: Union[PyTree, List[torch.Tensor]],
     for p, g, mu, nu in zip(tree_leaves(params), flat_g,
                             tree_leaves(state["mu"]),
                             tree_leaves(state["nu"])):
+        ndim = p.dim()
+        if is_sharded(p):               # elementwise: the local shards
+            g = g.redistribute(p.device_mesh, p.placements)
+            p, g, mu, nu = (_local(t) for t in (p, g, mu, nu))
         g = g.float() * clip
         mu_f = mu.float() * b1 + (1 - b1) * g
         nu_f = nu.float() * b2 + (1 - b2) * g.square()
         delta = (mu_f / bc1) / ((nu_f / bc2).sqrt() + cfg.eps)
-        if p.dim() >= 2:          # decoupled decay on >= 2-D weights only
+        if ndim >= 2:             # decoupled decay on >= 2-D weights only
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
         mu.copy_(mu_f)

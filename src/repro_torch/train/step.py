@@ -5,14 +5,23 @@
 (params, opt_state, metrics)``.  PyTorch runs it eagerly; the parameters
 and moments are updated in place (the JAX step was pure and the trainer
 donated its buffers), and every metric stays a device scalar.
+
+Under an ambient ``(data, model)`` mesh (``act_sharding.use_mesh``) the
+parameters and moments are DTensors placed by
+``sharding.param_shardings`` and the batch by ``batch_shardings``; plain
+tensors the model makes on the way (positions, masks, the rotary
+frequencies) count as replicated, and each gradient comes back with its
+parameter's placements before the update.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.act_sharding import current_mesh, is_sharded
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves
@@ -20,6 +29,28 @@ from repro_torch.optim import adamw
 from repro_torch.optim.compress import CompressConfig, compress_grads
 
 PyTree = Any
+
+
+def mesh_ops():
+    """Under an ambient mesh, plain tensors mixed with DTensors count as
+    replicated (DTensor's ``implicit_replication``); else nothing."""
+    if current_mesh() is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def plain(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor scalar is replicated)."""
+    return x.full_tensor() if is_sharded(x) else x
+
+
+def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements
+    (partial sums reduced, FSDP shards scattered); a plain one as is."""
+    if is_sharded(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], m: int
@@ -56,11 +87,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, *,
     before the update."""
 
     def loss_and_grads(leaves, params, batch):
-        loss, metrics = M.forward_train(params, cfg, batch, remat=remat,
-                                        attn_impl=attn_impl)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            list(grads)
+        with mesh_ops():
+            loss, metrics = M.forward_train(params, cfg, batch, remat=remat,
+                                            attn_impl=attn_impl)
+            grads = torch.autograd.grad(loss, leaves)
+            grads = [placed_like(g, p) for g, p in zip(grads, leaves)]
+            metrics = {k: plain(v.detach()) for k, v in metrics.items()}
+        return plain(loss.detach()), metrics, grads
 
     def train_step(params: PyTree, opt_state: Dict[str, Any],
                    batch: Dict[str, torch.Tensor]
@@ -99,8 +132,9 @@ def make_eval_step(cfg: ModelConfig, *, remat: str = "none",
 
     @torch.no_grad()
     def eval_step(params: PyTree, batch: Dict[str, torch.Tensor]):
-        loss, metrics = M.forward_train(params, cfg, batch, remat=remat,
-                                        attn_impl=attn_impl)
-        return dict(metrics, loss=loss)
+        with mesh_ops():
+            loss, metrics = M.forward_train(params, cfg, batch, remat=remat,
+                                            attn_impl=attn_impl)
+            return {k: plain(v) for k, v in dict(metrics, loss=loss).items()}
 
     return eval_step

@@ -11,8 +11,9 @@ whisper-smoke's and qwen2-vl-smoke's train steps on the card against
 the CPU, and the edge fleet's control loop: the engine's SLO admission
 gate, a layer-sliced checkpoint of card tensors restored onto another
 stage split, and async local SGD whose health monitor excludes the same
-straggler on the card as on the CPU, and the DT-FM pipeline on two gloo
-ranks sharing the card against the single-process loss and gradients.
+straggler on the card as on the CPU, the DT-FM pipeline on two gloo
+ranks sharing the card against the single-process loss and gradients,
+and the production mesh (FSDP + tensor parallelism) on four.
 Every test here skips without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1104,6 +1105,55 @@ def test_cuda_pipeline_on_two_gloo_ranks_equals_forward_train(cuda):
         np.testing.assert_allclose(g.numpy(), r.cpu().numpy(),
                                    **PIPE_GRAD_TOL)
     n = cfg.num_layers * mb
+    assert res.launches[0] == {"flash_attention_fwd": n,
+                               "flash_attention_bwd_dq": n,
+                               "flash_attention_bwd_dkdv": n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,heads,mesh", [("opt-125m", (4, 4), (2, 2)),
+                                             ("qwen2-7b", (4, 2), (1, 4))])
+def test_cuda_mesh_on_four_gloo_ranks_equals_forward_train(cuda, arch,
+                                                           heads, mesh):
+    """A tiny OPT (2 x 2) and a GQA qwen2 whose K/V expand to every head
+    (1 x 4), fp32, on a (data, model) mesh of gloo ranks sharing the card,
+    their collectives staged through host memory: the loss and every
+    gradient leaf, gathered from the DTensor shards, equal the
+    single-process ``forward_train`` on the card from the same weights,
+    and the FA-2 kernels ran once a layer a rank, on each rank's heads."""
+    import functools
+
+    from repro_torch.distributed import runtime, spmd
+    from repro_torch.kernels.build import build_all
+    from repro_torch.models import model as M
+    build_all()                 # the ranks only load the kernels
+    cfg = dataclasses.replace(
+        get_config(arch), name=f"{arch}-mesh-test", num_layers=2,
+        d_model=128, num_heads=heads[0], num_kv_heads=heads[1], head_dim=32,
+        d_ff=256, vocab_size=512, param_dtype="float32",
+        compute_dtype="float32")
+    rs = np.random.RandomState(1)
+    toks = rs.randint(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    nb = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    nb["labels"][0, :5] = -1
+    res = runtime.spawn([functools.partial(
+        spmd.evaluate, cfg=cfg, batch=nb, seed=0, grads=True)],
+        shape=mesh, names=("data", "model"), transport="host",
+        device=cuda)
+    params = init_params(cfg, device=cuda, seed=0)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = M.forward_train(params, cfg, {k: torch.from_numpy(v).to(cuda)
+                                            for k, v in nb.items()})
+    ref = torch.autograd.grad(loss, leaves)
+    got = res.values[0][0]
+    assert {v["loss"] for v in res.values[0]} == {got["loss"]}
+    np.testing.assert_allclose(got["loss"], float(loss.detach()),
+                               rtol=PIPE_LOSS_RTOL)
+    full = spmd.join_shards(res.values[0], cfg, mesh, ("data", "model"))
+    for g, r in zip(tree_leaves(full), ref):
+        np.testing.assert_allclose(g.numpy(), r.cpu().numpy(),
+                                   **PIPE_GRAD_TOL)
+    n = cfg.num_layers * 4
     assert res.launches[0] == {"flash_attention_fwd": n,
                                "flash_attention_bwd_dq": n,
                                "flash_attention_bwd_dkdv": n}

@@ -237,10 +237,15 @@ def test_launcher_runs_local_sgd_on_the_cpu(mode, capsys):
     out = capsys.readouterr().out
     assert "[train] final loss" in out
     assert ("[train] async:" in out) == (mode != "sync")
-    for flag in (["--mesh", "1,1"], ["--host-devices", "2"]):
-        with pytest.raises(NotImplementedError,
-                           match="production-mesh slice"):
-            train.main(["--torch-device", "cpu", *flag])
+    # --mesh runs (one CPU rank here); with local SGD it raises, naming
+    # the queued ROADMAP item
+    if mode == "sync":
+        res = train.main(["--torch-device", "cpu", "--mesh", "1,1",
+                          "--steps", "2", "--batch", "2", "--seq", "16"])
+        assert len(res.values[0][0].losses) == 2
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        train.main(["--torch-device", "cpu", "--mesh", "1,1",
+                     *argv[2:]])
     # --health-out and --slo are ported: the record passes the validator
     import tempfile
     from repro_torch.obs.validate import validate

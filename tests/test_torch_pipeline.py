@@ -323,12 +323,28 @@ def test_runtime_refuses_what_it_cannot_run(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(NotImplementedError, match="multi-card slice"):
         runtime.spawn([call], stages=2, transport="nccl")
-    with pytest.raises(NotImplementedError, match="production-mesh slice"):
-        TMesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="production-mesh slice"):
-        TMesh.make_host_mesh()
-    with pytest.raises(RuntimeError, match="initialised process group"):
-        TMesh.make_edge_mesh(2, 1)
+    for make in (TMesh.make_production_mesh, TMesh.make_host_mesh,
+                 lambda: TMesh.make_edge_mesh(2, 1)):
+        with pytest.raises(RuntimeError, match="initialised process group"):
+            make()
+    # over a one-rank group: the host mesh is built, the production mesh
+    # names the world size it needs
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", store=dist.FileStore(f"{d}/s", 1),
+                                rank=0, world_size=1)
+        try:
+            host = TMesh.make_host_mesh(device_type="cpu")
+            assert host.mesh_dim_names == ("data",) and host.size() == 1
+            with pytest.raises(ValueError, match="needs 256 ranks; the "
+                                                 "group has 1"):
+                TMesh.make_production_mesh(device_type="cpu")
+            with pytest.raises(ValueError, match="needs 512 ranks"):
+                TMesh.make_production_mesh(multi_pod=True,
+                                           device_type="cpu")
+        finally:
+            dist.destroy_process_group()
 
 
 def test_a_rank_that_raises_fails_the_run():

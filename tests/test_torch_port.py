@@ -108,7 +108,10 @@ def test_package_imports_with_jax_blocked():
               "repro_torch.core.placement.fleet",
               "repro_torch.distributed", "repro_torch.distributed.pipeline",
               "repro_torch.distributed.runtime",
-              "repro_torch.distributed.stages", "repro_torch.launch.mesh"):
+              "repro_torch.distributed.stages", "repro_torch.launch.mesh",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.act_sharding",
+              "repro_torch.distributed.spmd", "repro_torch.launch.specs"):
         assert m in mods, m
     assert [f.stem for f in TWINS] == TWIN_NAMES
     twins = [str(f) for f in TWINS]
