@@ -246,6 +246,17 @@ Phases (any failure exits nonzero):
    each step's loss and pre-clip grad norm within phase 4's bf16 bars of
    the single-process step, 384 launches of each FA-2 kernel, each
    rank's ms a step, busy ms, collective ms by kind and peak memory.
+23. the dry run (``repro_torch.launch.{dryrun,step_analysis}``), on the
+   CPU by design as the JAX dry run is, in a child process (one thread,
+   lowest priority) started before phase 19 that runs beside phases
+   19-22, and says beside which: (a) phase 22 (b)'s step
+   (full-width opt-1.3b, 4 x 2048, no microbatches, no remat) traced on
+   a fake 2 x 2 process group, its collectives by kind (calls and bytes
+   sent in) equal to what phase 22's ranks counted in the same run;
+   (b) ``qwen2-7b x train_4k`` at full depth on the fake 16 x 16 group
+   (8 microbatches, remat "full"), its record and seconds; (c) (a)'s
+   argument and temp bytes beside phase 22's measured peak (reported,
+   not gated).
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -342,11 +353,13 @@ PREFILL_TOL = {"float32": 1e-3, "argmax_slack": 0.01}
 # new tokens); decode-vs-prefill agreement (batch, tokens: two full
 # chunks of 128 and a ragged one)
 MAMBA_PREFILL, MAMBA_DECODE, MAMBA_AGREE = (8, 4096), (8, 64, 32), (2, 300)
-# phase 10: mixtral-8x7b's depth on one card (16 of 32 layers: 46.96 GB of
-# bf16 weights), the prefill's tokens (past the 4096 window), and the KV
+# phase 10: mixtral-8x7b's depth on one card (8 of 32 layers, 23.48 GB of
+# bf16 weights: cut from 16, where one run on a slower host took 1,037.6 s
+# of phases, to keep a slow host's run under 1000 s; phase 23 itself waits
+# about 1.5 s), the prefill's tokens (past the 4096 window), and the KV
 # groups of layer 0's attention held to the plain version (its fp32
 # (S x S) scores for 2 of 8 groups take 2.1 GB)
-MIXTRAL_LAYERS, MIXTRAL_PREFILL, MIXTRAL_GROUPS = 16, 8192, 2
+MIXTRAL_LAYERS, MIXTRAL_PREFILL, MIXTRAL_GROUPS = 8, 8192, 2
 # phase 11: mixtral-8x7b trained at full width on one card.  2 of 32
 # layers: 3,164,688,384 params, whose bf16 weights and gradients take
 # 12.7 GB and fp32 AdamW moments 25.3 GB, 38.0 GB of state, and about
@@ -4982,7 +4995,9 @@ def mesh_train(torch, np, device):
               for k in kinds if k != "host_copy"}
         per_rank.append(dict(step_ms=med(run.wall_ms),
                              busy_ms=med(run.busy_ms), collective_ms=coll,
-                             peak_gb=run.peak_bytes / 1e9))
+                             peak_gb=run.peak_bytes / 1e9,
+                             calls=run.collective_calls[1:],
+                             bytes=run.collective_bytes[1:]))
         log(f"(b) rank {r} {tuple(run.coordinate)}: step "
             f"{med(run.wall_ms):.1f} ms (median of steps 2-{steps}), busy "
             f"{med(run.busy_ms):.1f} ms; collectives ms "
@@ -5012,6 +5027,151 @@ def phase_mesh(torch, np, device):
     log("phase 22 wall time by part (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
     return launches, timing
+
+
+# --------------------------------------------------------------------------- #
+# Phase 23: the dry run, on the CPU of the card's machine
+# --------------------------------------------------------------------------- #
+
+# (a) phase 22 (b)'s step on a fake group of phase 22's mesh
+DRY_COUNT = dict(arch="opt-1.3b", mesh=(2, 2), batch=MESH_TRAIN["batch"],
+                 seq=MESH_TRAIN["seq"])
+# (b) one production case at full depth on the fake 16 x 16 group
+DRY_CASE = ("qwen2-7b", "train_4k")
+# the traces run in a child process whose address space is bounded: a
+# trace that ran away would fail the child, not the machine
+DRY_AS_BYTES = 32 << 30
+
+
+def dry_trace(count, case):
+    """In the child: (a)'s trace of ``count`` on a fake group of its mesh
+    (its collectives and memory, and seconds), and (b)'s record of
+    ``case`` at full depth on the fake 16 x 16 group with its seconds and
+    the rule tables' parameter bytes a device."""
+    import os
+    import resource
+    resource.setrlimit(resource.RLIMIT_AS, (DRY_AS_BYTES, DRY_AS_BYTES))
+    # one core, yielded to the timed phases' processes when they want it
+    os.nice(19)
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import step_analysis as SA
+    from repro_torch.launch.mesh import fake_mesh
+    t0 = time.perf_counter()
+    with fake_mesh(count["mesh"], ("data", "model")) as mesh:
+        t = DR.trace_case(get_config(count["arch"]),
+                          InputShape("phase 22", count["seq"],
+                                     count["batch"], "train"),
+                          mesh, remat="none", microbatches=1)
+    out = {"coll": SA.collective_totals(t["counter"]),
+           "memory": t["memory"], "count_s": time.perf_counter() - t0}
+    arch, shape = case
+    t0 = time.perf_counter()
+    out["rec"] = DR.lower_case(arch, shape)
+    out["case_s"] = time.perf_counter() - t0
+    cfg = get_config(arch)
+    out["want_param_bytes"] = SH.sharding_report(
+        cfg, SH.AbstractMesh((16, 16), ("data", "model")),
+        SH._param_rules(cfg, None))["param_bytes_per_device"]
+    out["ended"] = time.time()
+    return out
+
+
+def dry_count(traced, mesh_timing):
+    """(a) Phase 22 (b)'s step traced on a fake 2 x 2 group (chunked
+    attention, which runs inside ``local_map`` as the kernels do and
+    moves no bytes): its collectives, calls and bytes sent in by kind,
+    against every step after the first of each of phase 22's ranks
+    (both counted by ``runtime.CollectiveCount``)."""
+    d = DRY_COUNT
+    coll = traced["coll"]
+    want = {"calls": coll["counts"], "bytes": coll["sent_bytes_by_op"]}
+    log(f"(a) {d['arch']} {d['batch']} x {d['seq']} traced on a fake "
+        f"{d['mesh']} group in {traced['count_s']:.1f} s: calls "
+        f"{want['calls']}, bytes sent in {want['bytes']}, result bytes "
+        f"{coll['bytes_by_op']}")
+    if mesh_timing is None:
+        fail("(a) compares with phase 22's ranks: run phase 22 in the same "
+             "call")
+    for r, rank in enumerate(mesh_timing):
+        for step, (calls, sent) in enumerate(zip(rank["calls"],
+                                                 rank["bytes"]), 2):
+            got = {"calls": calls, "bytes": sent}
+            if got != want:
+                fail(f"(a) rank {r} step {step} of phase 22 moved {got}, "
+                     f"the trace {want}")
+    log(f"(a) equal to each of phase 22's {len(mesh_timing)} ranks' steps "
+        f"2-{MESH_TRAIN['steps']}")
+
+
+def dry_case(traced):
+    """(b) ``DRY_CASE`` at full depth on the fake 16 x 16 group: its
+    record, with the parameter bytes a device against the rule tables'
+    report."""
+    arch, shape = DRY_CASE
+    rec = traced["rec"]
+    log(f"(b) {arch} x {shape} on the fake 16 x 16 group in "
+        f"{traced['case_s']:.1f} s (lower {rec['lower_s']} s, trace "
+        f"{rec['compile_s']} s): " + json.dumps(rec))
+    if rec["param_bytes_per_device"] != traced["want_param_bytes"]:
+        fail(f"(b) {rec['param_bytes_per_device']} parameter bytes a device, "
+             f"the rule tables {traced['want_param_bytes']}")
+    if not (rec["hlo_flops_per_device"] > 0
+            and rec["collectives"]["total_bytes"] > 0):
+        fail("(b) the record counts no FLOPs or no collective bytes")
+
+
+def start_dry_run():
+    """Start phase 23's traces in one child process on the host's CPU
+    (``dry_trace``, at the lowest priority, one thread): they need no
+    card and nothing of phases 19-22, so they run while those phases do.
+    Returns (pool, future, start time on the wall clock)."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(dry_trace, DRY_COUNT, DRY_CASE), time.time()
+
+
+def phase_dryrun(torch, np, started, mesh_timing, spans):
+    """Phase 23: (a) the fake 2 x 2 count against phase 22's ranks, (b)
+    one production case, (c) (a)'s memory beside phase 22's peak, from
+    the traces :func:`start_dry_run` started; and which phases (``spans``:
+    phase -> wall-clock start and end) ran beside the child."""
+    pool, future, t_start = started
+    parts = {}
+    t0 = time.perf_counter()
+    try:
+        traced = future.result()
+    finally:
+        pool.shutdown()
+    parts["waiting for the child"] = time.perf_counter() - t0
+    t_end = traced["ended"]
+    beside = {n: min(b, t_end) - max(a, t_start)
+              for n, (a, b) in sorted(spans.items())
+              if a < t_end and b > t_start}
+    log(f"(a)-(b) the child's traces took {traced['count_s']:.1f} + "
+        f"{traced['case_s']:.1f} s, ending {t_end - t_start:.1f} s after the "
+        "child started; it ran beside phases (s of each): " + ", ".join(
+            f"{n} {v:.1f}" for n, v in beside.items()))
+    dry_count(traced, mesh_timing)
+    dry_case(traced)
+    mem = traced["memory"]
+    peaks = [r["peak_gb"] for r in mesh_timing]
+    log(f"(c) the trace of (a): {mem['argument_bytes'] / 1e9:.2f} GB of "
+        f"arguments and a {mem['temp_bytes'] / 1e9:.2f} GB temp peak a "
+        f"rank ({(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f} GB "
+        f"together); phase 22 measured peaks of {peaks} GB on its ranks "
+        "(torch.cuda.max_memory_allocated: the kernels' attention, not the "
+        "trace's chunked one; reported, not gated)")
+    log("phase 23 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return traced["rec"]
 
 
 def _leaves(tree):
@@ -5050,7 +5210,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 23)) if args.phases is None
+    wanted = (set(range(1, 24)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -5062,12 +5222,14 @@ def main(argv=None) -> int:
 
     got = {}
     walls = {}
+    spans = {}
 
     def run(n, fn, *a):
         if n in wanted:
-            t = time.perf_counter()
+            t, t_wall = time.perf_counter(), time.time()
             got[n] = fn(*a)
             walls[n] = time.perf_counter() - t
+            spans[n] = (t_wall, time.time())
             torch.cuda.empty_cache()
 
     timer = Timer(torch, device)
@@ -5094,14 +5256,17 @@ def main(argv=None) -> int:
     run(16, phase_granite, torch, np, device)
     run(17, phase_whisper, torch, np, device)
     run(18, phase_qwen2_vl, torch, np, device)
+    dry = start_dry_run() if 23 in wanted else None
     run(19, phase_edge_fleet, torch, np, device)
     run(20, phase_fleet, torch, np, device)
     run(21, phase_pipeline, torch, np, device)
     run(22, phase_mesh, torch, np, device)
+    run(23, phase_dryrun, torch, np, dry, got[22][1] if 22 in got else None,
+        spans)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
     log(f"phases took {sum(walls.values()):.1f} s in all")
-    if wanted != set(range(1, 23)):
+    if wanted != set(range(1, 24)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 

@@ -31,6 +31,14 @@ table the Megatron way, each rank in its own rows of the vocab.
 of a sublayer are gathered as it runs, and their gradients reduce-
 scattered back), so that every product contracts whole rows and DTensor
 never turns an activation into a partial sum over ``data``.
+
+The decode step's caches are sharded on their sequence dim (dim 1) over
+``model``, and over ``data`` too when the batch cannot take it
+(``sharding.cache_shardings``): :func:`write_row` writes a token's row
+into the one block that holds its position, :func:`seq_block` gives a
+rank its block and where it starts, and :func:`merge_softmax` joins the
+ranks' partial softmax sums (flash-decoding's merge: a max, then two
+sums).  Nothing gathers the cache.
 """
 
 from __future__ import annotations
@@ -84,6 +92,21 @@ def is_sharded(x: Any) -> bool:
     """Whether ``x`` is a DTensor."""
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
+
+
+def mesh_ops():
+    """Under an ambient mesh, plain tensors mixed with DTensors count as
+    replicated (DTensor's ``implicit_replication``); else nothing."""
+    if current_mesh() is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def plain(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole as a plain tensor (a metric, the decode
+    step's logits); a plain one as is."""
+    return x.full_tensor() if is_sharded(x) else x
 
 
 def constrain(x: torch.Tensor, *parts: Part) -> torch.Tensor:
@@ -205,13 +228,84 @@ def head_parallel(fn: Callable, q, k, v, **kw: Any):
     return local(q, k, v)
 
 
+def scan_parallel(fn: Callable, x, dt, A, B, C):
+    """``fn(x, dt, A, B, C)``, an SSD scan over x (b, s, h, p), dt (b, s,
+    h), A (h,), B/C (b, s, g, n) DTensors, run on each rank's local
+    tensors as :func:`head_parallel` runs attention: the batch over the
+    mesh dims that shard x's rows, the heads over ``model`` where it
+    divides them and the groups are one or divide too (each rank's heads
+    then read their own groups), everything else whole.  The scan's
+    chunk loop runs on plain tensors, and moves nothing."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    H, G = x.shape[2], B.shape[2]
+    xp, ap, bp = [], [], []
+    for m, name in enumerate(mesh.mesh_dim_names):
+        size = mesh.size(m)
+        if x.placements[m] == Shard(0):
+            xp.append(Shard(0))
+            ap.append(Replicate())
+            bp.append(Shard(0))
+        elif name == "model" and H % size == 0 and (G == 1
+                                                     or G % size == 0):
+            xp.append(Shard(2))
+            ap.append(Shard(0))
+            bp.append(Shard(2) if G > 1 else Replicate())
+        else:
+            xp.append(Replicate())
+            ap.append(Replicate())
+            bp.append(Replicate())
+    args = [t.redistribute(mesh, p)
+            for t, p in ((x, xp), (dt, xp), (A, ap), (B, bp), (C, bp))]
+    ins = (xp, xp, ap, bp, bp)
+    local = local_map(_unmeshed(fn, {}), out_placements=xp,
+                      in_placements=ins,
+                      in_grad_placements=_grad_places(ins, xp),
+                      device_mesh=mesh)
+    return local(*args)
+
+
+def by_rows(fn: Callable, *xs, whole: Tuple = (), outs: int = 1):
+    """``fn(*xs, *whole)`` on each rank's own rows (dim 0) of the
+    DTensors ``xs``, the DTensors ``whole`` whole on every rank: the mesh
+    dims that shard ``xs[0]``'s rows shard every row input and the
+    ``outs`` outputs, the others hold them whole.  For per-row work whose
+    DTensor strategy would make a tensor of the global shape (``gather``'s
+    backward scatters into zeros of its input's global shape) or search
+    long for one (a product over rows sharded on two mesh dims and heads
+    on a third)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xs[0].device_mesh
+    place = _rows_place(xs[0])
+    full = [Replicate()] * mesh.ndim
+    args = tuple(x.redistribute(mesh, place) for x in xs) + tuple(
+        w.redistribute(mesh, full) for w in whole)
+    ins = (place,) * len(xs) + (full,) * len(whole)
+    return local_map(_unmeshed(fn, {}),
+                     out_placements=place if outs == 1 else (place,) * outs,
+                     in_placements=ins,
+                     in_grad_placements=_grad_places(ins, place),
+                     device_mesh=mesh)(*args)
+
+
+def _grad_places(ins: Tuple, split: List[Any]) -> Tuple:
+    """The gradient placements of ``local_map`` inputs placed ``ins``
+    when the ranks compute different parts on the mesh dims ``split``
+    shards: an input whole on such a dim gets each rank's share of its
+    gradient, a partial sum (``local_map`` would take it as whole)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple([Partial() if p == Replicate() and q != Replicate() else p
+                  for p, q in zip(place, split)] for place in ins)
+
+
 def _unmeshed(fn: Callable, kw: dict) -> Callable:
     @functools.wraps(fn)
-    def run(q, k, v):
+    def run(*args):
         with use_mesh(None):
-            return fn(q, k, v, **kw)
+            return fn(*args, **kw)
     return run
-
 
 
 def vocab_parallel_embedding(tokens, table):
@@ -254,3 +348,80 @@ def vocab_parallel_embedding(tokens, table):
                      in_placements=(i_place, t_place),
                      in_grad_placements=(i_place, grad),
                      device_mesh=mesh)(tokens, table)
+
+
+# --------------------------------------------------------------------------- #
+# Sequence-sharded decode caches
+# --------------------------------------------------------------------------- #
+
+def _rows_place(x) -> List[Any]:
+    """``x``'s sharding of its rows (dim 0), every other mesh dim
+    replicated: how per-row tensors sit beside ``x``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if p == Shard(0) else Replicate()
+            for p in x.placements]
+
+
+def rows_like(x, cache) -> torch.Tensor:
+    """``x``'s local rows placed as ``cache``'s batch rows, whole on
+    every other mesh dim (a plain ``x`` is taken as replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = cache.device_mesh
+    if not is_sharded(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return x.redistribute(mesh, _rows_place(cache)).to_local()
+
+
+def seq_block(cache) -> Tuple[torch.Tensor, int]:
+    """A cache DTensor's local block and the position its dim 1 starts
+    at (several mesh dims on the sequence split it in mesh order, the
+    first major)."""
+    from torch.distributed.tensor import Shard
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate()
+    k = 0
+    for m, p in enumerate(cache.placements):
+        if p == Shard(1):
+            k = k * mesh.size(m) + coord[m]
+    local = cache.to_local()
+    return local, k * local.shape[1]
+
+
+def write_row(cache, row, index: int) -> None:
+    """``cache[:, index] = row[:, 0]`` in place, ``row`` (B, 1, ...): on a
+    DTensor cache only the rank whose block holds ``index`` writes, from
+    its own rows of ``row`` (which every rank places alike: placing them
+    may be a collective)."""
+    if not is_sharded(cache):
+        cache[:, index:index + 1] = row.to(cache.dtype)
+        return
+    mine = rows_like(row, cache)[:, 0]
+    local, start = seq_block(cache)
+    if start <= index < start + local.shape[1]:
+        local[:, index - start] = mine.to(local.dtype)
+
+
+def merge_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                  cache) -> Any:
+    """Softmax-weighted sums over a sequence-sharded ``cache`` from each
+    rank's partial ones: ``m`` its rows' running max (B, ...), ``l`` the
+    sum of ``exp(s - m)``, ``o`` the ``exp(s - m)``-weighted values (B,
+    ..., Dv), all local and fp32.  The max is reduced over the mesh dims
+    that shard the sequence, each rank rescales, and the sums are
+    reduced: returns ``o / l`` as a DTensor over the cache's rows."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = cache.device_mesh
+    rows = _rows_place(cache)
+
+    def reduced(t, op):
+        place = [Partial(op) if p == Shard(1) else r
+                 for p, r in zip(cache.placements, rows)]
+        return DTensor.from_local(t, mesh, place, run_check=False) \
+            .redistribute(mesh, rows).to_local()
+    top = reduced(m, "max")
+    scale = torch.exp(m - top)
+    total = reduced(l * scale, "sum")
+    out = reduced(o * scale[..., None], "sum") / total[..., None]
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+

@@ -84,10 +84,47 @@ def _fa_wrappers():
 
 
 # the functional collectives DTensor issues, each taking its tensor first,
-# and the namespace's ops that move no data
-COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
-               "all_reduce", "all_reduce_", "all_to_all_single")
+# by the HLO kind they are counted under (the JAX package's dry-run
+# record names them so), and the namespace's ops that move no data
+KINDS = {"all_gather_into_tensor": "all-gather",
+         "reduce_scatter_tensor": "reduce-scatter",
+         "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+         "all_to_all_single": "all-to-all"}
+COLLECTIVES = tuple(KINDS)
 LOCAL_OPS = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class CollectiveCount:
+    """Collectives by HLO kind (:data:`KINDS`): ``calls``, ``bytes`` (each
+    call's input, what a rank sends in) and ``result_bytes``.  The one
+    count of :class:`Collectives` on the ranks and of the dry run's
+    ``launch.step_analysis.StepCounter`` on a fake group."""
+
+    def reset(self) -> None:
+        self.calls: Dict[str, int] = collections.Counter()
+        self.bytes: Dict[str, int] = collections.Counter()
+        self.result_bytes: Dict[str, int] = collections.Counter()
+
+    def add(self, name: str, x: torch.Tensor, out: torch.Tensor) -> str:
+        """Count one call of the functional collective ``name``; returns
+        its kind."""
+        kind = KINDS.get(name, name)
+        self.calls[kind] += 1
+        self.bytes[kind] += _nbytes(x)
+        self.result_bytes[kind] += _nbytes(out)
+        return kind
+
+    def totals(self) -> Dict[str, Any]:
+        """The JAX dry-run record's collectives: result bytes and calls by
+        kind and their total, with the bytes sent in by kind."""
+        return {"bytes_by_op": dict(self.result_bytes),
+                "counts": dict(self.calls),
+                "total_bytes": sum(self.result_bytes.values()),
+                "sent_bytes_by_op": dict(self.bytes)}
 
 
 class HostSlots:
@@ -178,9 +215,10 @@ class HostSlots:
 _WRAPPERS = (DTensor, AsyncCollectiveTensor)
 
 
-class Collectives(TorchDispatchMode):
-    """DTensor's collectives on a rank, counted by kind (calls, ms, bytes
-    sent in), each waited for where it is issued.  With ``slots`` (the
+class Collectives(TorchDispatchMode, CollectiveCount):
+    """DTensor's collectives on a rank, counted by HLO kind (ms, and
+    :class:`CollectiveCount`'s calls, bytes sent in and result bytes),
+    each waited for where it is issued.  With ``slots`` (the
     ``host`` transport) each is staged through the ranks' shared host
     memory (:class:`HostSlots`), on the card and the CPU alike, and a
     collective of another kind raises: nothing is left unstaged.  On a
@@ -194,9 +232,8 @@ class Collectives(TorchDispatchMode):
         self.reset()
 
     def reset(self) -> None:
+        CollectiveCount.reset(self)
         self.ms: Dict[str, float] = collections.defaultdict(float)
-        self.calls: Dict[str, int] = collections.Counter()
-        self.bytes: Dict[str, int] = collections.Counter()
         if self.slots is not None:
             self.slots.copy_s = 0.0
 
@@ -228,9 +265,7 @@ class Collectives(TorchDispatchMode):
                 func(*args, **kwargs))
         if on_card:
             torch.cuda.synchronize(x.device)
-        self.ms[name] += 1e3 * (time.perf_counter() - t0)
-        self.calls[name] += 1
-        self.bytes[name] += x.numel() * x.element_size()
+        self.ms[self.add(name, x, out)] += 1e3 * (time.perf_counter() - t0)
         if self.slots is not None:
             self.ms["host_copy"] = 1e3 * self.slots.copy_s
         return out

@@ -290,13 +290,16 @@ def shard_params(params: PyTree, cfg: ModelConfig, mesh,
     """Full parameter tensors (the same on every rank: bridged from the
     JAX package or drawn from one seed) -> DTensors placed by
     :func:`param_shardings`."""
-    specs = param_shardings(cfg, mesh, rules)
+    return shard_tree(params, param_shardings(cfg, mesh, rules), mesh)
 
-    def walk(p: PyTree, s: PyTree) -> PyTree:
-        if isinstance(p, dict):
-            return {k: walk(p[k], s[k]) for k in p}
-        return shard_tensor(p.detach(), mesh, s)
-    return walk(params, specs)
+
+def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """:func:`shard_tensor` of every leaf of ``tree`` (the same full
+    tensors on every rank) by the placement tuple at its path in
+    ``specs``."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(tree[k], specs[k], mesh) for k in tree}
+    return shard_tensor(tree.detach(), mesh, specs)
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh

@@ -11,7 +11,10 @@ ambient mesh (``act_sharding.use_mesh``): DTensor inserts the weight
 all-gathers, the reductions of partial sums and the vocab gather of the
 loss; the FA-2 kernels run on each rank's own rows and heads.
 :func:`evaluate` returns the loss and the full gradient tree;
-:func:`train` runs the port's trainer under the mesh.
+:func:`step` runs one train step and counts the rank's collectives
+(``runtime.Collectives``); :func:`train` runs the train step under the
+mesh; :func:`generate` decodes greedily through a cache sharded by
+``sharding.cache_shardings``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import runtime, sharding
-from repro_torch.distributed.act_sharding import use_mesh
+from repro_torch.distributed.act_sharding import mesh_ops, plain, use_mesh
 from repro_torch.models import model as M
 from repro_torch.models import params as PM
 from repro_torch.models.config import ModelConfig
@@ -64,10 +67,10 @@ def evaluate(mesh, cfg: ModelConfig, batch: Dict[str, Any], *,
     sp = _params(cfg, mesh, params, seed, dev)
     b = _batch(batch, mesh, dev)
     leaves = TS._trainable(sp) if grads else []
-    with use_mesh(mesh), TS.mesh_ops():
+    with use_mesh(mesh), mesh_ops():
         with torch.set_grad_enabled(grads):
             loss, _ = M.forward_train(sp, cfg, b)
-        out: Dict[str, Any] = {"loss": float(TS.plain(loss.detach()))}
+        out: Dict[str, Any] = {"loss": float(plain(loss.detach()))}
         if grads:
             g = torch.autograd.grad(loss, leaves)
             g = [TS.placed_like(a, p).to_local().cpu()
@@ -123,6 +126,37 @@ def join_shards(values: List[Dict[str, Any]], cfg: ModelConfig,
 # Training
 # --------------------------------------------------------------------------- #
 
+def step(mesh, cfg: ModelConfig, opt_cfg, batch: Dict[str, Any], *,
+         params: Optional[PyTree] = None, seed: int = 0,
+         microbatches: int = 1, remat: str = "none",
+         attn_impl: str = "kernel", device: DeviceLike = None
+         ) -> Dict[str, Any]:
+    """One AdamW step of ``make_train_step`` on ``batch`` (the whole
+    batch) from ``params`` (``init_params(seed)`` by default): {"loss",
+    "grad_norm", "shards" (the rank's blocks of the updated parameters on
+    the CPU, for :func:`join_shards`), "coordinate", "collectives" (the
+    step's collectives on this rank inside :func:`runtime.spawn`, the
+    record ``runtime.CollectiveCount.totals`` makes, else None)}."""
+    from repro_torch.optim import adamw
+    dev = resolve_device(device)
+    sp = _params(cfg, mesh, params, seed, dev)
+    opt = adamw.init_opt_state(sp, opt_cfg)
+    b = _batch(batch, mesh, dev)
+    step_fn = TS.make_train_step(cfg, opt_cfg, remat=remat,
+                                 attn_impl=attn_impl,
+                                 microbatches=microbatches)
+    coll = runtime.collectives()
+    if coll is not None:
+        coll.reset()
+    with use_mesh(mesh):
+        sp, opt, mets = step_fn(sp, opt, b)
+    return {"loss": float(mets["loss"]),
+            "grad_norm": float(mets["grad_norm"]),
+            "shards": PM.tree_map(lambda p: p.to_local().detach().cpu(), sp),
+            "coordinate": list(mesh.get_coordinate()),
+            "collectives": None if coll is None else coll.totals()}
+
+
 @dataclass
 class MeshRun:
     """One rank's training run: the step losses and pre-clip grad norms
@@ -144,10 +178,12 @@ class MeshRun:
 
 def train(mesh, cfg: ModelConfig, opt_cfg, *, steps: int, batch: int,
           seq_len: int, params: Optional[PyTree] = None, seed: int = 0,
-          device: DeviceLike = None) -> MeshRun:
-    """``steps`` AdamW steps of the plain train step on the mesh, on
-    batches from :func:`repro_torch.data.pipeline.make_batch_fn` with
-    ``seed`` (every rank draws the same ones), from ``params`` or
+          microbatches: int = 1, remat: str = "none",
+          attn_impl: str = "kernel", device: DeviceLike = None) -> MeshRun:
+    """``steps`` AdamW steps of the train step (``microbatches``,
+    ``remat``, ``attn_impl`` as ``make_train_step`` takes them) on the
+    mesh, on batches from :func:`repro_torch.data.pipeline.make_batch_fn`
+    with ``seed`` (every rank draws the same ones), from ``params`` or
     ``init_params(seed)``: the single-process trainer's weights and
     batches for the same seed."""
     from repro_torch.data.pipeline import make_batch_fn
@@ -156,7 +192,9 @@ def train(mesh, cfg: ModelConfig, opt_cfg, *, steps: int, batch: int,
     on_card = dev.type == "cuda"
     sp = _params(cfg, mesh, params, seed, dev)
     opt = adamw.init_opt_state(sp, opt_cfg)
-    step_fn = TS.make_train_step(cfg, opt_cfg)
+    step_fn = TS.make_train_step(cfg, opt_cfg, remat=remat,
+                                 attn_impl=attn_impl,
+                                 microbatches=microbatches)
     data = make_batch_fn(cfg, batch, seq_len, seed)
     run = MeshRun(coordinate=list(mesh.get_coordinate()))
     if on_card:
@@ -204,3 +242,38 @@ def summary(run: MeshRun) -> str:
     if run.peak_bytes:
         line += f", peak {run.peak_bytes / 1e9:.2f} GB"
     return line
+
+
+# --------------------------------------------------------------------------- #
+# Decoding
+# --------------------------------------------------------------------------- #
+
+def generate(mesh, cfg: ModelConfig, prompt: Any, max_new: int, *,
+             params: Optional[PyTree] = None, seed: int = 0,
+             cache_len: Optional[int] = None, enc: Any = None,
+             device: DeviceLike = None) -> Dict[str, Any]:
+    """``serve.step.greedy_generate`` of ``prompt`` (B, S) on the mesh,
+    every step ``decode_step`` on DTensors: the dense cache (K/V in the
+    config's compute dtype) placed by ``sharding.cache_shardings``,
+    batch-sharded and sequence-sharded over ``model``, and over ``data``
+    too when the batch does not divide; ``enc`` (B, T, d) warms the
+    cross-attention caches.  Returns {"ids": (B, S + max_new) numpy,
+    "logits": each step's (B, vocab) logits as numpy}."""
+    from repro_torch.serve.step import greedy_generate
+    dev = resolve_device(device)
+    sp = _params(cfg, mesh, params, seed, dev)
+    prompt = torch.as_tensor(np.asarray(prompt)).to(dev)
+    B, S = prompt.shape
+    full = M.init_cache(cfg, B, cache_len or (S + max_new),
+                        getattr(torch, cfg.compute_dtype), device=dev)
+    cache = sharding.shard_tree(
+        full, sharding.cache_shardings(cfg, mesh, full, B), mesh)
+    del full
+    if enc is not None:
+        enc = torch.as_tensor(np.asarray(enc)).to(dev)
+    logits: List[torch.Tensor] = []
+    with use_mesh(mesh):
+        ids = greedy_generate(sp, cfg, prompt, max_new, enc=enc, cache=cache,
+                              logits=logits)
+    return {"ids": ids.cpu().numpy(),
+            "logits": [x.float().cpu().numpy() for x in logits]}

@@ -30,6 +30,20 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+def refuse_abstract(t, kernel: str, instead: str) -> None:
+    """Raise when ``t`` is a fake or ``meta`` tensor (a dry run's trace):
+    it has no data for the kernel, or for its plain version, to read, and
+    a wrapper never swaps in another path unasked.  ``instead`` names the
+    path that traces."""
+    from torch._subclasses.fake_tensor import is_fake
+    fake = is_fake(t)
+    if t.device.type == "meta" or fake:
+        raise ValueError(
+            f"{kernel}: tensors on {t.device}{' (fake)' if fake else ''}, "
+            f"not CUDA/CPU tensors with data to read: trace {instead} "
+            "instead")
+
+
 def find_nvcc() -> str:
     """``nvcc`` from ``CUDA_HOME``, then ``PATH``, then the toolkit
     directory PyTorch itself found; raises when there is none."""

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import load_library, refuse_abstract
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
 BLOCKS_PER_SM = 2               # the fewest split blocks an SM gets
@@ -205,6 +205,8 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     under the split kernel's instantiation the library reports, named as
     the profiler names it); CPU tensors run the plain version; anything
     else raises."""
+    refuse_abstract(q, "the flash-decode kernel",
+                    'attn_impl="gather" (paged_attention_reference)')
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, k_pages, v_pages, block_tables, seq_lens, window=window,

@@ -45,7 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import load_library, refuse_abstract
 from repro_torch.kernels.flash_attention.ref import NEG_INF, visible
 
 # (D, Dv) pairs the kernels are instantiated for (by_head_dims in
@@ -278,6 +278,7 @@ def _empty_rows(t: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def _device(q: torch.Tensor) -> str:
+    refuse_abstract(q, "the FA-2 kernels", 'attn_impl="chunked"')
     _check(q.device.type in ("cpu", "cuda"),
            f"tensors on {q.device}, not CUDA/CPU")
     return q.device.type

@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as Fn
 
-from repro_torch.kernels.build import c_args, load_library
+from repro_torch.kernels.build import c_args, load_library, refuse_abstract
 from repro_torch.kernels.quant8 import ref
 
 BLOCKS = (128, 256, 512)
@@ -53,6 +53,8 @@ def quantize_blocks(x: torch.Tensor, *, block: int = 256
     (rows,)), rows = ceil(N / block); the tail past N counts as 0."""
     n = x.shape[0]
     rows = -(-n // block)
+    refuse_abstract(x, "the int8 quantize kernel",
+                    "quant8.ref.quantize_reference")
     if x.device.type == "cpu":
         return ref.quantize_reference(Fn.pad(x, (0, rows * block - n)),
                                       block)
@@ -76,6 +78,8 @@ def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, *,
                       ) -> torch.Tensor:
     """q: (rows*block,) int8, scale: (rows,) fp32 -> (rows*block,)
     values in ``dtype`` (fp32 or bf16 on the card)."""
+    refuse_abstract(q, "the int8 dequantize kernel",
+                    "quant8.ref.dequantize_reference")
     if q.device.type == "cpu":
         return ref.dequantize_reference(q, scale, block, dtype)
     _check_cuda(q, "dequantize_blocks", block)

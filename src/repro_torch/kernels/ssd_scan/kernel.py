@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import load_library, refuse_abstract
 from repro_torch.kernels.ssd_scan.ref import exp_fp64
 
 MAX_DIM = 128                 # p, n and the chunk
@@ -175,6 +175,8 @@ def ssd_bhcq(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "under torch.no_grad()/inference_mode(), or use ssd_reference "
             "to differentiate")
     _check_shapes(x, dt, A, B, C, chunk)
+    refuse_abstract(x, "the SSD-scan kernel",
+                    "use_kernel=False (the plain ssd_reference)")
     _check(x.device.type in ("cpu", "cuda"),
            f"tensors on {x.device}, not CUDA/CPU")
     if x.device.type == "cpu":

@@ -7,11 +7,18 @@ process group the caller initialised, one process a device
 production ``(data, model)`` mesh, the host's 1-D data mesh, any
 ``(data, model)`` shape the launcher's ``--mesh`` asks for, and the
 DT-FM pipeline's ``(data, stage)`` edge mesh.
+
+:func:`fake_mesh` is the dry run's mesh (the JAX package's 512
+placeholder devices): a ``FakeStore`` process group of every rank of the
+mesh, seen from rank 0 in this one process, whose collectives move
+nothing.  It is a CPU mesh by design, and it destroys its group on exit.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import math
+from typing import Iterator, Tuple
 
 import torch.distributed as dist
 
@@ -45,13 +52,42 @@ def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], *,
     return init_device_mesh(device_type, shape, mesh_dim_names=tuple(names))
 
 
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """The 16 x 16 = 256-device ``(data, model)`` mesh, or 2 x 16 x 16 =
     512 devices as ``(pod, data, model)``."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, names = PRODUCTION[multi_pod]
     return make_mesh(shape, names, device_type=device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]
+              ) -> Iterator[object]:
+    """A CPU mesh of ``shape`` named ``names`` over a fake process group of
+    ``prod(shape)`` ranks, this process rank 0; the group is initialised
+    on entry and destroyed on exit, so nothing of it outlives the block.
+    Its collectives return at once and move no data: what runs on it is
+    traced (under ``FakeTensorMode``), not computed."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a fake mesh needs this process to have no "
+                           "process group of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield make_mesh(shape, names, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def fake_production_mesh(*, multi_pod: bool = False):
+    """:func:`fake_mesh` of the production shape: 16 x 16 ``(data,
+    model)``, or 2 x 16 x 16 ``(pod, data, model)``."""
+    return fake_mesh(*PRODUCTION[multi_pod])
 
 
 def make_edge_mesh(num_stages: int, data_parallel: int = 1):

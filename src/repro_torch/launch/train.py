@@ -23,13 +23,13 @@ Mesh: ``--mesh d,m`` trains on a ``(data, model)`` mesh of d x m ranks
 (``repro_torch.distributed.runtime.spawn``, one process a device, their
 collectives through host memory they share; on the card all of them
 share it): FSDP over ``data`` and Megatron tensor parallelism over
-``model`` (``distributed.sharding``), the plain train step on DTensors
-(``distributed.spmd.train``).  It prints each rank's ms a step, its
-collectives by kind and its peak memory.  ``--host-devices N`` is the
-CPU rank count and must equal d x m; alone it changes nothing.  Local
-SGD, checkpoints, the health and telemetry records, microbatches, remat
-and attention other than the kernels are not yet ported to the mesh
-(``ROADMAP.md`` queue 1) and raise with it.
+``model`` (``distributed.sharding``), the train step on DTensors with
+``--microbatches``, ``--remat`` and ``--attn-impl`` (``distributed.
+spmd.train``).  It prints each rank's ms a step, its collectives by kind
+and its peak memory.  ``--host-devices N`` is the CPU rank count and
+must equal d x m; alone it changes nothing.  Local SGD, async,
+checkpoints and the health and telemetry records are not yet ported to
+the mesh (``ROADMAP.md`` queue 1) and raise with it.
 
 Health: ``--health-out health.jsonl`` attaches the streaming detectors
 (stragglers / link degradation / loss spikes — the async quorum then
@@ -261,13 +261,14 @@ def main(argv=None) -> None:
 
 
 # what --mesh does not run yet, and the ROADMAP.md item that takes it up
-MESH_QUEUED = ("ROADMAP.md queue 1 item 4 (--mesh with local SGD, "
-               "checkpoints, the records and the step's options, after the "
-               "dry run)")
+MESH_QUEUED = ("ROADMAP.md queue 1 item 4 (--mesh with local SGD, async, "
+               "checkpoints and the trace, metrics, health and SLO "
+               "records)")
 
 
 def _train_on_mesh(args):
-    """``--mesh``: the plain train step on a (data, model) mesh of ranks.
+    """``--mesh``: the train step (with ``--microbatches``, ``--remat``
+    and ``--attn-impl``) on a (data, model) mesh of ranks.
     Returns the :class:`~repro_torch.distributed.runtime.SpawnResult`
     (one ``spmd.MeshRun`` a rank)."""
     import functools
@@ -284,10 +285,7 @@ def _train_on_mesh(args):
                "--checkpoint-dir": args.checkpoint_dir,
                "--health-out": args.health_out, "--slo": args.slo,
                "--trace-out": args.trace_out,
-               "--metrics-out": args.metrics_out,
-               "--microbatches": args.microbatches != 1,
-               "--remat": args.remat != "none",
-               "--attn-impl": args.attn_impl != "kernel"}
+               "--metrics-out": args.metrics_out}
     for flag, given in not_yet.items():
         if given:
             raise NotImplementedError(f"--mesh with {flag} waits for "
@@ -314,7 +312,9 @@ def _train_on_mesh(args):
                         decay_steps=args.steps)     # the trainer's default
     call = functools.partial(spmd.train, cfg=cfg, opt_cfg=opt_cfg,
                              steps=args.steps, batch=args.batch,
-                             seq_len=args.seq)
+                             seq_len=args.seq,
+                             microbatches=args.microbatches,
+                             remat=args.remat, attn_impl=args.attn_impl)
     res = runtime.spawn([call], shape=dims, names=names, transport="host",
                         device=dev)
     runs = res.values[0]

@@ -20,12 +20,16 @@ from __future__ import annotations
 
 import functools
 import itertools
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.act_sharding import BATCH, constrain
+from repro_torch.distributed.act_sharding import (BATCH, constrain,
+                                                  is_sharded, merge_softmax,
+                                                  rows_like, seq_block,
+                                                  write_row)
 from repro_torch.kernels.flash_attention.chunked import (chunked_attention,
                                                          sharded_heads)
 from repro_torch.kernels.flash_attention.decode import (
@@ -256,19 +260,52 @@ def project_cross_kv(p: Dict[str, Any], enc: torch.Tensor, cfg: ModelConfig
     return k, v
 
 
+def decode_attention_sharded(q: torch.Tensor, cache_k, cache_v, *,
+                             index: Optional[int] = None,
+                             window: int = 0) -> Any:
+    """One query token (B, 1, H, D) against DTensor caches (B, T, K, D)
+    sharded on T (and on B where the batch takes it): each rank scores
+    its own block in fp32, positions ``<= index`` (and inside
+    ``window``) when ``index`` is given, all of them otherwise, and the
+    ranks' partial softmax sums are merged (``act_sharding.
+    merge_softmax``).  The cache is never gathered.  Returns (B, 1, H,
+    Dv) in q's dtype, a DTensor over the cache's rows."""
+    qf = rows_like(q, cache_k).float()
+    k, start = seq_block(cache_k)
+    v, _ = seq_block(cache_v)
+    B, _, H, D = qf.shape
+    T, K = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgd,btkd->bkgt", qf.reshape(B, K, H // K, D),
+                     k.float()) / math.sqrt(D)
+    if index is not None:
+        ok = visible(1, T, causal=False, window=window,
+                     q_offset=index - start, device=s.device)[0]
+        ok &= torch.arange(start, start + T, device=s.device) <= index
+        s = s.masked_fill(~ok, NEG_INF)
+    m = s.amax(dim=-1)
+    w = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgt,btkd->bkgd", w, v.float())
+    out = merge_softmax(m.reshape(B, H), w.sum(dim=-1).reshape(B, H),
+                        o.reshape(B, H, -1), cache_k)
+    return out[:, None].to(q.dtype)
+
+
 def xattn_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                  cache_k: torch.Tensor, cache_v: torch.Tensor
                  ) -> torch.Tensor:
     """Cross-attention decode against the encoder K/V projected once at
     cache-warm time (``model.warm_cross_cache``): the plain fp32
     ``attention_core``, as in the JAX package, which runs no kernel
-    here."""
+    here (on DTensor caches, :func:`decode_attention_sharded`)."""
     h = norm(p["norm"], x, cfg)
     q = _proj_heads(h, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    out = attention_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                         causal=False)
+    if is_sharded(cache_k):
+        out = decode_attention_sharded(q, cache_k, cache_v)
+    else:
+        out = attention_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                             causal=False)
     return x + _out_proj(out, p["wo"])
 
 
@@ -280,13 +317,19 @@ def attn_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     (B,T,K,D).  The new K/V row is written at ``index`` IN PLACE (the JAX
     package's ``dynamic_update_slice`` returned a new cache); the
     attention is the plain fp32 ``attention_core`` over positions
-    ``<= index``, as in the JAX package.  Returns (y, cache_k, cache_v)."""
+    ``<= index``, as in the JAX package.  DTensor caches sharded on T
+    take :func:`decode_attention_sharded`.  Returns (y, cache_k,
+    cache_v)."""
     h = norm(p["norm"], x, cfg)
     q, k, v = _project_qkv(p, h, cfg)
     q = positional(q, positions, cfg)
     k = positional(k, positions, cfg)
-    cache_k[:, index:index + 1] = k.to(cache_k.dtype)
-    cache_v[:, index:index + 1] = v.to(cache_v.dtype)
+    write_row(cache_k, k, index)
+    write_row(cache_v, v, index)
+    if is_sharded(cache_k):
+        out = decode_attention_sharded(q, cache_k, cache_v, index=index,
+                                       window=cfg.sliding_window)
+        return x + _out_proj(out, p["wo"]), cache_k, cache_v
     valid = torch.full((x.shape[0],), index + 1, device=x.device)
     out = attention_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                          causal=False, window=cfg.sliding_window,

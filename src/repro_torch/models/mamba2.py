@@ -11,12 +11,17 @@ plain oracle ``ssd_reference``; the decode step runs the recurrence
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.act_sharding import (BATCH, REPLICATED,
+                                                  axis_extent, by_rows,
+                                                  constrain, is_sharded,
+                                                  scan_parallel)
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.models.config import ModelConfig
@@ -65,29 +70,41 @@ def ssm_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                 use_kernel: bool = True) -> torch.Tensor:
     """Full-sequence Mamba2 sublayer.  x: (B,S,d).  ``use_kernel`` runs the
     scan through ``ops.ssd`` (the CUDA kernel, which has no backward),
-    else through ``ssd_reference``."""
+    else through ``ssd_reference``; on DTensors each rank scans its own
+    rows and heads (``act_sharding.scan_parallel``)."""
     ssm = cfg.ssm
     Bsz, S, d = x.shape
     nh = ssm.num_heads(d)
 
     h = norm(p["norm"], x, cfg)
-    z, xin, Bp, Cp, dt = _project(p, h)
-    xin = F.silu(_causal_conv(xin, p["conv_x"]))
-    Bp = F.silu(_causal_conv(Bp, p["conv_B"]))
-    Cp = F.silu(_causal_conv(Cp, p["conv_C"]))
+    # the mixer's inputs pinned (and so their gradients): channels and
+    # heads over model, B and C whole, the sequence never split
+    heads = _heads_part(nh)
+    z, xin, Bp, Cp, dt = (constrain(t, BATCH, None, part) for t, part in zip(
+        _project(p, h), ("model", heads, REPLICATED, REPLICATED, "model")))
+    xin = constrain(F.silu(_causal_conv(xin, p["conv_x"])), BATCH, None,
+                    heads)
+    Bp = constrain(F.silu(_causal_conv(Bp, p["conv_B"])), BATCH, None,
+                   REPLICATED)
+    Cp = constrain(F.silu(_causal_conv(Cp, p["conv_C"])), BATCH, None,
+                   REPLICATED)
 
     xh = xin.reshape(Bsz, S, nh, ssm.head_dim)
     Bh = Bp.reshape(Bsz, S, ssm.n_groups, ssm.d_state)
     Ch = Cp.reshape(Bsz, S, ssm.n_groups, ssm.d_state)
     A = -ssd_ref.exp_fp64(p["A_log"].float())
 
-    if use_kernel:
-        y = ssd(xh, dt, A, Bh, Ch, ssm.chunk_size)
+    scan = ssd if use_kernel else ssd_ref.ssd_reference
+    scan = functools.partial(scan, chunk_size=ssm.chunk_size)
+    if is_sharded(xh):            # each rank scans its own rows and heads
+        y = scan_parallel(scan, xh, dt, A, Bh, Ch)
     else:
-        y = ssd_ref.ssd_reference(xh, dt, A, Bh, Ch, ssm.chunk_size)
+        y = scan(xh, dt, A, Bh, Ch)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(Bsz, S, ssm.d_inner(d))
-    y = rms_gate_norm(p["gate_norm"], y, z, cfg.norm_eps)
+    # column-parallel into the out projection, as Megatron lays out an MLP
+    y = constrain(rms_gate_norm(p["gate_norm"], y, z, cfg.norm_eps), BATCH,
+                  None, "model")
     return x + y @ p["out"].to(x.dtype)
 
 
@@ -111,6 +128,17 @@ def init_ssm_cache(cfg: ModelConfig, batch: int,
             "conv_C": zeros(batch, K - 1, gs)}
 
 
+def _heads_part(nh: int):
+    """The x channels' part under a mesh: over ``model`` where it divides
+    the heads, so that each rank's channels are whole heads, else whole
+    (the split into heads then needs no uneven reshape)."""
+    return "model" if nh % axis_extent("model") == 0 else REPLICATED
+
+
+def _step(state, x, dt, B, C, A):
+    return ssd_ref.ssd_step(state, x, dt, A, B, C)
+
+
 def ssm_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                cache: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -128,12 +156,17 @@ def ssm_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     Cp, conv_C = _conv_step(cache["conv_C"].to(h.dtype), Cp, p["conv_C"])
     xin, Bp, Cp = F.silu(xin), F.silu(Bp), F.silu(Cp)
 
-    xh = xin.reshape(Bsz, nh, ssm.head_dim)
+    xh = constrain(xin, BATCH, _heads_part(nh)).reshape(Bsz, nh,
+                                                        ssm.head_dim)
     Bh = Bp.reshape(Bsz, ssm.n_groups, ssm.d_state)
     Ch = Cp.reshape(Bsz, ssm.n_groups, ssm.d_state)
     A = -ssd_ref.exp_fp64(p["A_log"].float())
 
-    y, state = ssd_ref.ssd_step(cache["state"], xh, dt, A, Bh, Ch)
+    if is_sharded(xh):              # each rank steps its own rows
+        y, state = by_rows(_step, cache["state"], xh, dt, Bh, Ch, whole=(A,),
+                           outs=2)
+    else:
+        y, state = ssd_ref.ssd_step(cache["state"], xh, dt, A, Bh, Ch)
     y = y + p["D"].to(y.dtype)[None, :, None] * xh
     y = y.reshape(Bsz, 1, ssm.d_inner(d))
     y = rms_gate_norm(p["gate_norm"], y, z[:, None, :], cfg.norm_eps)

@@ -17,12 +17,16 @@ pinned to (batch, heads) before the attention, as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.act_sharding import BATCH, constrain
+from repro_torch.distributed.act_sharding import (BATCH, constrain,
+                                                  is_sharded, merge_softmax,
+                                                  rows_like, seq_block,
+                                                  write_row)
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_out_proj, _proj_heads, apply_rope,
@@ -93,6 +97,27 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
                                   dtype=dtype, device=dev)}
 
 
+def _absorbed_sharded(q_abs, q_rope, latent_c, k_rope_c, index: int,
+                      qk_head_dim: int):
+    """The absorbed attention over DTensor caches sharded on T: each rank
+    scores its own block of the latent and rope caches, and the partial
+    softmax sums of the latent are merged.  Returns (B, H, r) fp32, a
+    DTensor over the cache's rows."""
+    lat, start = seq_block(latent_c)
+    kr, _ = seq_block(k_rope_c)
+    lat = lat.float()
+    s = (torch.einsum("bhr,btr->bht", rows_like(q_abs, latent_c).float(),
+                      lat)
+         + torch.einsum("bshk,btk->bht", rows_like(q_rope, latent_c).float(),
+                        kr.float())) / math.sqrt(qk_head_dim)
+    pos = torch.arange(start, start + lat.shape[1], device=s.device)
+    s = torch.where(pos <= index, s, NEG_INF)
+    mx = s.amax(dim=-1)
+    w = torch.exp(s - mx[..., None])
+    return merge_softmax(mx, w.sum(dim=-1),
+                         torch.einsum("bht,btr->bhr", w, lat), latent_c)
+
+
 def mla_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                cache: Dict[str, torch.Tensor], index: int,
                positions: torch.Tensor
@@ -100,7 +125,10 @@ def mla_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     """Single-token decode with the absorbed latent cache.  x: (B, 1, d).
     The token's latent and rope key are written at ``index`` IN PLACE (the
     JAX package's ``dynamic_update_slice`` returned a new cache); scores
-    and softmax in fp32 over positions ``<= index``.  Returns (y, cache)."""
+    and softmax in fp32 over positions ``<= index``.  On DTensor caches
+    sharded on T each rank scores its own block and the partial softmax
+    sums are merged (``act_sharding.merge_softmax``).  Returns (y,
+    cache)."""
     m = cfg.mla
     h = norm(p["norm"], x, cfg)
     q_nope, q_rope = _queries(p, h, cfg)                 # (B, 1, H, ·)
@@ -109,13 +137,18 @@ def mla_decode(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     k_rope_t = apply_rope(k_rope_t[:, :, None, :], positions,
                           cfg.rope_theta)[:, :, 0, :]
     latent_c, k_rope_c = cache["latent"], cache["k_rope"]
-    latent_c[:, index:index + 1] = latent_t.to(latent_c.dtype)
-    k_rope_c[:, index:index + 1] = k_rope_t.to(k_rope_c.dtype)
+    write_row(latent_c, latent_t, index)
+    write_row(k_rope_c, k_rope_t, index)
 
     w_k, w_v = p["wkv_b"].to(x.dtype).split(
         [m.qk_nope_head_dim, m.v_head_dim], dim=-1)     # (r,H,nope),(r,H,v)
     # absorb W^UK into the query: a latent-space query (B, H, r)
     q_abs = torch.einsum("bshk,rhk->bhr", q_nope, w_k)
+    if is_sharded(latent_c):
+        out_lat = _absorbed_sharded(q_abs, q_rope, latent_c, k_rope_c,
+                                    index, m.qk_head_dim)
+        out = torch.einsum("bhr,rhv->bhv", out_lat.to(x.dtype), w_v)
+        return x + _out_proj(out, p["wo"])[:, None, :], cache
     lat = latent_c.float()
     scores = (torch.einsum("bhr,btr->bht", q_abs.float(), lat)
               + torch.einsum("bshk,btk->bht", q_rope.float(),

@@ -22,8 +22,8 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.act_sharding import (BATCH, REPLICATED,
-                                                  constrain, gathered,
-                                                  is_sharded,
+                                                  by_rows, constrain,
+                                                  gathered, is_sharded,
                                                   vocab_parallel_embedding)
 from repro_torch.models import params as P
 from repro_torch.models.blocks import (PAGED_SUBLAYERS, _sublayer_train,
@@ -60,17 +60,23 @@ def lm_logits(params: PyTree, cfg: ModelConfig,
     return logits
 
 
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return logits.gather(-1, labels[..., None])[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean CE in fp32.  labels == -1 are ignored.  Returns (loss,
     number of counted tokens).  Vocab-sharded logits (a DTensor) are
     gathered over the vocab first: the log-normaliser needs every row
-    whole (a known cost of the mesh, not of one device)."""
+    whole (a known cost of the mesh, not of one device); each rank then
+    picks its own rows' gold logits (``act_sharding.by_rows``)."""
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
     logits = constrain(logits.float(), BATCH, None, REPLICATED)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None])[..., 0]
+    gold = (by_rows(_gold, logits, safe) if is_sharded(logits)
+            else _gold(logits, safe))
     nll = (logz - gold) * mask
     denom = mask.sum().clamp_min(1.0)
     return nll.sum() / denom, denom

@@ -13,11 +13,14 @@ architectures the paged engine cannot hold.  Both run under
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.act_sharding import current_mesh, mesh_ops, plain
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -34,49 +37,83 @@ def jitted_decode_step(cfg: ModelConfig) -> Callable:
     return step
 
 
+def _no_autograd():
+    """``inference_mode``, or on an ambient mesh ``no_grad`` with plain
+    tensors counting as replicated: views of a DTensor made outside
+    inference mode cannot be taken inside it."""
+    if current_mesh() is None:
+        return torch.inference_mode()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.no_grad())
+    stack.enter_context(mesh_ops())
+    return stack
+
+
 def make_serve_step(cfg: ModelConfig) -> Callable:
+    """One decode step, ``serve_step(params, cache, tokens, index[,
+    enc])``; under an ambient mesh on DTensors placed by
+    ``sharding.param_shardings``, ``cache_shardings`` and ``batch_spec``."""
     def serve_step(params: PyTree, cache: PyTree, tokens: torch.Tensor,
                    index: int, enc: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, PyTree]:
-        with torch.inference_mode():
+        with _no_autograd():
             return M.decode_step(params, cfg, cache, tokens, index, enc=enc)
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig) -> Callable:
+def make_prefill(cfg: ModelConfig, *, attn_impl: str = "naive",
+                 use_kernel: bool = True) -> Callable:
     """Full-sequence logits (B, S, vocab) of ``batch["tokens"]``; ssm
-    layers scan through the SSD kernel."""
+    layers scan through the SSD kernel unless ``use_kernel`` is False.
+    Under an ambient mesh the batch and parameters are DTensors."""
     def prefill(params: PyTree, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
-        with torch.inference_mode():
-            return M.forward_logits(params, cfg, batch)
+        with _no_autograd():
+            return M.forward_logits(params, cfg, batch, attn_impl=attn_impl,
+                                    use_kernel=use_kernel)
     return prefill
 
 
 def greedy_generate(params: PyTree, cfg: ModelConfig, prompt: torch.Tensor,
                     max_new: int, *, cache_len: Optional[int] = None,
-                    enc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    enc: Optional[torch.Tensor] = None,
+                    cache: Optional[PyTree] = None,
+                    logits: Optional[List[torch.Tensor]] = None
+                    ) -> torch.Tensor:
     """Token-by-token greedy decoding: the prompt (B, S) is teacher-forced
     through the dense cache one token at a time (exactly the serve-step
-    path), then ``max_new`` tokens are chosen by argmax.  The cache lives
-    on the prompt's device.  With ``enc`` (an encoder-decoder's encoder
-    output), the cross-attention caches are warmed once and every step
-    reads them.  Returns (B, S + max_new) token ids."""
+    path), then ``max_new`` tokens are chosen by argmax.  The cache is a
+    new ``init_cache`` on the prompt's device, or ``cache`` (at least S +
+    max_new long; on an ambient mesh placed by
+    ``sharding.cache_shardings``, every fed token then placed on the
+    batch's rows and the logits gathered whole).  With ``enc`` (an
+    encoder-decoder's encoder output), the cross-attention caches are
+    warmed once and every step reads them.  ``logits``, a list, receives
+    each step's (B, vocab) logits.  Returns (B, S + max_new) token ids."""
     B, S = prompt.shape
-    T = cache_len or (S + max_new)
+    mesh = current_mesh()
+    rows = None if mesh is None else sharding.batch_spec(mesh, B) + (None,)
     step = jitted_decode_step(cfg)
-    with torch.inference_mode():
-        cache = M.init_cache(cfg, B, T, device=prompt.device)
+
+    def feed(tok: torch.Tensor, i: int) -> torch.Tensor:
+        if rows is not None:
+            tok = sharding.shard_tensor(tok, mesh, rows)
+        out = plain(step(params, cache, tok, i)[0])
+        if logits is not None:
+            logits.append(out)
+        return out.argmax(dim=-1)[:, None].to(prompt.dtype)
+
+    with _no_autograd():
+        if cache is None:
+            cache = M.init_cache(cfg, B, cache_len or (S + max_new),
+                                 device=prompt.device)
         if enc is not None:
             cache = M.warm_cross_cache(params, cfg, cache, enc)
-        logits = None
         for i in range(S):
-            logits, cache = step(params, cache, prompt[:, i:i + 1], i)
+            cur = feed(prompt[:, i:i + 1], i)
         out = [prompt]
-        cur = logits.argmax(dim=-1)[:, None].to(prompt.dtype)
         for j in range(max_new - 1):
             out.append(cur)
-            logits, cache = step(params, cache, cur, S + j)
-            cur = logits.argmax(dim=-1)[:, None].to(prompt.dtype)
+            cur = feed(cur, S + j)
         out.append(cur)
         return torch.cat(out, dim=1)

@@ -16,12 +16,11 @@ parameter's placements before the update.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.act_sharding import current_mesh, is_sharded
+from repro_torch.distributed.act_sharding import is_sharded, mesh_ops, plain
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves
@@ -29,20 +28,6 @@ from repro_torch.optim import adamw
 from repro_torch.optim.compress import CompressConfig, compress_grads
 
 PyTree = Any
-
-
-def mesh_ops():
-    """Under an ambient mesh, plain tensors mixed with DTensors count as
-    replicated (DTensor's ``implicit_replication``); else nothing."""
-    if current_mesh() is None:
-        return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-    return implicit_replication()
-
-
-def plain(x: torch.Tensor) -> torch.Tensor:
-    """A metric as a plain tensor (a DTensor scalar is replicated)."""
-    return x.full_tensor() if is_sharded(x) else x
 
 
 def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -55,15 +40,28 @@ def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], m: int
                         ) -> List[Dict[str, torch.Tensor]]:
-    """m batches of B/m rows each.  M-RoPE ``positions`` (3, B, S) split
-    on their batch axis, dim 1, as in the JAX package."""
+    """m batches of B/m rows each, microbatch i holding rows [i B/m,
+    (i + 1) B/m) of the global batch, as the JAX package's ``reshape(m,
+    B/m)`` splits it.  M-RoPE ``positions`` (3, B, S) split on their
+    batch axis, dim 1.  A batch-sharded DTensor is gathered whole first
+    (one all-gather a leaf), split on every rank alike and each piece
+    sharded again as the batch was: splitting each rank's own rows
+    instead would mix rows of every microbatch, and the masked mean of
+    the loss makes the grouping matter."""
     parts = {}
     for k, v in batch.items():
         dim = 1 if k == "positions" and v.dim() == 3 else 0
         if v.shape[dim] % m:
             raise ValueError(f"batch {k!r} of {v.shape[dim]} rows does not "
                              f"split into {m} microbatches")
-        parts[k] = v.chunk(m, dim=dim)
+        if is_sharded(v):
+            from torch.distributed.tensor import Replicate
+            mesh, place = v.device_mesh, v.placements
+            whole = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+            parts[k] = [p.redistribute(mesh, place)
+                        for p in whole.chunk(m, dim=dim)]
+        else:
+            parts[k] = v.chunk(m, dim=dim)
     return [{k: parts[k][i] for k in batch} for i in range(m)]
 
 

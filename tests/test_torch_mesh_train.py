@@ -14,6 +14,15 @@ gradient bar), the three MoE layouts against each other at 1e-6 (the
 JAX MoE layout test's bar) and the launcher's 3-step trajectory at rtol
 1e-4.  Each mesh is spawned once, module-scoped, and runs every case on
 it; every rank runs one torch thread.
+
+The 2 x 2 spawn also runs one step of ``make_train_step`` with 2
+microbatches, ``remat="full"`` and chunked attention (against the JAX
+step of the same options on one device: loss and grad norm at the loss
+bar, the updated weights at the gradient bar), and the plain step of
+``opt-1.3b-smoke`` and ``qwen2-7b-smoke`` whose collectives, counted by
+``runtime.Collectives`` on the ranks, must equal the dry run's count
+(``launch.step_analysis.StepCounter``) of the same step on a fake 2 x 2
+group: both count through ``runtime.CollectiveCount``.
 """
 
 import dataclasses
@@ -37,8 +46,13 @@ from repro_torch.configs import get_config as torch_config  # noqa: E402
 from repro_torch.data.pipeline import make_batch_fn as t_batches  # noqa: E402
 from repro_torch.distributed import act_sharding as A  # noqa: E402
 from repro_torch.distributed import runtime, spmd  # noqa: E402
+from repro_torch.configs.registry import InputShape  # noqa: E402
 from repro_torch.kernels.flash_attention.chunked import tp_kv_layout  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import mesh as LM  # noqa: E402
+from repro_torch.launch import step_analysis as SA  # noqa: E402
 from repro_torch.models import params as TP  # noqa: E402
+from repro_torch.optim import adamw as TA  # noqa: E402
 
 from test_torch_helpers import one_torch_thread  # noqa: E402,F401
 
@@ -48,8 +62,12 @@ LAYOUT_TOL = dict(rtol=1e-6, atol=1e-6)
 TRAJ_RTOL = 1e-4
 LAYOUTS = ("auto", "ep_full", "unconstrained")
 # (case, smoke arch, MoE layout, mesh)
+# (the ssm cases scan each rank's rows and heads, act_sharding.scan_parallel;
+# jamba mixes ssm, attention and MoE sublayers in one group)
 CASES = [("opt", "opt-125m", None, (2, 2))] + [
     (f"mixtral-{lay}", "mixtral-8x7b", lay, (2, 2)) for lay in LAYOUTS] + [
+    ("mamba2", "mamba2-130m", None, (2, 2)),
+    ("jamba", "jamba-v0.1-52b", None, (2, 2)),
     ("qwen2-vl", "qwen2-vl-2b", None, (1, 4))]
 B, S = 4, 16
 
@@ -94,12 +112,25 @@ def case(cid):
 
 
 TRAJ = dict(steps=3, batch=4, seq=32)
+OPT = dict(learning_rate=3e-4, warmup_steps=10, decay_steps=3)
+# the microbatched, rematerialised step with chunked attention
+MICRO = dict(microbatches=2, remat="full", attn_impl="chunked")
+# the plain step whose collectives the dry run counts, and its batch
+COUNTED = ("opt-1.3b", "qwen2-7b")
+CB, CS = 4, 32
+
+
+def counted_batch(cfg):
+    rs = np.random.RandomState(5)
+    return {k: rs.randint(0, cfg.vocab_size, (CB, CS)).astype(np.int32)
+            for k in ("tokens", "labels")}
 
 
 @pytest.fixture(scope="module")
 def spawned():
-    """One spawn a mesh: every case's loss with its gathered gradients,
-    and the launcher's 3-step run on 2 x 2."""
+    """One spawn a mesh: every case's loss with its gathered gradients;
+    on 2 x 2 also the microbatched step (under "micro") and the counted
+    steps (under "count-<arch>")."""
     out = {}
     for mesh in sorted({c[3] for c in CASES}):
         cids = [c[0] for c in CASES if c[3] == mesh]
@@ -110,6 +141,20 @@ def spawned():
             _, _, tp, nb = case(cid)
             calls.append(functools.partial(
                 spmd.evaluate, cfg=tcfg, batch=nb, params=tp, grads=True))
+        extra = []
+        if mesh == (2, 2):
+            _, tcfg = configs("opt-125m")
+            _, _, tp, nb = case("opt")
+            extra.append("micro")
+            calls.append(functools.partial(
+                spmd.step, cfg=tcfg, opt_cfg=TA.OptConfig(**OPT), batch=nb,
+                params=tp, **MICRO))
+            for arch in COUNTED:
+                cfg = torch_config(arch + "-smoke")
+                extra.append(f"count-{arch}")
+                calls.append(functools.partial(
+                    spmd.step, cfg=cfg, opt_cfg=TA.OptConfig(),
+                    batch=counted_batch(cfg), attn_impl="chunked"))
         # the 2 x 2 mesh through the host transport, 1 x 4 through gloo
         res = runtime.spawn(calls, shape=mesh, names=("data", "model"),
                             transport="host" if mesh == (2, 2) else "gloo",
@@ -119,11 +164,12 @@ def spawned():
             full = spmd.join_shards(values, configs(arch, layout)[1], mesh,
                                     ("data", "model"))
             out[cid] = (values, launches, full)
+        for key, values in zip(extra, res.values[len(cids):]):
+            out[key] = values
     return out
 
 
-@pytest.fixture(scope="module")
-def launched():
+def launch(*flags):
     """``launch/train.py --mesh 2,2 --host-devices 4`` on CPU ranks, the
     smoke opt-125m in fp32 (the ranks get the config from the parent)."""
     from repro_torch.launch import train
@@ -134,8 +180,19 @@ def launched():
                           "--host-devices", "4",
                           "--steps", str(TRAJ["steps"]),
                           "--batch", str(TRAJ["batch"]),
-                          "--seq", str(TRAJ["seq"])])
+                          "--seq", str(TRAJ["seq"]), *flags])
     return tcfg, res
+
+
+@pytest.fixture(scope="module")
+def launched():
+    return launch()
+
+
+@pytest.fixture(scope="module")
+def launched_micro():
+    return launch("--microbatches", "2", "--remat", "full", "--attn-impl",
+                  "chunked")
 
 
 # --------------------------------------------------------------------------- #
@@ -183,12 +240,22 @@ def test_launcher_trajectory_matches_jax_train_step(launched):
         assert run.losses == runs[0].losses
         assert run.grad_norms == runs[0].grad_norms
         assert len(run.collective_ms) == TRAJ["steps"]
-        assert run.collective_calls[0]["all_gather_into_tensor"] > 0
+        assert run.collective_calls[0]["all-gather"] > 0
+    losses, norms = jax_trajectory(tcfg, jcfg)
+    np.testing.assert_allclose(runs[0].losses, losses, rtol=TRAJ_RTOL)
+    np.testing.assert_allclose(runs[0].grad_norms, norms, rtol=TRAJ_RTOL)
+
+
+def jax_trajectory(tcfg, jcfg, **step_kw):
+    """Losses and grad norms of ``TRAJ["steps"]`` steps of the JAX
+    ``make_train_step`` (``step_kw`` its options) from the port's
+    ``init_params(seed=0)`` on the port's batches of seed 0."""
     opt = dict(learning_rate=3e-4, warmup_steps=10,
                decay_steps=TRAJ["steps"])
     jp = jax.tree.map(jnp.asarray, bridge.params_to_numpy(
         TP.init_params(tcfg, device="cpu", seed=0)))
-    jstep = jax.jit(JS.make_train_step(jcfg, JA.OptConfig(**opt)))
+    jstep = jax.jit(JS.make_train_step(jcfg, JA.OptConfig(**opt),
+                                       **step_kw))
     jopt = JA.init_opt_state(jp, JA.OptConfig(**opt))
     data = t_batches(tcfg, TRAJ["batch"], TRAJ["seq"], 0)
     losses, norms = [], []
@@ -197,8 +264,67 @@ def test_launcher_trajectory_matches_jax_train_step(launched):
                                        for k, v in next(data).items()})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    return losses, norms
+
+
+def test_launcher_runs_microbatches_remat_and_chunked_on_the_mesh(
+        launched_micro):
+    """``--mesh 2,2 --microbatches 2 --remat full --attn-impl chunked``:
+    3 steps against the JAX ``make_train_step(..., microbatches=2,
+    remat="full")`` from the same weights and batches."""
+    tcfg, res = launched_micro
+    jcfg, _ = configs("opt-125m")
+    runs = res.values[0]
+    for run in runs:
+        assert run.losses == runs[0].losses
+    losses, norms = jax_trajectory(tcfg, jcfg, microbatches=2, remat="full")
     np.testing.assert_allclose(runs[0].losses, losses, rtol=TRAJ_RTOL)
     np.testing.assert_allclose(runs[0].grad_norms, norms, rtol=TRAJ_RTOL)
+
+
+def test_microbatched_remat_chunked_step_matches_jax_train_step(spawned):
+    """One step of 2 microbatches, ``remat="full"``, chunked attention on
+    2 x 2 against the JAX ``make_train_step`` with the same options on
+    one device.  Row 0's masked labels make the microbatches' token
+    counts differ, so a split that grouped other rows than JAX's
+    ``reshape(2, B/2)`` would change the loss."""
+    values = spawned["micro"]
+    jcfg, tcfg = configs("opt-125m")
+    jp = JP.init_params(jcfg, jax.random.PRNGKey(0))
+    _, _, _, nb = case("opt")
+    oc = JA.OptConfig(**OPT)
+    jp2, _, m = jax.jit(JS.make_train_step(
+        jcfg, oc, microbatches=2, remat="full"))(
+        jp, JA.init_opt_state(jp, oc),
+        {k: jnp.asarray(v) for k, v in nb.items()})
+    assert [v["loss"] for v in values] == [values[0]["loss"]] * 4
+    np.testing.assert_allclose(values[0]["loss"], float(m["loss"]),
+                               **LOSS_TOL)
+    np.testing.assert_allclose(values[0]["grad_norm"],
+                               float(m["grad_norm"]), **LOSS_TOL)
+    got = dict(bridge.flatten(spmd.join_shards(values, tcfg, (2, 2),
+                                               ("data", "model"))))
+    for key, want in bridge.flatten(jax.tree.map(np.asarray, jp2)):
+        np.testing.assert_allclose(got[key].numpy(), want, **GRAD_TOL,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("arch", COUNTED)
+def test_dry_run_counts_the_collectives_of_the_gloo_step(spawned, arch):
+    """The dry run's collectives of the plain step on a fake 2 x 2 group
+    equal those the four gloo ranks moved in the same step, calls and
+    result bytes by kind, both counted by ``runtime.CollectiveCount``."""
+    values = spawned[f"count-{arch}"]
+    for v in values[1:]:
+        assert v["collectives"] == values[0]["collectives"]
+    cfg = torch_config(arch + "-smoke")
+    with LM.fake_mesh((2, 2), ("data", "model")) as mesh:
+        t = DR.trace_case(cfg, InputShape("gate", CS, CB, "train"), mesh,
+                          remat="none", microbatches=1)
+    fake = SA.collective_totals(t["counter"])
+    assert fake == values[0]["collectives"]
+    assert set(fake["counts"]) == {"all-gather", "all-reduce",
+                                   "reduce-scatter"}
 
 
 # --------------------------------------------------------------------------- #
@@ -259,8 +385,7 @@ def test_launcher_refuses_what_the_mesh_does_not_run():
     base = ["--torch-device", "cpu", "--mesh", "2,2"]
     for extra in (["--local-sgd"], ["--async"], ["--checkpoint-dir", "d"],
                   ["--health-out", "h.jsonl"], ["--trace-out", "t.json"],
-                  ["--microbatches", "2"], ["--remat", "full"],
-                  ["--attn-impl", "chunked"]):
+                  ["--metrics-out", "m.jsonl"], ["--slo", "tokens_per_s=1"]):
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             train.main(base + extra)
     with pytest.raises(ValueError, match="differs from the 4 ranks"):

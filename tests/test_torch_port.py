@@ -111,7 +111,9 @@ def test_package_imports_with_jax_blocked():
               "repro_torch.distributed.stages", "repro_torch.launch.mesh",
               "repro_torch.distributed.sharding",
               "repro_torch.distributed.act_sharding",
-              "repro_torch.distributed.spmd", "repro_torch.launch.specs"):
+              "repro_torch.distributed.spmd", "repro_torch.launch.specs",
+              "repro_torch.launch.dryrun", "repro_torch.launch.step_analysis",
+              "repro_torch.launch.coll_attr"):
         assert m in mods, m
     assert [f.stem for f in TWINS] == TWIN_NAMES
     twins = [str(f) for f in TWINS]

@@ -1,8 +1,13 @@
 """The dense serving path: ``attn_decode``, ``serve.step`` (prefill,
 serve step, ``greedy_generate``) against the JAX package on bridged
-weights, and the serving launcher's fallback to it."""
+weights, the serving launcher's fallback to it, and the serve step on a
+2 x 2 ``(data, model)`` mesh of gloo ranks (``distributed.spmd.generate``:
+the cache placed by ``sharding.cache_shardings``, sequence-sharded over
+``model``, and over ``data`` too at batch 1) against the JAX
+``make_serve_step`` on one device."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.models import layers as JL  # noqa: E402
+from repro.models import model as JM  # noqa: E402
 from repro.serve import step as JS  # noqa: E402
+from repro_torch.distributed import runtime, spmd  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve import step as TS  # noqa: E402
@@ -157,3 +164,90 @@ def test_serve_launcher_legacy_path_on_the_cpu(argv, expect, tmp_path,
     assert expect in text and "cloud-h100" in text
     assert f"legacy dense: {4 * n} tokens" in text
     assert '"path": "legacy"' in out.read_text()
+
+
+# --------------------------------------------------------------------------- #
+# Decode on the mesh
+# --------------------------------------------------------------------------- #
+
+# (id, arch, patch, batch): batch 2 shards the cache's batch over data and
+# its sequence over model; batch 1 its sequence over both.  deepseek-v3
+# decodes through the absorbed MLA cache, mixtral through a sliding
+# window shorter than the decoded sequence, whisper through the
+# cross-attention caches warmed from an encoder output (its 64 rows
+# sequence-sharded as the self-attention caches are)
+MESH_CASES = [("qwen2-b2", "qwen2-7b", dict(num_kv_heads=2), 2),
+              ("qwen2-b1", "qwen2-7b", dict(num_kv_heads=2), 1),
+              ("mamba2-b2", "mamba2-130m", {}, 2),
+              ("deepseek-b2", "deepseek-v3-671b", {}, 2),
+              ("mixtral-window-b1", "mixtral-8x7b", dict(sliding_window=4), 1),
+              ("whisper-b2", "whisper-medium", {}, 2)]
+MESH_PROMPT, MESH_NEW, MESH_CACHE = 5, 4, 12
+
+
+def mesh_prompt(cfg, batch):
+    return np.random.RandomState(11).randint(
+        0, cfg.vocab_size, (batch, MESH_PROMPT)).astype(np.int32)
+
+
+def mesh_enc(cfg, batch):
+    """An encoder output (B, encoder_seq_len, d) for encoder-decoders."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return np.random.RandomState(12).standard_normal(
+        (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def mesh_decoded():
+    """One spawn of 2 x 2 CPU gloo ranks running every case's greedy
+    decode (fp32 configs, so fp32 K/V caches)."""
+    calls = []
+    for _, arch, patch, batch in MESH_CASES:
+        jcfg, tcfg = configs(arch, **patch)
+        _, tp = bridged(jcfg, tcfg)
+        calls.append(functools.partial(
+            spmd.generate, cfg=tcfg, prompt=mesh_prompt(tcfg, batch),
+            max_new=MESH_NEW, params=tp, cache_len=MESH_CACHE,
+            enc=mesh_enc(tcfg, batch)))
+    res = runtime.spawn(calls, shape=(2, 2), names=("data", "model"),
+                        transport="gloo", device="cpu")
+    return dict(zip([c[0] for c in MESH_CASES], res.values))
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in MESH_CASES])
+def test_mesh_decode_matches_jax_serve_step(mesh_decoded, cid):
+    """Every step's logits (the teacher-forced prompt, then the greedy
+    tokens) against the JAX ``make_serve_step`` on one device at the
+    dense path's bar, and the greedy ids equal.  The K/V caches are fp32
+    in both: the model ranks sum the projections in another order, and a
+    bf16 cache turns that last-bit difference into a rounding step of
+    1e-3 relative in some K/V entries."""
+    _, arch, patch, batch = next(c for c in MESH_CASES if c[0] == cid)
+    jcfg, tcfg = configs(arch, **patch)
+    jp, _ = bridged(jcfg, tcfg)
+    prompt = mesh_prompt(tcfg, batch)
+    step = jax.jit(JS.make_serve_step(jcfg))
+    cache = JM.init_cache(jcfg, batch, MESH_CACHE, jnp.float32)
+    enc = mesh_enc(tcfg, batch)
+    if enc is not None:
+        cache = JM.warm_cross_cache(jp, jcfg, cache, jnp.asarray(enc))
+    want, ids = [], [prompt]
+    tok = jnp.asarray(prompt[:, :1])
+    for i in range(MESH_PROMPT + MESH_NEW - 1):
+        logits, cache = step(jp, cache, tok, jnp.int32(i))
+        want.append(np.asarray(logits))
+        if i + 1 < MESH_PROMPT:
+            tok = jnp.asarray(prompt[:, i + 1:i + 2])
+        else:
+            tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+            ids.append(np.asarray(tok))
+    values = mesh_decoded[cid]
+    for v in values[1:]:                  # every rank decodes the same
+        np.testing.assert_array_equal(v["ids"], values[0]["ids"])
+    got = values[0]
+    assert len(got["logits"]) == len(want)
+    for i, (g, w) in enumerate(zip(got["logits"], want)):
+        np.testing.assert_allclose(g, w, **TOL, err_msg=f"step {i}")
+    np.testing.assert_array_equal(got["ids"], np.concatenate(ids, axis=1))
+
