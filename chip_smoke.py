@@ -35,8 +35,9 @@ Phases (any failure exits nonzero):
    zero-pad, opt-1.3b's attention shape and mixtral-8x7b's training
    attention (GQA 32/8, D 128, a window that cuts in) at 2048 tokens, and
    time kernel, plain version, SDPA (forward, and its backward for the
-   dq + dk/dv pair) and the bound at opt-1.3b's shape (4 x 2048, and an
-   edge replica's 2 x 2048 of phase 19), at mixtral's
+   dq + dk/dv pair) and the bound at opt-1.3b's shape (4 x 2048, an
+   edge replica's 2 x 2048 of phase 19, a mesh rank's 2 x 2048 and 16
+   heads of phase 22 and its 1 x 2048 of phase 24), at mixtral's
    1 x 8192 tokens with the 4096 window and at deepseek-v3-671b's
    training attention (1 x 2048 tokens, 128 heads at (192, 128)), the
    last two also held to their plain versions in bf16, and at three
@@ -57,16 +58,17 @@ Phases (any failure exits nonzero):
    versions (codes, scales and values equal) on the JAX package's quant8
    cases, ragged tails, an all-zero block, bf16 input and opt-1.3b's
    largest leaf, and time kernel, plain version, ``torch.mul`` and the
-   bound there, with dequantize's GB/s beside a ``fill_`` of the same
+   bound there and at a 2 x 2 mesh rank's block of that leaf (a
+   quarter), with dequantize's GB/s beside a ``fill_`` of the same
    output (the card's write rate, a yardstick); then time dequantize over
    all 17 opt-1.3b leaves, what one replica spends on it a round;
 6. train opt-1.3b at full width through
-   ``repro_torch.train.local_sgd.train_local_sgd``: 2 replicas x 4 inner
+   ``repro_torch.train.local_sgd.train_local_sgd``: 2 replicas x 2 inner
    steps of 2 x 2048 tokens, 2 rounds, int8-compressed pseudo-gradients
    with error feedback, sync priced over examples/diloco_edge.py's
    two-region topology; check the losses, the launches of every kernel
    and the wire bytes, and the compressed round-1 pseudo-gradient against
-   the plain version;
+   the plain version (phase 24 (b)'s reference);
 7. at opt-1.3b width and 2 layers, check that async with quorum =
    replicas and staleness 0 equals sync, and that a run checkpointed
    every round restores and resumes from exactly what it saved;
@@ -85,15 +87,15 @@ Phases (any failure exits nonzero):
    prompts of 64 tokens + 32 new ones through the dense cache; (c) with
    fp32 weights, ``decode_step`` token by token against the kernel
    prefill's logits at every position of 2 x 300 tokens;
-10. serve mixtral-8x7b at full width and 16 of its 32 layers in bf16
+10. serve mixtral-8x7b at full width and 4 of its 32 layers in bf16
    (random weights from a seed; full depth is 93.4 GB of bf16, past the
    card's 80 GB): phase 2's engine and requests, with every request
-   completing, flash-decode launched by each of the 16 layers every step
+   completing, flash-decode launched by each of the 4 layers every step
    and prefix hits; a profiled run's device time by kind (MoE dispatch,
    expert FFNs, flash-decode, other); phase 2's mixed step, kernel vs
    gather, gated in fp32 compute only (in bf16 a one-ulp difference can
    flip a token's top-2 experts in a later layer); a 1 x 8192-token
-   ``forward_logits`` through the FA-2 forward (16 launches a forward,
+   ``forward_logits`` through the FA-2 forward (4 launches a forward,
    the 4096-token window cutting in), and layer 0's attention there
    against ``attention_fwd_plain`` at phase 3's bf16 bar;
 11. train mixtral-8x7b at full width and 2 of its 32 layers in bf16
@@ -217,8 +219,8 @@ Phases (any failure exits nonzero):
    bit for bit, and the batched sync lanes against the scalar model;
 21. the DT-FM hybrid data + pipeline executor (``repro_torch.distributed``),
    its ranks gloo processes sharing the card (activations staged through
-   host memory): (a) at opt-1.3b width and 4 layers in fp32 over the
-   non-uniform boundaries [0, 3, 4], the pipelined loss and every
+   host memory): (a) at opt-1.3b width and 3 layers in fp32 over the
+   non-uniform boundaries [0, 2, 3], the pipelined loss and every
    gradient leaf gathered to rank 0 against the single-process
    ``forward_train`` at phase 4's fp32 bars, on a 1 x 2 mesh, then a
    2 x 2 mesh against the 1 x 2 run; (b) opt-1.3b at full width and
@@ -230,14 +232,14 @@ Phases (any failure exits nonzero):
    step split into busy, host staging, send/recv and all-reduce time
    and its peak memory, beside ``dtfm``'s model of the same fleet; (c)
    ``examples/torch_decentralized_pipeline.py``'s ``run`` on a 2 x 2 mesh
-   (60 steps of its defaults' 8 x 128), its loss check and plan
+   (30 steps of its defaults' 8 x 128), its loss check and plan
    printout.
 22. the production mesh (``repro_torch.distributed.{sharding,
    act_sharding,spmd}``): FSDP over ``data`` and Megatron tensor
    parallelism over ``model`` on a 2 x 2 mesh of gloo ranks sharing the
    card, every collective staged through host memory (transport
    ``host``), the FA-2 kernels on each rank's rows and heads: (a)
-   in fp32, opt-1.3b width at 4 layers (4 x 2048 tokens) and qwen2-7b
+   in fp32, opt-1.3b width at 2 layers (4 x 2048 tokens) and qwen2-7b
    width at 2 (2 x 2048; GQA 28 over 4 with QKV bias), the loss and
    every gradient leaf gathered from the shards against the
    single-process ``forward_train`` at phase 4's fp32 bars; (b)
@@ -257,6 +259,25 @@ Phases (any failure exits nonzero):
    (8 microbatches, remat "full"), its record and seconds; (c) (a)'s
    argument and temp bytes beside phase 22's measured peak (reported,
    not gated).
+24. local SGD on the production mesh (``repro_torch.distributed.spmd.
+   local_sgd``: the single process's ``train_local_sgd`` under the 2 x 2
+   mesh, every piece of state a DTensor, int8 on each rank's blocks):
+   (a) at opt-1.3b width and 2 layers in fp32, phase 6's sync DiLoCo with
+   no compression and with int8 against the single process (losses at
+   phase 4's fp32 bar; the joined final parameters and momentum at
+   ``grads_held``'s bar, plus ``INT8_FLIP`` steps of each block's scale
+   with int8), each rank's int8 of its blocks of replica 0's round-1
+   pseudo-gradient through the kernels equal to the plain versions,
+   async (quorum = replicas, staleness 0) equal to sync bit for bit, and
+   the round-1 checkpoint resumed on a 1 x 4 mesh and by one process
+   alike; (b) phase 6's run at full width and depth, bf16, through the
+   launcher's ``--mesh 2,2 --local-sgd`` rank call with int8 sync, a
+   round-2 checkpoint and the trace, metrics, health and SLO records:
+   losses within phase 4's bf16 bars of phase 6's, the same wire bytes,
+   192 launches of each FA-2 kernel a rank (all bf16 tensor-core) and 68
+   of each quant8 kernel a rank, every record valid, the checkpoint
+   restored by one process equal to the joined final state bit for bit,
+   each rank's ms a round by part and its peak memory.
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -353,13 +374,13 @@ PREFILL_TOL = {"float32": 1e-3, "argmax_slack": 0.01}
 # new tokens); decode-vs-prefill agreement (batch, tokens: two full
 # chunks of 128 and a ragged one)
 MAMBA_PREFILL, MAMBA_DECODE, MAMBA_AGREE = (8, 4096), (8, 64, 32), (2, 300)
-# phase 10: mixtral-8x7b's depth on one card (8 of 32 layers, 23.48 GB of
-# bf16 weights: cut from 16, where one run on a slower host took 1,037.6 s
-# of phases, to keep a slow host's run under 1000 s; phase 23 itself waits
-# about 1.5 s), the prefill's tokens (past the 4096 window), and the KV
-# groups of layer 0's attention held to the plain version (its fp32
-# (S x S) scores for 2 of 8 groups take 2.1 GB)
-MIXTRAL_LAYERS, MIXTRAL_PREFILL, MIXTRAL_GROUPS = 8, 8192, 2
+# phase 10: mixtral-8x7b's depth on one card (4 of 32 layers: cut from 16
+# to 8 when one run on a slower host took 1,037.6 s of phases, and to 4
+# when phase 24 came, to keep a slow host's run under the time limit),
+# the prefill's tokens (past the 4096 window), and the KV groups of layer
+# 0's attention held to the plain version (its fp32 (S x S) scores for 2
+# of 8 groups take 2.1 GB)
+MIXTRAL_LAYERS, MIXTRAL_PREFILL, MIXTRAL_GROUPS = 4, 8192, 2
 # phase 11: mixtral-8x7b trained at full width on one card.  2 of 32
 # layers: 3,164,688,384 params, whose bf16 weights and gradients take
 # 12.7 GB and fp32 AdamW moments 25.3 GB, 38.0 GB of state, and about
@@ -851,13 +872,14 @@ def mixed_step_diff(torch, np, M, params, cfg, device):
 
 def profile_run(torch, eng, reqs, step_ms):
     """Device time by kernel over a profiled engine run of the same
-    requests (torch.profiler; the timed run is not profiled).  The
-    device's idle share compares device time per step with the unprofiled
-    run's wall time per step."""
+    requests (torch.profiler, the device's activity only: the host's op
+    events of a 40-layer engine run made the profiled run ten times the
+    unprofiled one; the timed run is not profiled).  The device's idle
+    share compares device time per step with the unprofiled run's wall
+    time per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(reqs)
     rows = [(ev.device_time_total, ev.key, ev.count)
             for ev in prof.key_averages()
@@ -1061,7 +1083,8 @@ def phase_fa(torch, device, timer):
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     for i, case in enumerate(FA_CASES + [OPT_FA, OPT_EDGE_FA, WHISPER_FA,
                                          WHISPER_XFA, QWEN2VL_FA,
-                                         OPT_PIPE_FA, OPT_TP_FA]):
+                                         OPT_PIPE_FA, OPT_TP_FA,
+                                         OPT_LS_FA]):
         causal, window = case[5], case[6]
         kw = dict(causal=causal, window=window)
         for dt in ("float32", "bfloat16"):
@@ -1109,6 +1132,9 @@ def phase_fa(torch, device, timer):
                                  "opt-1.3b DT-FM pipeline microbatch", worst)
     timing["opt_tp"] = time_fa(torch, device, timer, OPT_TP_FA,
                                "opt-1.3b (data, model) mesh rank", worst)
+    timing["opt_ls"] = time_fa(torch, device, timer, OPT_LS_FA,
+                               "opt-1.3b mesh local-SGD rank", worst,
+                               floor=False)
     timing["mixtral"] = time_fa(torch, device, timer, MIXTRAL_FA,
                                 "mixtral-8x7b train", worst, hold=True)
     timing["deepseek"] = time_fa(torch, device, timer, DEEPSEEK_FA,
@@ -1131,12 +1157,16 @@ def phase_fa(torch, device, timer):
     return worst, timing
 
 
-def time_fa(torch, device, timer, case, label, worst, hold=False):
+def time_fa(torch, device, timer, case, label, worst, hold=False,
+            floor=True):
     """Kernel, plain version, SDPA and bound of each FA-2 kernel at
     ``case`` in bf16, as the train step calls them; with ``hold`` the
     kernels are also held to their plain versions there (``worst`` is
     updated, and each output's (error, bound) left in the result's
-    ``held``).  Returns {kernel: timing}."""
+    ``held``).  Every timed launch must be a tensor-core instantiation
+    by the name the wrapper records, and with ``floor`` execute more
+    than the CUDA cores' fp32 rate (a shape too small to fill the card
+    is latency-bound below it).  Returns {kernel: timing}."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import visible
     S, Hc, Kc = case[1:4]
@@ -1202,9 +1232,18 @@ def time_fa(torch, device, timer, case, label, worst, hold=False):
     }
     work = fa_work(case, q, k, v, do)
     timing = {}
+    wrappers = {"fwd": FK.flash_attention_fwd,
+                "dq": FK.flash_attention_bwd_dq,
+                "dkdv": FK.flash_attention_bwd_dkdv}
     for kern, (kfn, pfn, lfn) in calls.items():
+        before = dict(wrappers[kern].kernels)
         ms = timer.ms(kfn)
         spread = timer.spread
+        ran = {k for k, n in wrappers[kern].kernels.items()
+               if n != before.get(k, 0)}
+        if not ran or any("_tc_kernel<" not in k for k in ran):
+            fail(f"the bf16 {kern} kernel at {label}'s shape ran {ran}, not "
+                 "only tensor-core instantiations")
         plain_ms = timer.ms(pfn, iters=5 if hold else 20)
         library_ms = timer.ms(lfn) if lfn else timing["dq"]["library_ms"]
         flops, nbytes = work[kern]
@@ -1226,7 +1265,7 @@ def time_fa(torch, device, timer, case, label, worst, hold=False):
             f"{nbytes/1e6:.1f} MB; bound by {timing[kern]['bound_by']}); "
             f"{flops / ms / 1e9:.1f} TFLOP/s counted, "
             f"{executed * flops / ms / 1e9:.1f} TFLOP/s executed")
-        if executed * flops / ms * 1e3 <= FP32_FLOP_PER_S:
+        if floor and executed * flops / ms * 1e3 <= FP32_FLOP_PER_S:
             fail(f"the bf16 {kern} kernel executed no more than the fp32 "
                  f"CUDA cores' {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: it is "
                  "not running on the tensor cores")
@@ -1452,10 +1491,61 @@ def dequantize_leaves(torch, device, timer):
     return total_ms, total_bytes
 
 
-def phase_quant8(torch, device, timer):
-    from repro_torch.kernels.quant8 import ops
+def time_quant8(torch, device, timer, g, n, label, worst):
+    """Hold the quant8 kernels at ``n`` fp32 elements (block 256) and time
+    kernel, plain version, library call and bound; returns (worst
+    difference so far, {"quantize", "dequantize"} timing)."""
     from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
                                                    quantize_blocks)
+    from repro_torch.kernels.quant8.ref import dequantize_reference
+    block = 256
+    rows = n // block
+    x = torch.randn(n, generator=g, device=device) * 1e-3
+    worst = max(worst, quant_check(torch, x, block, torch.float32))
+    q, s = quantize_blocks(x)
+    timing = {}
+    ms = timer.ms(lambda: quantize_blocks(x))
+    spread = timer.spread
+    plain_ms = timer.ms(lambda: quant_plain(torch, x, block))
+    nbytes = n * 4 + rows * block + rows * 4
+    timing["quantize"] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None,
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                          "bound_by": "bytes"}
+    log(f"timing quantize at {label} (N={n}, block {block}, fp32): "
+        f"kernel_ms {ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}) "
+        f"plain_ms {plain_ms:.4f} library_ms none (no single PyTorch call "
+        f"computes it) bound_ms {timing['quantize']['bound_ms']:.4f} "
+        f"({nbytes / 1e9:.3f} GB, bound by bytes); "
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved")
+    ms = timer.ms(lambda: dequantize_blocks(q, s))
+    spread = timer.spread
+    plain_ms = timer.ms(lambda: dequantize_reference(q, s))
+    library_ms = timer.ms(lambda: torch.mul(q.view(rows, block), s[:, None]))
+    nbytes = rows * block + rows * 4 + rows * block * 4
+    timing["dequantize"] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms,
+                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                            "bound_by": "bytes"}
+    out = torch.empty(n, device=device)
+    fill_ms = timer.ms(lambda: out.fill_(1.0))
+    del out
+    log(f"dequantize at {label}: {nbytes / ms / 1e6:.0f} GB/s "
+        f"(kernel), {nbytes / library_ms / 1e6:.0f} GB/s (torch.mul); "
+        f"yardstick, not the bound: fill_ of the same {n * 4 / 1e9:.3f} GB "
+        f"fp32 output {fill_ms:.4f} ms, {n * 4 / fill_ms / 1e6:.0f} GB/s "
+        f"written")
+    log(f"timing dequantize at {label}: kernel_ms {ms:.4f} (min "
+        f"{spread[0]:.4f} max {spread[1]:.4f}) plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} (torch.mul(q.view(rows, block), "
+        f"s[:, None])) bound_ms {timing['dequantize']['bound_ms']:.4f} "
+        f"({nbytes / 1e9:.3f} GB, bound by bytes)")
+    del q, s, x
+    return worst, timing
+
+
+def phase_quant8(torch, device, timer):
+    from repro_torch.kernels.quant8 import ops
     from repro_torch.kernels.quant8.ref import dequantize_reference
     g = torch.Generator(device=device).manual_seed(5)
     worst = 0.0
@@ -1478,50 +1568,13 @@ def phase_quant8(torch, device, timer):
                  "version")
         log(f"quant8 any-shape {shape}: equal to the plain version")
 
-    # opt-1.3b's largest leaf, fp32 as the pseudo-gradient path gives it
-    n, block = LARGEST_LEAF, 256
-    rows = n // block
-    x = torch.randn(n, generator=g, device=device) * 1e-3
-    worst = max(worst, quant_check(torch, x, block, torch.float32))
-    q, s = quantize_blocks(x)
-    timing = {}
-    ms = timer.ms(lambda: quantize_blocks(x))
-    spread = timer.spread
-    plain_ms = timer.ms(lambda: quant_plain(torch, x, block))
-    nbytes = n * 4 + rows * block + rows * 4
-    timing["quantize"] = {"ms": ms, "plain_ms": plain_ms,
-                          "library_ms": None,
-                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                          "bound_by": "bytes"}
-    log(f"timing quantize at the largest leaf (N={n}, block {block}, fp32): "
-        f"kernel_ms {ms:.4f} (min {spread[0]:.4f} max {spread[1]:.4f}) "
-        f"plain_ms {plain_ms:.4f} library_ms none (no single PyTorch call "
-        f"computes it) bound_ms {timing['quantize']['bound_ms']:.4f} "
-        f"({nbytes / 1e9:.3f} GB, bound by bytes); "
-        f"{nbytes / ms / 1e6:.0f} GB/s achieved")
-    ms = timer.ms(lambda: dequantize_blocks(q, s))
-    spread = timer.spread
-    plain_ms = timer.ms(lambda: dequantize_reference(q, s))
-    library_ms = timer.ms(lambda: torch.mul(q.view(rows, block), s[:, None]))
-    nbytes = rows * block + rows * 4 + rows * block * 4
-    timing["dequantize"] = {"ms": ms, "plain_ms": plain_ms,
-                            "library_ms": library_ms,
-                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                            "bound_by": "bytes"}
-    out = torch.empty(n, device=device)
-    fill_ms = timer.ms(lambda: out.fill_(1.0))
-    del out
-    log(f"dequantize at the largest leaf: {nbytes / ms / 1e6:.0f} GB/s "
-        f"(kernel), {nbytes / library_ms / 1e6:.0f} GB/s (torch.mul); "
-        f"yardstick, not the bound: fill_ of the same {n * 4 / 1e9:.3f} GB "
-        f"fp32 output {fill_ms:.4f} ms, {n * 4 / fill_ms / 1e6:.0f} GB/s "
-        f"written")
-    log(f"timing dequantize at the largest leaf: kernel_ms {ms:.4f} (min "
-        f"{spread[0]:.4f} max {spread[1]:.4f}) plain_ms {plain_ms:.4f} "
-        f"library_ms {library_ms:.4f} (torch.mul(q.view(rows, block), "
-        f"s[:, None])) bound_ms {timing['dequantize']['bound_ms']:.4f} "
-        f"({nbytes / 1e9:.3f} GB, bound by bytes)")
-    del q, s, x
+    # opt-1.3b's largest leaf, fp32 as the pseudo-gradient path gives it,
+    # and a 2 x 2 mesh rank's block of it (phase 24 (b))
+    worst, timing = time_quant8(torch, device, timer, g, LARGEST_LEAF,
+                                "the largest leaf", worst)
+    worst, timing["rank_block"] = time_quant8(
+        torch, device, timer, g, LARGEST_LEAF // 4,
+        "a 2 x 2 mesh rank's block of the largest leaf", worst)
     leaves_ms, leaves_bytes = dequantize_leaves(torch, device, timer)
     log(f"dequantize over opt-1.3b's {len(opt_leaf_sizes())} leaves (what one "
         f"replica spends a round): {leaves_ms:.4f} ms, "
@@ -1546,18 +1599,20 @@ def edge_topology():
                                params=NetParams(wan_bw_Bps=4e6))
 
 
-def compress_check(torch, cfg, tc, ls, opt_cfg, device):
-    """Replica 0's round-1 pseudo-gradient, recomputed from the same seed,
-    through compress_leaf (the kernels) and through the plain versions on
-    the card: sent values and new errors must be equal leaf for leaf."""
+def replica0_deltas(torch, cfg, tc, ls, opt_cfg, device, mesh=None):
+    """Replica 0's round-1 pseudo-gradient, recomputed from the same seed
+    (``ls.inner_steps`` steps from ``init_params(tc.seed)`` on its
+    stream), leaf by leaf in fp32 on the device; with ``mesh`` (the
+    caller has it ambient) every tensor placed as on its ranks."""
     from repro_torch.data.pipeline import make_batch_fn
-    from repro_torch.kernels.quant8.ref import dequantize_reference
+    from repro_torch.distributed import sharding
     from repro_torch.models.params import init_params, tree_leaves, tree_map
     from repro_torch.optim import adamw
-    from repro_torch.optim.compress import compress_leaf
     from repro_torch.train.step import make_train_step
     from repro_torch.train.trainer import _to_device
     glob = init_params(cfg, device=device, seed=tc.seed)
+    if mesh is not None:
+        glob = sharding.shard_params(glob, cfg, mesh)
     work = tree_map(lambda t: t.clone(), glob)
     step = make_train_step(cfg, opt_cfg, attn_impl="kernel")
     opt = adamw.init_opt_state(work, opt_cfg)
@@ -1565,23 +1620,63 @@ def compress_check(torch, cfg, tc, ls, opt_cfg, device):
     for _ in range(ls.inner_steps):
         work, opt, _ = step(work, opt, _to_device(next(data), device))
     del opt
-    worst, n = 0.0, 0
     with torch.no_grad():
         for gl, wl in zip(tree_leaves(glob), tree_leaves(work)):
-            d = gl.float() - wl.float()
-            sent, err = compress_leaf(d, None, ls.compress)
-            rq, rs = quant_plain(torch, d.reshape(-1), 256)
-            ref = dequantize_reference(rq, rs)[:d.numel()].reshape(d.shape)
-            worst = max(worst, float((sent - ref).abs().max()),
-                        float((err - (d - ref)).abs().max()))
-            if not (torch.equal(sent, ref) and torch.equal(err, d - ref)):
-                fail("compress_grads through the kernels differs from the "
-                     "plain version on the real pseudo-gradient")
-            n += 1
+            yield gl.float() - wl.float()
+
+
+def int8_plain(torch, x, block=256):
+    """The plain versions' int8 round trip of ``x`` (any shape): the
+    values as sent, and the scales of its blocks."""
+    from repro_torch.kernels.quant8.ref import dequantize_reference
+    rq, rs = quant_plain(torch, x.reshape(-1), block)
+    return (dequantize_reference(rq, rs)[:x.numel()].reshape(x.shape), rs)
+
+
+def compress_check(torch, cfg, tc, ls, opt_cfg, device):
+    """Replica 0's round-1 pseudo-gradient through compress_leaf (the
+    kernels) and through the plain versions on the card: sent values and
+    new errors must be equal leaf for leaf."""
+    from repro_torch.optim.compress import compress_leaf
+    worst, n = 0.0, 0
+    for d in replica0_deltas(torch, cfg, tc, ls, opt_cfg, device):
+        sent, err = compress_leaf(d, None, ls.compress)
+        ref, _ = int8_plain(torch, d)
+        worst = max(worst, float((sent - ref).abs().max()),
+                    float((err - (d - ref)).abs().max()))
+        if not (torch.equal(sent, ref) and torch.equal(err, d - ref)):
+            fail("compress_grads through the kernels differs from the "
+                 "plain version on the real pseudo-gradient")
+        n += 1
     log(f"round-1 pseudo-gradient of replica 0 ({n} leaves): int8 sent "
         f"values and new errors through the kernels equal the plain "
         f"version (worst difference {worst:.3e})")
     return worst
+
+
+# phase 6's DiLoCo run, and phase 24 (b)'s on the 2 x 2 mesh: R replicas x
+# K inner steps of batch x seq tokens, rounds, int8 sync with error
+# feedback
+LOCAL_SGD = dict(R=2, K=2, rounds=2, batch=2, seq=2048)
+
+
+def local_sgd_configs(seq=None, **ls_kw):
+    """Phase 6's (TrainerConfig, LocalSGDConfig, OptConfig), at ``seq``
+    tokens a row when given."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import CompressConfig
+    from repro_torch.train.local_sgd import LocalSGDConfig
+    from repro_torch.train.trainer import TrainerConfig
+    c = LOCAL_SGD
+    tc = TrainerConfig(steps=c["K"] * c["rounds"], batch=c["batch"],
+                       seq_len=seq or c["seq"], attn_impl="kernel",
+                       log_every=c["K"], seed=0)
+    ls = LocalSGDConfig(replicas=c["R"], inner_steps=c["K"], outer_lr=0.7,
+                        outer_momentum=0.9,
+                        compress=CompressConfig(method="int8"), **ls_kw)
+    opt_cfg = adamw.OptConfig(learning_rate=3e-3, warmup_steps=5,
+                              decay_steps=tc.steps)
+    return tc, ls, opt_cfg
 
 
 def phase_local_sgd(torch, np, device):
@@ -1589,20 +1684,12 @@ def phase_local_sgd(torch, np, device):
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
                                                    quantize_blocks)
-    from repro_torch.optim import adamw
-    from repro_torch.optim.compress import CompressConfig
-    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
-    from repro_torch.train.trainer import TrainerConfig
+    from repro_torch.train.local_sgd import train_local_sgd
 
     cfg = get_config("opt-1.3b")
-    R, K, rounds, Bt, St = 2, 4, 2, 2, 2048
-    tc = TrainerConfig(steps=K * rounds, batch=Bt, seq_len=St,
-                       attn_impl="kernel", log_every=K, seed=0)
-    ls = LocalSGDConfig(replicas=R, inner_steps=K, outer_lr=0.7,
-                        outer_momentum=0.9,
-                        compress=CompressConfig(method="int8"))
-    opt_cfg = adamw.OptConfig(learning_rate=3e-3, warmup_steps=5,
-                              decay_steps=tc.steps)
+    c = LOCAL_SGD
+    R, K, rounds, Bt, St = c["R"], c["K"], c["rounds"], c["batch"], c["seq"]
+    tc, ls, opt_cfg = local_sgd_configs()
     sizes = opt_leaf_sizes()
     wire = sum(n + 4 * (n // 256 + 1) for n in sizes)
     log(f"local SGD, opt-1.3b full width: {len(sizes)} leaves, "
@@ -1655,11 +1742,14 @@ def phase_local_sgd(torch, np, device):
              "(FA-2) each")
     if res.sync_wire_bytes_per_round != wire:
         fail(f"sync wire bytes {res.sync_wire_bytes_per_round} != {wire}")
+    ref = dict(losses=res.losses, round_losses=res.round_losses,
+               wire=res.sync_wire_bytes_per_round, round_ms=round_ms,
+               phase_ms=per_round, peak_gb=peak / 1e9)
     del res
     torch.cuda.empty_cache()
     worst = compress_check(torch, cfg, tc, ls, opt_cfg, device)
     torch.cuda.empty_cache()
-    return launches, worst
+    return launches, worst, ref
 
 
 # --------------------------------------------------------------------------- #
@@ -2040,7 +2130,7 @@ def phase_mamba(torch, np, device):
 
 
 # --------------------------------------------------------------------------- #
-# Phase 10: serving mixtral-8x7b at full width, 16 layers
+# Phase 10: serving mixtral-8x7b at full width, 4 layers
 # --------------------------------------------------------------------------- #
 
 # the MoE layer's functions whose device time the profiled run reads, by
@@ -4550,20 +4640,22 @@ def phase_fleet(torch, np, device):
 # Phase 21: the DT-FM hybrid data + pipeline executor
 # --------------------------------------------------------------------------- #
 
-# (a) the fp32 gate: opt-1.3b width at 4 layers, B x S tokens in MB
-# microbatches over the non-uniform boundaries, on a 1 x 2 and a 2 x 2
-# (data, stage) mesh (2 rows a data rank, 1 a microbatch)
-PIPE_GATE = dict(layers=4, batch=4, seq=2048, microbatches=2,
-                 boundaries=[0, 3, 4], meshes=((1, 2), (2, 2)))
+# (a) the fp32 gate: opt-1.3b width at 3 layers (4 until a slow host's
+# whole run took 1,175 s of the 1,200), B x S tokens in MB microbatches
+# over the non-uniform boundaries, on a 1 x 2 and a 2 x 2 (data, stage)
+# mesh (2 rows a data rank, 1 a microbatch)
+PIPE_GATE = dict(layers=3, batch=4, seq=2048, microbatches=2,
+                 boundaries=[0, 2, 3], meshes=((1, 2), (2, 2)))
 # (b) opt-1.3b at full width and depth, bf16, on 1 x 4 gloo ranks sharing
 # the card: batch x seq tokens in microbatches, steps a run, uniform and
 # then the heterogeneous fleet's split (three laptops and a phone, as in
 # examples/decentralized_pipeline.py:108-116)
 PIPE_TRAIN = dict(batch=4, seq=2048, microbatches=4, steps=4, stages=4)
 # (c) examples/torch_decentralized_pipeline.py's run at its 14M geometry
-# and defaults on a 2 x 2 mesh, 60 of its 200 steps (its loss falls from
-# about 8.9 to 4.5 in the first 20)
-PIPE_EXAMPLE = dict(data=2, stages=2, steps=60, batch=8, seq=128,
+# and defaults on a 2 x 2 mesh, 30 of its 200 steps (60 until a slow
+# host's whole run took 1,175 s of the 1,200; its loss falls from about
+# 8.9 to 4.5 in the first 20)
+PIPE_EXAMPLE = dict(data=2, stages=2, steps=30, batch=8, seq=128,
                     microbatches=4)
 # the pipeline's attention, one microbatch of (b): held and timed in
 # phase 3 (the kernels line's shape for rows 2-4)
@@ -4818,10 +4910,11 @@ def phase_pipeline(torch, np, device):
 # model) on gloo ranks sharing the card
 # --------------------------------------------------------------------------- #
 
-# (a) the fp32 gate on a 2 x 2 (data, model) mesh: opt-1.3b width at 4 of
-# 24 layers, 4 x 2048 tokens; qwen2-7b width at 2 layers, 2 x 2048 (GQA
-# 28 over 4 with QKV bias: K/V head-parallel), one spawn
-MESH_GATE = dict(mesh=(2, 2), opt_layers=4, opt_batch=4, qwen_layers=2,
+# (a) the fp32 gate on a 2 x 2 (data, model) mesh: opt-1.3b width at 2 of
+# 24 layers (4 until a slow host's whole run took 1,175 s of the 1,200),
+# 4 x 2048 tokens; qwen2-7b width at 2 layers, 2 x 2048 (GQA 28 over 4
+# with QKV bias: K/V head-parallel), one spawn
+MESH_GATE = dict(mesh=(2, 2), opt_layers=2, opt_batch=4, qwen_layers=2,
                  qwen_batch=2, seq=2048)
 # (b) full-width, full-depth opt-1.3b, bf16, through launch/train.py
 # --mesh 2,2: steps of batch x seq
@@ -4829,6 +4922,9 @@ MESH_TRAIN = dict(mesh="2,2", steps=4, batch=4, seq=2048)
 # one rank's attention on (b)'s path: its 2 rows and 16 of the 32 heads;
 # held and timed in phase 3 (the kernels line's shape for rows 2-4)
 OPT_TP_FA = (2, 2048, 16, 16, 64, True, 0)
+# one rank's attention on phase 24 (b)'s path (the kernels line's shape
+# for rows 2-4): its 1 row of phase 6's 2 x 2048 and 16 of the 32 heads
+OPT_LS_FA = (1, 2048, 16, 16, 64, True, 0)
 
 
 def grads_held(torch, label, got_loss, got, want_loss, want):
@@ -4872,7 +4968,7 @@ def mesh_gate(torch, np, device):
     """(a) On a 2 x 2 (data, model) mesh of gloo ranks, the fp32 loss and
     every gradient leaf, gathered from the DTensor shards, against the
     single-process ``forward_train`` with autograd on the card from the
-    same weights (``init_params(seed=0)``) and batch: opt-1.3b width at 4
+    same weights (``init_params(seed=0)``) and batch: opt-1.3b width at 2
     layers, and qwen2-7b width (GQA, QKV bias) at 2.  Returns the FA-2
     launches by call."""
     import dataclasses
@@ -5174,6 +5270,383 @@ def phase_dryrun(torch, np, started, mesh_timing, spans):
     return traced["rec"]
 
 
+# --------------------------------------------------------------------------- #
+# Phase 24: local SGD on the mesh, its checkpoints and records
+# --------------------------------------------------------------------------- #
+
+# (a) the fp32 gate: opt-1.3b width at 2 layers on 2 x 2, phase 6's run
+# (R, K, rounds, batch) at an eighth of its sequence (the fp32 vocab's
+# gathers and scatters a step scale with it; a quarter until a slow
+# host's whole run took 1,175 s of the 1,200); the resume spawn's mesh
+MESH_LS_GATE = dict(mesh=(2, 2), layers=2, seq=256, resume_mesh=(1, 4))
+# (b) phase 6's run at full width and depth, bf16, through the launcher's
+# --mesh rank call
+MESH_LS_TRAIN = dict(mesh="2,2")
+# an int8 code that flips where the summation order differs moves the mean
+# pseudo-gradient by up to one step of its block's scale a round; the
+# outer step carries it into the parameters (outer_lr (1 + mu + mu**2))
+# and the momentum (1 + mu), both under 1 + mu + mu**2 = 2.71; two rounds
+INT8_FLIP = 2 * (1 + 0.9 + 0.81)
+
+
+def mesh_compress_check(mesh, *, cfg, tc, ls, opt_cfg, device=None):
+    """On a rank: replica 0's round-1 pseudo-gradient on the mesh, each
+    leaf compressed through ``compress_leaf`` (int8 through the kernels
+    on the rank's block) and through the plain versions of that block;
+    sent values and errors must be equal.  Returns {"leaves", "worst",
+    "equal"}."""
+    import torch
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.optim.compress import blocks_whole, compress_leaf
+    out = {"leaves": 0, "worst": 0.0, "equal": True}
+    with use_mesh(mesh):
+        for d in replica0_deltas(torch, cfg, tc, ls, opt_cfg, device, mesh):
+            if not blocks_whole(tuple(d.shape), d.placements,
+                                tuple(mesh.shape), ls.compress.block):
+                fail(f"a leaf of {tuple(d.shape)} does not keep its int8 "
+                     "blocks whole on a rank")
+            sent, err = compress_leaf(d, None, ls.compress)
+            x = d.to_local()
+            ref, _ = int8_plain(torch, x, ls.compress.block)
+            a, e = sent.to_local(), err.to_local()
+            out["worst"] = max(out["worst"], float((a - ref).abs().max()),
+                               float((e - (x - ref)).abs().max()))
+            out["equal"] &= bool(torch.equal(a, ref)
+                                 and torch.equal(e, x - ref))
+            out["leaves"] += 1
+    return out
+
+
+def block_scales(torch, cfg, tc, ls, opt_cfg, device):
+    """Each element's int8 step in the single process: the scale of its
+    256-block of replica 0's round-1 pseudo-gradient, leaf by leaf (CPU)."""
+    out = []
+    for d in replica0_deltas(torch, cfg, tc, ls, opt_cfg, device):
+        _, rs = int8_plain(torch, d, ls.compress.block)
+        out.append(rs.repeat_interleave(ls.compress.block)[:d.numel()]
+                   .reshape(d.shape).cpu())
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_held(torch, label, got, want, scales=None):
+    """A joined outer state against the single process's (on the card),
+    leaf by leaf on the card: within ``grads_held``'s bar (1e-4 of the
+    leaf's largest magnitude, at least 1), plus ``INT8_FLIP`` steps of
+    each element's block scale with int8.  Returns the worst error /
+    bar."""
+    from repro_torch.bridge import flatten
+    worst, beyond, n = 0.0, 0, 0
+    for i, ((key, a), (_, b)) in enumerate(zip(flatten(got), flatten(want))):
+        b = b.float()
+        diff = (a.to(b.device).float() - b).abs()
+        bar = FA_TOL["float32"]["grad"] * max(1.0, float(b.abs().max()))
+        beyond += int((diff > bar).sum())
+        n += diff.numel()
+        if scales is not None:
+            bar = bar + INT8_FLIP * scales[i].to(b.device)
+        ratio = diff / bar
+        worst = max(worst, float(ratio.max()))
+        if float(ratio.max()) > 1.0:
+            fail(f"(a) {label}: {key} differs by {float(diff.max()):.3e}, "
+                 "past its bar")
+    log(f"(a) {label}: worst error / bar {worst:.3f}; {beyond} of {n:,} "
+        "elements past the fp32 bar")
+    return worst
+
+
+def mesh_ls_gate(torch, np, device):
+    """(a) At opt-1.3b width and 2 layers, fp32, on 2 x 2 ranks: phase 6's
+    sync DiLoCo with no compression and with int8 against the single
+    process, each rank's int8 of its blocks through the kernels against
+    the plain versions, async (Q = R, S = 0) against sync bit for bit,
+    and the round-1 checkpoint resumed on 1 x 4 and by one process."""
+    import concurrent.futures
+    import dataclasses
+    import functools
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.distributed import runtime, spmd
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.local_sgd import train_local_sgd
+    from repro_torch.train.trainer import _to_device
+    g = MESH_LS_GATE
+    names = ("data", "model")
+    cfg = dataclasses.replace(get_config("opt-1.3b"),
+                              num_layers=g["layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    tc, int8, opt_cfg = local_sgd_configs(seq=g["seq"])
+    plain = dataclasses.replace(int8, compress=None)
+    tol = STEP_TOL["float32"]["loss"]
+    with tempfile.TemporaryDirectory() as d:
+        calls = {
+            "none": dataclasses.replace(plain, checkpoint_dir=f"{d}/ck",
+                                        checkpoint_every_rounds=1),
+            "int8": int8,
+            "async": dataclasses.replace(plain, async_mode=True)}
+        calls = {k: functools.partial(spmd.local_sgd, cfg=cfg, tc=tc, ls=v,
+                                      opt_cfg=opt_cfg)
+                 for k, v in calls.items()}
+        calls["compress"] = functools.partial(
+            mesh_compress_check, cfg=cfg, tc=tc, ls=int8, opt_cfg=opt_cfg)
+        t0 = time.perf_counter()
+        res = runtime.spawn(list(calls.values()), shape=g["mesh"],
+                            names=names, transport="host", device=device)
+        out = dict(zip(calls, res.values))
+        q8 = dict(zip(calls, res.quant8))
+        log(f"(a) {g['mesh']} spawn of {list(calls)}: "
+            f"{time.perf_counter() - t0:.1f} s; int8 launches by rank "
+            f"{ {k: v[0] for k, v in q8.items()} }")
+        # the round-1 checkpoint resumed on another mesh: its ranks start
+        # while this process runs the single-process references
+        shutil.copytree(f"{d}/ck/step_00000001", f"{d}/r1/step_00000001")
+        resume = dataclasses.replace(plain, checkpoint_dir=f"{d}/r1",
+                                     resume=True)
+        one_round = dataclasses.replace(tc, steps=tc.steps // 2)
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        t0 = time.perf_counter()
+        other_future = pool.submit(
+            runtime.spawn,
+            [functools.partial(spmd.local_sgd, cfg=cfg, tc=one_round,
+                               ls=resume, opt_cfg=opt_cfg)],
+            shape=g["resume_mesh"], names=names, transport="host",
+            device=device)
+        for key in ("none", "int8"):
+            ls = calls[key].keywords["ls"]
+            want = train_local_sgd(cfg, tc, dataclasses.replace(
+                ls, checkpoint_dir=None, checkpoint_every_rounds=0),
+                opt_cfg, device=device)
+            runs = out[key]
+            got = runs[0].result
+            for r in runs[1:]:
+                if (r.result.losses, r.result.round_losses) != (
+                        got.losses, got.round_losses):
+                    fail(f"(a) {key}: ranks report different losses")
+            dl = max(abs(a - b) for a, b in zip(
+                got.losses + got.round_losses,
+                want.losses + want.round_losses))
+            log(f"(a) sync {key}: mesh losses {got.losses}, round losses "
+                f"{got.round_losses}; single process {want.losses}, "
+                f"{want.round_losses}; |diff| {dl:.3e} (bound {tol:.0e})")
+            if dl > tol or len(got.losses) != len(want.losses):
+                fail(f"(a) sync {key}: losses disagree with one process")
+            scales = None if key == "none" else block_scales(
+                torch, cfg, tc, ls, opt_cfg, device)
+            state_held(torch, f"sync {key} final params and momentum",
+                       spmd.join_state(runs, cfg, g["mesh"], names),
+                       want.outer_state, scales=None if scales is None
+                       else scales + scales)
+            del want
+            torch.cuda.empty_cache()
+        chk = out["compress"]
+        if not all(c["equal"] for c in chk) or any(
+                v != {"quantize_blocks": chk[0]["leaves"],
+                      "dequantize_blocks": chk[0]["leaves"]}
+                for v in q8["compress"]):
+            fail(f"(a) a rank's int8 through the kernels differs from the "
+                 f"plain version, or missed them: {chk} {q8['compress']}")
+        log(f"(a) replica 0's round-1 pseudo-gradient, each rank's blocks of "
+            f"its {chk[0]['leaves']} leaves: int8 through the kernels equal "
+            "to the plain versions (worst difference "
+            f"{max(c['worst'] for c in chk):.3e})")
+        same = all(
+            a.result.losses == s.result.losses
+            and a.result.round_losses == s.result.round_losses
+            and all(torch.equal(x, y) for k in ("params", "outer_m")
+                    for x, y in zip(tree_leaves(a.state[k]),
+                                    tree_leaves(s.state[k])))
+            for a, s in zip(out["async"], out["none"]))
+        log(f"(a) async (Q = R, S = 0) equals the mesh's sync run bit for "
+            f"bit on every rank: {same}")
+        if not same:
+            fail("(a) async with Q = R, S = 0 differs from sync on the mesh")
+
+        # ... and by one process
+        single = train_local_sgd(cfg, one_round, resume, opt_cfg,
+                                 device=device)
+        try:
+            other = other_future.result().values[0]
+        finally:
+            pool.shutdown()
+        log(f"(a) {g['resume_mesh']} resume spawn: "
+            f"{time.perf_counter() - t0:.1f} s from its start, beside the "
+            "single-process references")
+        saved = ckpt.restore(f"{d}/r1", single.outer_state, step=1)
+        batch = _to_device(next(make_batch_fn(cfg, tc.batch, tc.seq_len,
+                                              tc.seed)), device)
+        with torch.no_grad():
+            loss0 = float(M.forward_train(saved["params"], cfg, batch,
+                                          attn_impl="kernel")[0])
+        del saved
+        got = other[0].result
+        dl = max(abs(a - b) for a, b in zip(
+            got.losses + got.round_losses,
+            single.losses + single.round_losses))
+        log(f"(a) round 2 resumed from the 2 x 2 round-1 checkpoint: "
+            f"{g['resume_mesh']} mesh losses {got.losses}, one process "
+            f"{single.losses} (|diff| {dl:.3e}); from round "
+            f"{got.resumed_from_round} / {single.resumed_from_round}; the "
+            f"first loss against the saved parameters' {loss0:.6f}; the "
+            f"uninterrupted run's round 2 {out['none'][0].result.losses[2:]}"
+            " (it kept its inner AdamW moments and data streams, which the "
+            "checkpoint does not hold)")
+        if not (dl <= tol and got.resumed_from_round == 1
+                and single.resumed_from_round == 1
+                and abs(single.losses[0] - loss0) <= tol
+                and abs(got.losses[0] - loss0) <= tol):
+            fail("(a) the resumed runs disagree or did not start from the "
+                 "round-1 checkpoint")
+        state_held(torch, "resumed final state, 1 x 4 against one process",
+                   spmd.join_state(other, cfg, g["resume_mesh"], names),
+                   single.outer_state)
+    return q8
+
+
+def mesh_ls_train(torch, np, device, ref):
+    """(b) Phase 6's DiLoCo run at full width and depth, bf16, on 2 x 2
+    ranks through the launcher's ``--mesh --local-sgd`` rank call, with
+    int8 sync through a ``LocalSGDConfig`` built here, a checkpoint at
+    round 2 and the trace, metrics, health and SLO records; against phase
+    6's single-process run (``ref``).  Returns (launches summed over the
+    ranks by wrapper, per-rank timing)."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path as P
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs.validate import validate
+    cfg = get_config("opt-1.3b")
+    c = LOCAL_SGD
+    rounds, names = c["rounds"], ("data", "model")
+    shape = tuple(int(x) for x in MESH_LS_TRAIN["mesh"].split(","))
+    ranks = shape[0] * shape[1]
+    tol = STEP_TOL["bfloat16"]
+    with tempfile.TemporaryDirectory() as d:
+        tc, ls, opt_cfg = local_sgd_configs(
+            checkpoint_dir=f"{d}/ck", checkpoint_every_rounds=rounds)
+        recs = [f"{d}/trace.json", f"{d}/metrics.jsonl",
+                f"{d}/health.jsonl"]
+        argv = ["--arch", "opt-1.3b", "--full", "--mesh",
+                MESH_LS_TRAIN["mesh"], "--local-sgd",
+                "--replicas", str(c["R"]), "--inner-steps", str(c["K"]),
+                "--steps", str(tc.steps), "--batch", str(c["batch"]),
+                "--seq", str(c["seq"]), "--checkpoint-dir", f"{d}/ck",
+                "--checkpoint-every", str(rounds), "--trace-out", recs[0],
+                "--metrics-out", recs[1], "--health-out", recs[2],
+                "--slo", "tokens_per_s=1", "--torch-device", device.type]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = launcher.train_on_mesh(launcher.parse_args(argv), ls=ls,
+                                         opt_cfg=opt_cfg)
+        wall = time.perf_counter() - t0
+        log(f"(b) launcher.train_on_mesh({' '.join(argv)}, int8 sync with "
+            f"error feedback, phase 6's AdamW): {wall:.1f} s; its "
+            "printout:\n" + buf.getvalue().rstrip())
+        runs = res.values[0]
+        got = runs[0].result
+        launches, kernels, q8 = res.launches[0], res.kernels[0], res.quant8[0]
+        n_fa = cfg.num_layers * c["R"] * c["K"] * rounds
+        n_q = len(opt_leaf_sizes()) * c["R"] * rounds
+        diffs = [abs(a - b) for a, b in zip(got.losses + got.round_losses,
+                                            ref["losses"]
+                                            + ref["round_losses"])]
+        log(f"(b) losses {got.losses}, round losses {got.round_losses}; "
+            f"phase 6's {ref['losses']}, {ref['round_losses']}; |diff| "
+            f"max {max(diffs):.3e} (bound {tol['loss']:.0e}); wire bytes a "
+            f"round {got.sync_wire_bytes_per_round:,} (phase 6 "
+            f"{ref['wire']:,}); FA-2 launches {launches} (predicted "
+            f"{n_fa} a rank, {n_fa * ranks} in all), by instantiation "
+            f"{kernels}; int8 launches by rank {q8} (predicted {n_q} each)")
+        if len(got.losses) != len(ref["losses"]) or not all(
+                np.isfinite(got.losses)) or max(diffs) > tol["loss"]:
+            fail("(b) losses disagree with phase 6's single process")
+        if got.sync_wire_bytes_per_round != ref["wire"]:
+            fail("(b) wire bytes differ from phase 6's")
+        if any(v != n_fa * ranks for v in launches.values()):
+            fail(f"(b) FA-2 launches {launches} != {n_fa * ranks} each")
+        if sum(kernels.values()) != 3 * n_fa * ranks or any(
+                "_tc_kernel<" not in k for k in kernels):
+            fail(f"(b) not every launch was a bf16 tensor-core kernel: "
+                 f"{kernels}")
+        if any(v != {"quantize_blocks": n_q, "dequantize_blocks": n_q}
+               for v in q8):
+            fail(f"(b) int8 launches by rank {q8}, predicted {n_q} each")
+        if any((r.result.losses, r.result.round_losses)
+               != (got.losses, got.round_losses) for r in runs):
+            fail("(b) ranks report different losses")
+        for p in recs:
+            log(f"(b) {P(p).name}: {validate(p)}")
+        t0 = time.perf_counter()
+        joined = spmd.join_state(runs, cfg, shape, names)
+        t_join = time.perf_counter() - t0
+        step_dir = P(d) / "ck" / f"step_{rounds:08d}"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        t0 = time.perf_counter()
+        back = ckpt.restore(f"{d}/ck", joined, step=rounds)
+        t_restore = time.perf_counter() - t0
+        from repro_torch.models.params import tree_leaves
+        exact = all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(back), tree_leaves(joined)))
+        log(f"(b) checkpoint at round {rounds}: {nbytes / 1e9:.3f} GB in "
+            f"{len(list(step_dir.iterdir()))} files; restored by one "
+            f"process in {t_restore:.1f} s, equal to the ranks' joined "
+            f"final state ({t_join:.1f} s to join) bit for bit: {exact}")
+        if not exact:
+            fail("(b) the checkpoint differs from the joined final state")
+        del joined, back
+    per_rank = []
+    for r, run in enumerate(runs):
+        n = max(run.result.outer_updates, 1)
+        phase = {k: 1e3 * v / n for k, v in run.result.phase_s.items()}
+        coll = {k: v / n for k, v in sorted(run.collective_ms.items())}
+        per_rank.append(dict(round_ms=1e3 * run.wall_s / n, phase_ms=phase,
+                             collective_ms=coll,
+                             peak_gb=run.peak_bytes / 1e9))
+        log(f"(b) rank {r} {tuple(run.coordinate)}: "
+            f"{1e3 * run.wall_s / n:.1f} ms a round (host clock, the whole "
+            "loop over its rounds); device ms a round: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in phase.items())
+            + "; collectives ms a round: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in coll.items())
+            + "; calls in the run " + ", ".join(
+                f"{k} {v}" for k, v in sorted(run.collective_calls.items()))
+            + f"; peak {run.peak_bytes / 1e9:.2f} GB")
+    log(f"(b) rank 0 {per_rank[0]['round_ms']:.1f} ms a round against phase "
+        f"6's {ref['round_ms']:.1f} ms for one process (four processes "
+        "time-share one card, their collectives staged through host "
+        "memory)")
+    return launches, per_rank, q8
+
+
+def phase_mesh_local_sgd(torch, np, device, ref):
+    """Phase 24: (a) the fp32 gate at 2 layers, (b) phase 6's run at full
+    width on the 2 x 2 mesh through the launcher's rank call."""
+    if ref is None:
+        fail("phase 24 (b) compares with phase 6's run: run phase 6 in the "
+             "same call")
+    parts = {}
+    t0 = time.perf_counter()
+    mesh_ls_gate(torch, np, device)
+    parts["(a) fp32 gate"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = mesh_ls_train(torch, np, device, ref)
+    parts["(b) full width"] = time.perf_counter() - t0
+    log("phase 24 wall time by part (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5210,7 +5683,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 24)) if args.phases is None
+    wanted = (set(range(1, 25)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -5263,23 +5736,26 @@ def main(argv=None) -> int:
     run(22, phase_mesh, torch, np, device)
     run(23, phase_dryrun, torch, np, dry, got[22][1] if 22 in got else None,
         spans)
+    run(24, phase_mesh_local_sgd, torch, np, device,
+        got[6][2] if 6 in got else None)
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
     log(f"phases took {sum(walls.values()):.1f} s in all")
-    if wanted != set(range(1, 24)):
+    if wanted != set(range(1, 25)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
     # the kernels line: launches on this slice's path where a kernel lies
-    # on it (phase 22's full-width 2 x 2 mesh: the FA-2 kernels, timed at
-    # one rank's shape), else on the newest path that runs it (phase
-    # 20's example twins: flash-decode in the qwen2-7b serve twin, quant8
-    # in the DiLoCo twin's int8 sync; the SSD scan: phase 13's jamba
-    # prefill); each row also keeps the earlier paths' launches
+    # on it (phase 24 (b)'s full-width DiLoCo on the 2 x 2 mesh: the FA-2
+    # kernels, timed at one rank's shape, and the quant8 kernels on each
+    # rank's blocks), else on the newest path that runs it (phase 20's
+    # example twins: flash-decode in the qwen2-7b serve twin; the SSD
+    # scan: phase 13's jamba prefill); each row also keeps the earlier
+    # paths' launches
     worst, timing = got[1]
     fa_worst, fa_timing = got[3]
     q_worst, q_timing = got[5]
-    ls_launches, c_worst = got[6]
+    ls_launches, c_worst, _ = got[6]
     ssd_worst, ssd_timing = got[8]
     mixtral_train = got[11]
     deepseek_train = got[15]
@@ -5291,6 +5767,8 @@ def main(argv=None) -> int:
     fleet = got[20]
     pipe_launches, _ = got[21]
     mesh_launches, _ = got[22]
+    mesh_ls_launches, _, mesh_ls_q8 = got[24]
+    mesh_ls_path = "opt-1.3b DiLoCo on the 2 x 2 mesh (phase 24 (b))"
     fleet_path = {"(a) quickstart": "opt-1.3b quickstart twin (phase 20)",
                   "(b) diloco": "opt-1.3b DiLoCo twin (phase 20)",
                   "(c) serve": "qwen2-7b serve twin (phase 20)"}
@@ -5330,7 +5808,8 @@ def main(argv=None) -> int:
             ("flash_attention_bwd_dq", "dq", "flash_attn_bwd.cu", 191),
             ("flash_attention_bwd_dkdv", "dkdv", "flash_attn_bwd.cu", 234)):
         _, fleet_by = on_fleet(name)
-        by_path = {"opt-1.3b (data, model) mesh, 2 x 2 (phase 22)":
+        by_path = {mesh_ls_path: mesh_ls_launches[name],
+                   "opt-1.3b (data, model) mesh, 2 x 2 (phase 22)":
                    mesh_launches[name],
                    "opt-1.3b DT-FM pipeline, 1 x 4 (phase 21)":
                    pipe_launches[name],
@@ -5358,11 +5837,14 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"{fa}:{line}",
-                     "launches": mesh_launches[name],
+                     "launches": mesh_ls_launches[name],
                      "max_abs_err": fa_worst[kern],
-                     **fa_timing["opt_tp"][kern],
-                     "shape": "opt-1.3b 2 x 2 mesh, one rank's rows and "
-                              "heads " + str(OPT_TP_FA),
+                     **fa_timing["opt_ls"][kern],
+                     "shape": "opt-1.3b DiLoCo on the 2 x 2 mesh, one "
+                              "rank's row and heads " + str(OPT_LS_FA),
+                     "at_opt_1.3b_mesh_step": {
+                         "shape": str(OPT_TP_FA),
+                         **fa_timing["opt_tp"][kern]},
                      "at_opt_1.3b_pipeline_microbatch": {
                          "shape": str(OPT_PIPE_FA),
                          **fa_timing["opt_pipe"][kern]},
@@ -5387,14 +5869,21 @@ def main(argv=None) -> int:
     for name, kern, line in (("quantize_blocks", "quantize", 21),
                              ("dequantize_blocks", "dequantize", 30)):
         fleet_n, fleet_by = on_fleet(name)
+        mesh_q8 = sum(r[name] for r in mesh_ls_q8)
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/quant8.cu",
                      "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
-                     "launches": fleet_n,
+                     "launches": mesh_q8,
                      "max_abs_err": max(q_worst, c_worst),
-                     **q_timing[kern],
-                     "shape": "opt-1.3b's largest leaf, fp32, block 256",
+                     **q_timing["rank_block"][kern],
+                     "shape": "a 2 x 2 mesh rank's block of opt-1.3b's "
+                              "largest leaf, fp32, block 256 ("
+                              f"{LARGEST_LEAF // 4} elements)",
+                     "at_opt_1.3b_largest_leaf": {
+                         "shape": f"{LARGEST_LEAF} fp32", **q_timing[kern]},
                      "launches_by_path": {
+                         mesh_ls_path: mesh_q8,
+                         "... of it by rank": [r[name] for r in mesh_ls_q8],
                          **fleet_by,
                          "opt-1.3b edge fleet, async local SGD (phase 19)":
                          edge[name],

@@ -36,12 +36,23 @@ wall-clock budget so one dead holder cannot stall the heal; the fetched
 bytes are priced by :func:`repro_torch.checkpoint.elastic.heal_cost`.
 :func:`prune` keeps the newest complete steps and never deletes a newer
 in-flight one.  Restored tensors land on the prototype's device.
+
+**Under a ``(data, model)`` mesh** (``act_sharding.use_mesh``, every rank
+of it calling) the leaves may be DTensors.  :func:`save` then writes one
+leaf-modulo shard a rank (``num_shards`` the rank count, ``shard_id`` the
+rank): leaf by leaf, every rank takes part in gathering it and only the
+leaf's writer keeps it, so no rank holds the whole tree.  Rank 0 writes
+the layer-sliced layout, gathering likewise, and prunes, after a
+barrier.  :func:`restore` into DTensor prototypes reads each leaf file
+mapped and keeps the rank's own block.  The files are the single-device
+format, so a checkpoint moves between mesh shapes and to one process.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import mmap
 import shutil
 import time
 import zlib
@@ -54,6 +65,8 @@ import torch
 
 from repro_torch.bridge import flatten
 from repro_torch.checkpoint.spec import CheckpointSpec
+from repro_torch.distributed.act_sharding import (current_mesh, is_sharded,
+                                                  mesh_rank)
 from repro_torch.models.params import tree_unflatten
 from repro_torch.obs.trace import get_tracer
 
@@ -122,6 +135,36 @@ def _leaf_name(key: str) -> str:
     return _escape(key) + ".npy"
 
 
+def _whole_on(leaf, writer: int):
+    """A DTensor ``leaf`` whole on the ``writer`` rank, None on the others
+    (every rank of its mesh calls).  Over the ``host`` transport the
+    ranks' blocks meet in host memory on the writer alone
+    (``runtime.HostSlots.gather``); else DTensor gathers it on every
+    rank."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import local_index
+    mesh, place = leaf.device_mesh, leaf.placements
+    ways: Dict[int, int] = {}
+    for p, n in zip(place, mesh.shape):
+        if isinstance(p, Shard):
+            ways[p.dim] = ways.get(p.dim, 1) * n
+    coll = runtime.collectives()
+    if coll is None or coll.slots is None or any(
+            leaf.shape[d] % n for d, n in ways.items()):
+        full = leaf.full_tensor()
+        return full if mesh_rank()[0] == writer else None
+    parts = coll.slots.gather(leaf.to_local().detach(), writer)
+    if parts is None:
+        return None
+    full = torch.empty(leaf.shape, dtype=leaf.dtype)
+    ranks = mesh.mesh.reshape(-1).tolist()
+    for rank, part in enumerate(parts):
+        at = np.unravel_index(ranks.index(rank), tuple(mesh.shape))
+        full[local_index(tuple(leaf.shape), mesh, place, at)] = part
+    return full
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
@@ -163,14 +206,29 @@ def _read_bytes_retry(path: Path, policy: RestorePolicy,
 
 def _load_array(path: Path, *, crc: Optional[int],
                 policy: RestorePolicy,
-                report: Optional[HealReport] = None) -> np.ndarray:
-    data = _read_bytes_retry(path, policy, report)
-    if crc is not None and policy.verify_checksums \
-            and zlib.crc32(data) != crc:
+                report: Optional[HealReport] = None,
+                mapped: bool = False) -> np.ndarray:
+    """One ``.npy``, CRC-checked; ``mapped`` leaves it mapped (a rank
+    reads only its block's pages after the checksum pass)."""
+    if mapped:
+        try:
+            with open(path, "rb") as f, \
+                    mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+                ok = crc is None or not policy.verify_checksums \
+                    or zlib.crc32(m) == crc
+        except ValueError as e:               # an empty file maps nothing
+            raise ShardChecksumError(f"{path.name}: {e}") from e
+    else:
+        data = _read_bytes_retry(path, policy, report)
+        ok = crc is None or not policy.verify_checksums \
+            or zlib.crc32(data) == crc
+    if not ok:
         raise ShardChecksumError(
             f"{path.name}: CRC32 mismatch against manifest (bit-rot or "
             "partial write)")
     try:
+        if mapped:
+            return np.load(path, mmap_mode="r", allow_pickle=False)
         return np.load(io.BytesIO(data), allow_pickle=False)
     except ValueError as e:
         raise ShardChecksumError(f"{path.name}: unparseable npy "
@@ -180,15 +238,25 @@ def _load_array(path: Path, *, crc: Optional[int],
 def _to_tensor(arr: np.ndarray, proto: torch.Tensor,
                shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """The stored array as a tensor of ``proto``'s dtype and device, of
-    ``proto``'s shape or ``shape`` (a stage's crop of a layer leaf)."""
+    ``proto``'s shape or ``shape`` (a stage's crop of a layer leaf); for
+    a DTensor ``proto``, the rank's block of it placed as ``proto``."""
+    want = tuple(proto.shape) if shape is None else tuple(shape)
+    if tuple(arr.shape) != want:
+        raise ValueError(f"stored shape {tuple(arr.shape)} != {want}")
+    if is_sharded(proto):
+        from torch.distributed.tensor import DTensor
+        from repro_torch.distributed.sharding import local_index
+        local = _to_tensor(arr[local_index(want, proto.device_mesh,
+                                           proto.placements)],
+                           proto.to_local(), tuple(proto.to_local().shape))
+        return DTensor.from_local(local, proto.device_mesh,
+                                  proto.placements, run_check=False,
+                                  shape=proto.shape, stride=proto.stride())
     if proto.dtype == torch.bfloat16 and arr.dtype == np.uint16:
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
             .view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, order="C"))
-    want = tuple(proto.shape) if shape is None else tuple(shape)
-    if tuple(t.shape) != want:
-        raise ValueError(f"stored shape {tuple(t.shape)} != {want}")
     return t.to(device=proto.device, dtype=proto.dtype)
 
 
@@ -201,8 +269,13 @@ def _step_dir(directory: Union[str, Path], step: int) -> Path:
 
 
 def save(directory: Union[str, Path], step: int, tree: PyTree, *,
-         num_shards: int = 1, shard_id: int = 0) -> Path:
-    """Write (a leaf-modulo shard of) a checkpoint; returns the step dir."""
+         num_shards: Optional[int] = None,
+         shard_id: Optional[int] = None) -> Path:
+    """Write (a leaf-modulo shard of) a checkpoint; returns the step dir.
+    ``num_shards`` and ``shard_id`` default to the ambient mesh's rank
+    count and rank (1 and 0 with none)."""
+    shard_id = mesh_rank()[0] if shard_id is None else shard_id
+    num_shards = mesh_rank()[1] if num_shards is None else num_shards
     d = _step_dir(directory, step)
     d.mkdir(parents=True, exist_ok=True)
     flat = list(flatten(tree))
@@ -211,9 +284,15 @@ def save(directory: Union[str, Path], step: int, tree: PyTree, *,
                 "num_leaves": len(flat), "num_shards": num_shards,
                 "shard_id": shard_id, "keys": [k for k, _ in flat],
                 "checksums": checksums}
+    mine = []
     for i, (key, leaf) in enumerate(flat):
-        if i % num_shards != shard_id:
-            continue
+        if is_sharded(leaf):
+            # every rank takes part in the gather; only the writer keeps it
+            leaf = _whole_on(leaf, i % num_shards)
+        if i % num_shards == shard_id:
+            mine.append((key, leaf))
+    # written after the gathers, so that a mesh's writers write at once
+    for key, leaf in mine:
         name = _leaf_name(key)
         checksums[name] = _save_array(d / name, leaf)
     (d / f"manifest_{shard_id}.json").write_text(json.dumps(manifest))
@@ -317,7 +396,13 @@ def save_for_placement(directory: Union[str, Path], step: int, tree: PyTree,
     cspec = _as_ckpt_spec(spec, replication)
     d = _step_dir(directory, step)
     d.mkdir(parents=True, exist_ok=True)
-    flat = [(k, _to_numpy(leaf)) for k, leaf in flatten(tree)]
+    # under a mesh rank 0 writes; every rank takes part in each DTensor
+    # leaf's gather
+    flat = [(k, _whole_on(leaf, 0) if is_sharded(leaf) else leaf)
+            for k, leaf in flatten(tree)]
+    if mesh_rank()[0] != 0:
+        return d
+    flat = [(k, _to_numpy(leaf)) for k, leaf in flat]
     written: Dict[str, int] = {}
     for s in range(cspec.num_shards):
         _save_shard(d, step, flat, cspec, s, written)
@@ -543,10 +628,12 @@ def heal_step(directory: Union[str, Path], step: Optional[int] = None, *,
 def _assemble_leaf(d: Path, m: Dict[str, Any], key: str,
                    span: Optional[Tuple[int, int]] = None,
                    policy: RestorePolicy = _DEFAULT_POLICY,
-                   report: Optional[HealReport] = None) -> np.ndarray:
+                   report: Optional[HealReport] = None,
+                   mapped: bool = False) -> np.ndarray:
     """Load one leaf; a layer-sliced leaf is concatenated across the
     manifest's stage boundaries, optionally cropped to ``span`` (a new
-    stage's range, reading only the slice files that overlap it)."""
+    stage's range, reading only the slice files that overlap it).  A
+    whole-leaf file stays ``mapped`` when asked."""
     crcs = m["checksums"]
     if m["layout"] == LAYOUT_LAYER_SLICED and key in _layer_key_set(m):
         lo, hi = span if span is not None else (0, m["num_layers"])
@@ -562,7 +649,7 @@ def _assemble_leaf(d: Path, m: Dict[str, Any], key: str,
         return np.concatenate(parts, axis=0)
     name = _leaf_name(key)
     return _load_array(d / name, crc=crcs.get(name), policy=policy,
-                       report=report)
+                       report=report, mapped=mapped)
 
 
 def _layer_key_set(m: Dict[str, Any]) -> set:
@@ -592,7 +679,9 @@ def _assemble_all(d: Path, m: Dict[str, Any], flat, spans,
     bad: List[str] = []
     for (key, proto), span in zip(flat, spans):
         try:
-            arr = _assemble_leaf(d, m, key, span, policy, report)
+            # a rank restoring a DTensor keeps only its block of the file
+            arr = _assemble_leaf(d, m, key, span, policy, report,
+                                 mapped=is_sharded(proto))
             if span is not None and m["layout"] == LAYOUT_LEAF_MODULO:
                 # whole-leaf layout: the file holds every layer, so crop
                 # after the (unavoidably full) read
@@ -705,7 +794,13 @@ def reshard(directory: Union[str, Path], new_spec, tree_like: PyTree, *,
 def prune(directory: Union[str, Path], keep: int = 2) -> None:
     """Keep the newest ``keep`` *complete* steps.  Incomplete steps older
     than the newest complete one are dead partial writes and go; newer
-    incomplete steps may be in-flight writers and stay."""
+    incomplete steps may be in-flight writers and stay.  Under a mesh
+    every rank calls: rank 0 prunes once all of them have written."""
+    if current_mesh() is not None:
+        import torch.distributed as dist
+        dist.barrier()
+        if mesh_rank()[0] != 0:
+            return
     base = Path(directory)
     steps = _all_steps(base)
     complete = [s for s in steps if _step_complete(_step_dir(base, s))]

@@ -88,6 +88,14 @@ def axis_extent(name: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(name))
 
 
+def mesh_rank() -> Tuple[int, int]:
+    """(rank, rank count) of the ambient mesh; (0, 1) with none."""
+    mesh = _MESH.get()
+    if mesh is None:
+        return 0, 1
+    return mesh.get_rank(), mesh.size()
+
+
 def is_sharded(x: Any) -> bool:
     """Whether ``x`` is a DTensor."""
     from torch.distributed.tensor import DTensor
@@ -101,6 +109,14 @@ def mesh_ops():
         return contextlib.nullcontext()
     from torch.distributed.tensor.experimental import implicit_replication
     return implicit_replication()
+
+
+def zeros_beside(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dtype`` on its device; placed as ``p``
+    for a DTensor (each rank allocates its block only)."""
+    if is_sharded(p):
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
 
 
 def plain(x: torch.Tensor) -> torch.Tensor:

@@ -71,16 +71,23 @@ class SpawnResult:
     """``values[c][r]``: call ``c``'s return value on rank ``r``;
     ``launches[c]``: the FA-2 wrappers' launches in call ``c`` by wrapper
     name, summed over the ranks; ``kernels[c]``: the same by the kernel
-    instantiation the library reports."""
+    instantiation the library reports; ``quant8[c][r]``: the int8
+    quantize and dequantize wrappers' launches on rank ``r``."""
     values: List[List[Any]]
     launches: List[Dict[str, int]]
     kernels: List[Dict[str, int]]
+    quant8: Optional[List[List[Dict[str, int]]]] = None
 
 
 def _fa_wrappers():
     from repro_torch.kernels.flash_attention import kernel as FK
     return (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
             FK.flash_attention_bwd_dkdv)
+
+
+def _quant8_wrappers():
+    from repro_torch.kernels.quant8 import kernel as QK
+    return (QK.quantize_blocks, QK.dequantize_blocks)
 
 
 # the functional collectives DTensor issues, each taking its tensor first,
@@ -210,6 +217,27 @@ class HostSlots:
         return out
 
 
+    def gather(self, x: torch.Tensor, dst: int
+               ) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``x`` (one shape and dtype on all the ranks of the
+        world group) in host memory on rank ``dst``: each rank copies its
+        own into its file, and after the barrier ``dst`` alone reads them,
+        as views of the files (valid until the next-but-one gather); None
+        on the other ranks.  Nothing goes back to a card."""
+        group = "gather"
+        n, r = dist.get_world_size(), dist.get_rank()
+        parity = self.ops[group] % 2
+        self.ops[group] += 1
+        flat = x.contiguous().reshape(-1).view(torch.uint8)
+        nbytes = flat.numel()
+        self._slot(group, r, parity, nbytes, own=True)[:nbytes].copy_(flat)
+        dist.barrier()
+        if r != dst:
+            return None
+        return [self._slot(group, i, parity, nbytes, own=False)[:nbytes]
+                .view(x.dtype).view(x.shape) for i in range(n)]
+
+
 # the tensor subclasses whose ops come back through a dispatch mode as
 # their plain tensors' ops
 _WRAPPERS = (DTensor, AsyncCollectiveTensor)
@@ -312,6 +340,8 @@ def _rank_main(rank: int, world: int, tmp: str, edge: bool,
             for f in wrappers:
                 f.launches = 0
                 f.kernels.clear()
+            for f in _quant8_wrappers():
+                f.launches = 0
             if edge:
                 value = call(mesh, device=device)
             else:
@@ -325,7 +355,8 @@ def _rank_main(rank: int, world: int, tmp: str, edge: bool,
             for f in wrappers:
                 by_kernel.update(f.kernels)
             out.append((value, {f.__name__: f.launches for f in wrappers},
-                        dict(by_kernel)))
+                        dict(by_kernel),
+                        {f.__name__: f.launches for f in _quant8_wrappers()}))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
                 torch.cuda.empty_cache()
@@ -392,4 +423,6 @@ def spawn(calls: Sequence[Callable], *, data: int = 1,
             by_kernel.update(ranks[r][c][2])
         launches.append(dict(total))
         kernels.append(dict(by_kernel))
-    return SpawnResult(values, launches, kernels)
+    return SpawnResult(values, launches, kernels,
+                       [[ranks[r][c][3] for r in range(world)]
+                        for c in range(len(calls))])

@@ -268,20 +268,42 @@ def placements(spec: Spec, mesh) -> List[Any]:
             for n in mesh.mesh_dim_names]
 
 
+def local_index(shape: Tuple[int, ...], mesh, place,
+                coord: Optional[Tuple[int, ...]] = None
+                ) -> Tuple[slice, ...]:
+    """The block of a tensor of ``shape`` placed by ``place`` (DTensor
+    placements) over ``mesh`` that the rank at ``coord`` (this rank's by
+    default) holds, as an index: each ``Shard(d)`` cuts dim ``d`` as
+    ``torch.chunk`` does, mesh dims in order (the first major)."""
+    from torch.distributed.tensor import Shard
+    if coord is None:
+        coord = mesh.get_coordinate()
+    bounds = [[0, n] for n in shape]
+    for i, p in enumerate(place):
+        if isinstance(p, Shard):
+            a, b = bounds[p.dim]
+            step = -(-(b - a) // mesh.size(i))
+            lo = min(a + coord[i] * step, b)
+            bounds[p.dim] = [lo, min(lo + step, b)]
+    return tuple(slice(a, b) for a, b in bounds)
+
+
+def placed(full: torch.Tensor, mesh, place):
+    """A DTensor of ``full`` (the same whole tensor on every rank) with
+    DTensor placements ``place``: each rank keeps a copy of its own block
+    (so that the full tensor's storage is not kept alive), with no
+    collective."""
+    from torch.distributed.tensor import DTensor
+    local = full[local_index(tuple(full.shape), mesh, place)].clone(
+        memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, place, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
 def shard_tensor(full: torch.Tensor, mesh, spec: Spec):
     """A DTensor of ``full`` (the same tensor on every rank) placed by
     ``spec``: each rank keeps its own block, with no collective."""
-    from torch.distributed.tensor import DTensor, Shard
-    place = placements(spec, mesh)
-    coord = mesh.get_coordinate()
-    local = full
-    for i, p in enumerate(place):
-        if isinstance(p, Shard):
-            local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
-    # a copy, so that the full tensor's storage is not kept alive
-    local = local.clone(memory_format=torch.contiguous_format)
-    return DTensor.from_local(local, mesh, place, run_check=False,
-                              shape=full.shape, stride=full.stride())
+    return placed(full, mesh, placements(spec, mesh))
 
 
 def shard_params(params: PyTree, cfg: ModelConfig, mesh,

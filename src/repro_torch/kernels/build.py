@@ -34,8 +34,13 @@ def refuse_abstract(t, kernel: str, instead: str) -> None:
     """Raise when ``t`` is a fake or ``meta`` tensor (a dry run's trace):
     it has no data for the kernel, or for its plain version, to read, and
     a wrapper never swaps in another path unasked.  ``instead`` names the
-    path that traces."""
+    path that traces.  A DTensor is refused too: a kernel takes the
+    rank's own block (``to_local()``), never the global tensor."""
     from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        raise TypeError(f"{kernel}: a DTensor, not the rank's block: hand "
+                        "the kernel its to_local()")
     fake = is_fake(t)
     if t.device.type == "meta" or fake:
         raise ValueError(

@@ -19,17 +19,24 @@ checkpoints in the JAX package's format; ``--resume`` restores the newest
 complete one first.  The DT-FM pipeline runs through
 ``repro_torch.distributed`` (see ``examples/torch_decentralized_pipeline.py``).
 
-Mesh: ``--mesh d,m`` trains on a ``(data, model)`` mesh of d x m ranks
-(``repro_torch.distributed.runtime.spawn``, one process a device, their
-collectives through host memory they share; on the card all of them
-share it): FSDP over ``data`` and Megatron tensor parallelism over
-``model`` (``distributed.sharding``), the train step on DTensors with
-``--microbatches``, ``--remat`` and ``--attn-impl`` (``distributed.
-spmd.train``).  It prints each rank's ms a step, its collectives by kind
-and its peak memory.  ``--host-devices N`` is the CPU rank count and
-must equal d x m; alone it changes nothing.  Local SGD, async,
-checkpoints and the health and telemetry records are not yet ported to
-the mesh (``ROADMAP.md`` queue 1) and raise with it.
+Mesh: ``--mesh d,m`` runs the same trainer, or the same local-SGD loop,
+on a ``(data, model)`` mesh of d x m ranks, as the JAX launcher runs
+them under an ambient mesh (``repro_torch.distributed.runtime.spawn``,
+one process a device, their collectives through host memory they share;
+on the card all of them share it): FSDP over ``data`` and Megatron
+tensor parallelism over ``model`` (``distributed.sharding``), every
+piece of state a DTensor (``distributed.spmd.train`` / ``local_sgd``).
+Every flag works with it: ``--local-sgd``, ``--async`` and the fault
+plan, ``--checkpoint-dir`` / ``--resume`` (one leaf-modulo shard a rank,
+in the single-device format, so a run resumes on another mesh shape or
+with none), and the records: each rank keeps its own, the launcher
+writes rank 0's metrics, health and SLO records (the ranks agree on
+every loss and on the modelled clock) and one trace holding every
+rank's spans, each rank its own process (``train:<cfg>:rank<r>``).  It
+prints each rank's ms a step (or a round, by phase), its collectives by
+kind and its peak memory, then the same final lines as one process.
+``--host-devices N`` is the CPU rank count and must equal d x m; alone
+it changes nothing.
 
 Health: ``--health-out health.jsonl`` attaches the streaming detectors
 (stragglers / link degradation / loss spikes — the async quorum then
@@ -53,6 +60,10 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
         --mesh 2,2 --host-devices 4 --steps 3 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
+        --mesh 2,2 --host-devices 4 --local-sgd --replicas 2 \\
+        --inner-steps 2 --steps 4 --batch 4 --seq 32 --checkpoint-dir d \\
+        --checkpoint-every 1 --trace-out t.json
+    PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
         --local-sgd --replicas 2 --inner-steps 2 --steps 8 --batch 2 \\
         --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu \\
@@ -64,9 +75,12 @@ Examples:
 from __future__ import annotations
 
 import argparse
+from dataclasses import dataclass
+from typing import Any
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags (those of ``repro.launch.train``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="opt-125m")
     ap.add_argument("--steps", type=int, default=100)
@@ -136,64 +150,112 @@ def main(argv=None) -> None:
                          "(FSDP over data, tensor parallelism over model)")
     ap.add_argument("--host-devices", type=int, default=0,
                     help="CPU rank count of --mesh (must equal D x M)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the launcher; returns the spawn's result under ``--mesh``
+    (:class:`~repro_torch.distributed.runtime.SpawnResult`, one
+    ``spmd.MeshRun`` or ``spmd.MeshLocalSGD`` a rank), else None."""
+    args = parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume needs --checkpoint-dir")
     if args.mesh:
-        return _train_on_mesh(args)
+        return train_on_mesh(args)
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core.carbon.accounting import CarbonLedger
-    from repro_torch.core.energy.devices import get_device
-    from repro_torch.core.energy.monitor import ComponentModel, EnergyMonitor
     from repro_torch.device import resolve_device
-    from repro_torch.obs import (HealthMonitor, MetricsRegistry, SLOMonitor,
-                                 Tracer, get_tracer, set_tracer, train_slos)
-    from repro_torch.train.trainer import TrainerConfig, train
 
     dev = resolve_device(args.torch_device)
     cfg = get_config(args.arch if args.full else args.arch + "-smoke")
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev
     print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params on "
           f"{where}, attn={args.attn_impl}")
+    rec = Records.start(args, cfg, f"train:{cfg.name}")
+    res = _run(args, cfg, rec, dev)
+    report(args, cfg, res, rec, [rec.tracer], dev)
 
-    registry = None
-    if args.trace_out or args.metrics_out:
-        registry = MetricsRegistry()
-        set_tracer(Tracer(enabled=True, registry=registry,
-                          process=f"train:{cfg.name}"))
-    monitor = EnergyMonitor(ComponentModel.for_device(
-        get_device(args.device)))
-    health = slo = None
-    if args.health_out is not None or args.slo is not None:
-        health = HealthMonitor(registry=registry)
-        if args.slo is not None:
-            kv = dict(p.split("=", 1) for p in args.slo.split(",") if p)
-            slo = SLOMonitor(train_slos(
-                tokens_per_s_floor=float(kv.get("tokens_per_s", 0)),
-                staleness_bound=float(kv.get("staleness", 0)),
-                gco2e_budget=float(kv.get("gco2e", 0)),
-                horizon_s=float(kv.get("horizon", 3600.0))),
-                registry=health.registry)
-    local = args.local_sgd or args.async_mode
+
+@dataclass
+class Records:
+    """A run's monitors, as the flags ask for them: the metrics registry
+    and an enabled tracer (installed as the process's tracer) for
+    ``--trace-out`` / ``--metrics-out``, the energy monitor of
+    ``--device``, the health monitor and the SLO monitor for
+    ``--health-out`` / ``--slo``.  Picklable: a mesh rank sends its own
+    back to the launcher."""
+    registry: Any = None
+    tracer: Any = None
+    monitor: Any = None
+    health: Any = None
+    slo: Any = None
+
+    @classmethod
+    def start(cls, args: argparse.Namespace, cfg, process: str
+              ) -> "Records":
+        from repro_torch.core.energy.devices import get_device
+        from repro_torch.core.energy.monitor import (ComponentModel,
+                                                     EnergyMonitor)
+        from repro_torch.obs import (HealthMonitor, MetricsRegistry,
+                                     SLOMonitor, Tracer, set_tracer,
+                                     train_slos)
+        rec = cls()
+        if args.trace_out or args.metrics_out:
+            rec.registry = MetricsRegistry()
+            rec.tracer = Tracer(enabled=True, registry=rec.registry,
+                                process=process)
+            set_tracer(rec.tracer)
+        rec.monitor = EnergyMonitor(ComponentModel.for_device(
+            get_device(args.device)))
+        if args.health_out is not None or args.slo is not None:
+            rec.health = HealthMonitor(registry=rec.registry)
+            if args.slo is not None:
+                kv = dict(p.split("=", 1) for p in args.slo.split(",") if p)
+                rec.slo = SLOMonitor(train_slos(
+                    tokens_per_s_floor=float(kv.get("tokens_per_s", 0)),
+                    staleness_bound=float(kv.get("staleness", 0)),
+                    gco2e_budget=float(kv.get("gco2e", 0)),
+                    horizon_s=float(kv.get("horizon", 3600.0))),
+                    registry=rec.health.registry)
+        return rec
+
+
+def _local(args: argparse.Namespace) -> bool:
+    return args.local_sgd or args.async_mode
+
+
+def _run(args: argparse.Namespace, cfg, rec: Records, dev, *, mesh=None,
+         ls=None, opt_cfg=None):
+    """The trainer or the local-SGD loop as the flags ask, with ``rec``'s
+    monitors: in this process, or under ``mesh`` as its rank-side call
+    (``spmd.train`` / ``spmd.local_sgd``).  ``ls`` replaces the flags'
+    ``LocalSGDConfig`` and ``opt_cfg`` the default AdamW settings."""
+    from repro_torch.distributed import spmd
+    from repro_torch.train.trainer import TrainerConfig, train
+    local = _local(args)
     tc = TrainerConfig(steps=args.steps, batch=args.batch, seq_len=args.seq,
                        microbatches=args.microbatches, remat=args.remat,
                        attn_impl=args.attn_impl,
                        checkpoint_dir=None if local else args.checkpoint_dir,
                        checkpoint_every=0 if local else args.checkpoint_every,
                        resume=args.resume and not local)
-    if local:
-        from repro_torch.core.faultinject import FaultPlan
-        from repro_torch.train.local_sgd import (LocalSGDConfig,
-                                                 train_local_sgd)
-        fault_plan = None
-        if args.straggler_frac or args.crash_prob or args.link_flap_prob:
-            fault_plan = FaultPlan(seed=args.fault_seed,
-                                   straggler_frac=args.straggler_frac,
-                                   crash_prob=args.crash_prob,
-                                   link_flap_prob=args.link_flap_prob)
+    if not local:
+        kw = dict(monitor=rec.monitor, metrics=rec.registry,
+                  health=rec.health)
+        if mesh is not None:
+            return spmd.train(mesh, cfg, tc, opt_cfg, device=dev, **kw)
+        return train(cfg, tc, opt_cfg, device=dev, **kw)
+    from repro_torch.core.faultinject import FaultPlan
+    from repro_torch.train.local_sgd import LocalSGDConfig, train_local_sgd
+    fault_plan = None
+    if args.straggler_frac or args.crash_prob or args.link_flap_prob:
+        fault_plan = FaultPlan(seed=args.fault_seed,
+                               straggler_frac=args.straggler_frac,
+                               crash_prob=args.crash_prob,
+                               link_flap_prob=args.link_flap_prob)
+    if ls is None:
         ls = LocalSGDConfig(replicas=args.replicas,
                             inner_steps=args.inner_steps,
                             checkpoint_dir=args.checkpoint_dir,
@@ -201,16 +263,41 @@ def main(argv=None) -> None:
                             resume=args.resume, async_mode=args.async_mode,
                             quorum=args.quorum or None,
                             staleness_bound=args.staleness_bound)
-        res = train_local_sgd(
-            cfg, tc, ls, monitor=None if args.async_mode else monitor,
-            metrics=registry, fault_plan=fault_plan, health=health,
-            device=dev)
+    kw = dict(monitor=None if ls.async_mode else rec.monitor,
+              metrics=rec.registry, fault_plan=fault_plan,
+              health=rec.health)
+    if mesh is not None:
+        return spmd.local_sgd(mesh, cfg, tc, ls, opt_cfg, device=dev, **kw)
+    return train_local_sgd(cfg, tc, ls, opt_cfg, device=dev, **kw)
+
+
+def run_rank(mesh, *, args: argparse.Namespace, cfg, ls=None, opt_cfg=None,
+             device=None):
+    """A ``--mesh`` rank: its own records (its tracer the process
+    ``train:<cfg>:rank<r>``) and :func:`_run` under the mesh.  Returns the
+    rank's ``spmd.MeshRun`` or ``spmd.MeshLocalSGD`` with the records
+    attached (``.records``)."""
+    rec = Records.start(args, cfg, f"train:{cfg.name}:rank{mesh.get_rank()}")
+    out = _run(args, cfg, rec, device, mesh=mesh, ls=ls, opt_cfg=opt_cfg)
+    out.records = rec
+    return out
+
+
+def report(args: argparse.Namespace, cfg, res, rec: Records, tracers,
+           dev) -> None:
+    """The final lines and the records of a run: ``res`` (a
+    ``TrainerResult`` or ``LocalSGDResult``) and ``rec`` are the single
+    process's, or rank 0's of a mesh (every rank holds the same losses
+    and modelled clock); ``tracers`` every rank's, written as one trace,
+    each rank its own process."""
+    from repro_torch.core.carbon.accounting import CarbonLedger
+    from repro_torch.obs.trace import save_chrome_traces
+    local = _local(args)
+    health, slo, registry = rec.health, rec.slo, rec.registry
+    if local:
         tokens_s = res.steps_per_s * args.batch * args.seq
     else:
-        res = train(cfg, tc, monitor=monitor, metrics=registry,
-                    health=health, device=dev)
         tokens_s = res.steady_steps_per_s * args.batch * args.seq
-
     led = CarbonLedger()
     led.add_operational_wh("train", res.energy_wh)
     print(f"[train] final loss {res.final_loss:.4f}  "
@@ -247,9 +334,9 @@ def main(argv=None) -> None:
                                 "torch_device": str(dev)})
         print(f"[train] health record: {args.health_out}")
     if args.trace_out:
-        get_tracer().save_chrome_trace(args.trace_out)
+        save_chrome_traces(args.trace_out, tracers)
         print(f"[train] trace: {args.trace_out} "
-              f"({len(get_tracer().events)} events)")
+              f"({sum(len(t.events) for t in tracers)} events)")
     if args.metrics_out:
         registry.dump_jsonl(args.metrics_out,
                             meta={"arch": cfg.name, "steps": args.steps,
@@ -260,17 +347,27 @@ def main(argv=None) -> None:
               f"({len(registry.names())} metrics)")
 
 
-# what --mesh does not run yet, and the ROADMAP.md item that takes it up
-MESH_QUEUED = ("ROADMAP.md queue 1 item 4 (--mesh with local SGD, async, "
-               "checkpoints and the trace, metrics, health and SLO "
-               "records)")
+def mesh_dims(args: argparse.Namespace):
+    """``--mesh``'s (shape, axis names), checked against
+    ``--host-devices``."""
+    dims = tuple(int(x) for x in args.mesh.split(","))
+    if not 1 <= len(dims) <= 2 or min(dims) < 1:
+        raise ValueError(f"--mesh takes D or D,M, got {args.mesh!r}")
+    world = 1
+    for n in dims:
+        world *= n
+    if args.host_devices and args.host_devices != world:
+        raise ValueError(f"--host-devices {args.host_devices} differs from "
+                         f"the {world} ranks of --mesh {args.mesh}")
+    return dims, ("data", "model")[:len(dims)]
 
 
-def _train_on_mesh(args):
-    """``--mesh``: the train step (with ``--microbatches``, ``--remat``
-    and ``--attn-impl``) on a (data, model) mesh of ranks.
-    Returns the :class:`~repro_torch.distributed.runtime.SpawnResult`
-    (one ``spmd.MeshRun`` a rank)."""
+def train_on_mesh(args: argparse.Namespace, *, ls=None, opt_cfg=None):
+    """``--mesh``: :func:`run_rank` on every rank of a (data, model) mesh
+    (``runtime.spawn``, the ``host`` transport), then each rank's
+    summary, rank 0's final lines and records, and every rank's trace.
+    ``ls`` and ``opt_cfg`` as :func:`_run` takes them.  Returns the
+    :class:`~repro_torch.distributed.runtime.SpawnResult`."""
     import functools
 
     import torch
@@ -279,53 +376,29 @@ def _train_on_mesh(args):
     from repro_torch.device import resolve_device
     from repro_torch.distributed import runtime, spmd
     from repro_torch.kernels.build import build_all
-    from repro_torch.optim.adamw import OptConfig
 
-    not_yet = {"--local-sgd": args.local_sgd, "--async": args.async_mode,
-               "--checkpoint-dir": args.checkpoint_dir,
-               "--health-out": args.health_out, "--slo": args.slo,
-               "--trace-out": args.trace_out,
-               "--metrics-out": args.metrics_out}
-    for flag, given in not_yet.items():
-        if given:
-            raise NotImplementedError(f"--mesh with {flag} waits for "
-                                      f"{MESH_QUEUED}")
-    dims = tuple(int(x) for x in args.mesh.split(","))
-    if not 1 <= len(dims) <= 2 or min(dims) < 1:
-        raise ValueError(f"--mesh takes D or D,M, got {args.mesh!r}")
-    names = ("data", "model")[:len(dims)]
-    world = 1
-    for n in dims:
-        world *= n
-    if args.host_devices and args.host_devices != world:
-        raise ValueError(f"--host-devices {args.host_devices} differs from "
-                         f"the {world} ranks of --mesh {args.mesh}")
+    dims, names = mesh_dims(args)
     dev = resolve_device(args.torch_device)
     cfg = get_config(args.arch if args.full else args.arch + "-smoke")
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev
     print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params on a "
-          f"{' x '.join(map(str, dims))} {names} mesh of ranks on {where}")
+          f"{' x '.join(map(str, dims))} {names} mesh of ranks on {where}, "
+          f"attn={args.attn_impl}")
     if dev.type == "cuda":
         build_all()                    # the ranks only load the kernels
-    opt_cfg = OptConfig(learning_rate=3e-4,
-                        warmup_steps=max(10, args.steps // 20),
-                        decay_steps=args.steps)     # the trainer's default
-    call = functools.partial(spmd.train, cfg=cfg, opt_cfg=opt_cfg,
-                             steps=args.steps, batch=args.batch,
-                             seq_len=args.seq,
-                             microbatches=args.microbatches,
-                             remat=args.remat, attn_impl=args.attn_impl)
+    call = functools.partial(run_rank, args=args, cfg=cfg, ls=ls,
+                             opt_cfg=opt_cfg)
     res = runtime.spawn([call], shape=dims, names=names, transport="host",
                         device=dev)
     runs = res.values[0]
     for r, run in enumerate(runs):
         print(f"[train] rank {r} {tuple(run.coordinate)}: "
               f"{spmd.summary(run)}")
-    steady = runs[0].wall_ms[1:] or runs[0].wall_ms
-    tok_s = args.batch * args.seq / (sorted(steady)[len(steady) // 2] / 1e3)
-    print(f"[train] final loss {runs[0].losses[-1]:.4f}  "
-          f"{tok_s:.0f} tokens/s after the first step  "
-          f"FA-2 launches {res.launches[0]}")
+    print(f"[train] FA-2 launches {res.launches[0]}, int8 launches by rank "
+          f"{res.quant8[0]}")
+    report(args, cfg, runs[0].result, runs[0].records,
+           [run.records.tracer for run in runs if run.records.tracer],
+           dev)
     return res
 
 

@@ -131,6 +131,15 @@ class MetricsRegistry:
         self._metrics: Dict[str, Any] = {}
         self._lock = threading.Lock()
 
+    def __getstate__(self) -> Dict[str, Any]:
+        # picklable (a rank of a spawned mesh sends its registry back):
+        # the lock is the process's own
+        return {"_metrics": self._metrics}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self._metrics = state["_metrics"]
+        self._lock = threading.Lock()
+
     def _get(self, name: str, cls, *args, **kw):
         m = self._metrics.get(name)
         if m is None:

@@ -127,6 +127,18 @@ class Tracer:
         self._lock = threading.Lock()
         self._local = threading.local()
 
+    def __getstate__(self) -> Dict[str, Any]:
+        # picklable (a rank of a spawned mesh sends its events back): the
+        # lock and the open-span stacks are the process's own
+        state = dict(self.__dict__)
+        del state["_lock"], state["_local"]
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
     # ------------------------------------------------------------- internals
     def _now_us(self) -> float:
         return (time.perf_counter_ns() - self._t0_ns) / 1e3
@@ -227,9 +239,9 @@ class Tracer:
     def clear(self) -> None:
         self._events = []
 
-    def to_chrome(self) -> Dict[str, Any]:
-        """Chrome trace-event JSON object format (Perfetto-loadable)."""
-        pid = 1
+    def to_chrome(self, pid: int = 1) -> Dict[str, Any]:
+        """Chrome trace-event JSON object format (Perfetto-loadable), the
+        tracer's events under process ``pid``."""
         out: List[Dict[str, Any]] = [
             {"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
              "args": {"name": self.process}},
@@ -251,8 +263,7 @@ class Tracer:
         return {"traceEvents": out, "displayTimeUnit": "ms"}
 
     def save_chrome_trace(self, path: str) -> None:
-        with open(path, "w") as f:
-            json.dump(self.to_chrome(), f)
+        save_chrome_traces(path, [self])
 
     def save_jsonl(self, path: str) -> None:
         """One JSON object per line: ``{name, cat, ph, ts_us, dur_us,
@@ -265,6 +276,17 @@ class Tracer:
                     "ts_us": e["ts"], "dur_us": e["dur"],
                     "track": names.get(e["tid"], str(e["tid"])),
                     "args": e["args"]}) + "\n")
+
+
+def save_chrome_traces(path: str, tracers: List["Tracer"]) -> None:
+    """One Chrome trace of several tracers, each its own process (pid 1,
+    2, ...): the ranks of a mesh run, each named by its tracer's
+    ``process``."""
+    events: List[Dict[str, Any]] = []
+    for pid, tr in enumerate(tracers, 1):
+        events += tr.to_chrome(pid)["traceEvents"]
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
 
 
 # ------------------------------------------------------------ global tracer

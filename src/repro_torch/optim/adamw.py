@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.distributed.act_sharding import is_sharded
+from repro_torch.distributed.act_sharding import is_sharded, zeros_beside
 from repro_torch.models.params import tree_leaves, tree_map
 
 PyTree = Any
@@ -61,9 +61,7 @@ def init_opt_state(params: PyTree, cfg: OptConfig) -> Dict[str, Any]:
     dt = getattr(torch, cfg.moment_dtype)
 
     def zeros(p: torch.Tensor) -> torch.Tensor:
-        if is_sharded(p):                 # the parameter's placements
-            return torch.zeros_like(p, dtype=dt)
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return zeros_beside(p, dt)        # the parameter's placements
     device = tree_leaves(params)[0].device
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

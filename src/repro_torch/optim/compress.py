@@ -12,15 +12,32 @@ Error feedback (EF-SGD): the compression residual is added back to the
 next call's gradient.  :func:`compress_leaf` does one leaf, so a caller
 that holds a large model (the local-SGD loop) can compress leaf by leaf
 and never hold a second fp32 copy of the whole tree.
+
+A leaf may be a DTensor (the local-SGD loop under a ``(data, model)``
+mesh), and is then compressed to exactly what the whole tensor would
+give:
+
+* ``int8`` quantizes 256-element blocks of the leaf's row-major
+  flattening.  Where the placement keeps those blocks whole on every
+  rank (:func:`blocks_whole`), each rank runs the kernels on its own
+  block (``to_local()``), moving nothing.  Otherwise the leaf is
+  gathered whole, quantized on every rank alike and each rank keeps its
+  block: at the smoke widths (``d_model`` 128 or 256 split in two or
+  four) most leaves take this branch, at opt-1.3b's widths on 2 x 2 and
+  1 x 4 none does.
+* ``topk`` picks over the whole leaf, so the leaf is always gathered
+  whole first: each rank selects what one device would, ties included.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed.act_sharding import is_sharded, zeros_beside
 from repro_torch.kernels.quant8 import ops as q8
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 
@@ -36,16 +53,55 @@ class CompressConfig:
 
 
 def init_error(params: PyTree) -> PyTree:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """fp32 zeros beside each leaf (placed as it, for a DTensor)."""
+    return tree_map(lambda p: zeros_beside(p, torch.float32), params)
+
+
+def blocks_whole(shape, placements, mesh_shape, block: int) -> bool:
+    """Whether a rank's block of a tensor of ``shape`` placed by DTensor
+    ``placements`` over a mesh of ``mesh_shape``, flattened, is a run of
+    whole ``block``-element blocks of the global flattening: with ``d``
+    the innermost dim split over more than one rank, its extent on a rank
+    times the dims after it must be a multiple of ``block`` (each
+    contiguous run of the rank's block then starts at a multiple of its
+    own length)."""
+    from torch.distributed.tensor import Shard
+    ways: dict = {}
+    for p, n in zip(placements, mesh_shape):
+        if isinstance(p, Shard) and n > 1:
+            ways[p.dim] = ways.get(p.dim, 1) * n
+    if not ways:
+        return True
+    d = max(ways)
+    if any(shape[k] % n for k, n in ways.items()):
+        return False
+    return (shape[d] // ways[d]) * math.prod(shape[d + 1:]) % block == 0
+
+
+def _whole_then_local(g, fn):
+    """``fn`` of the DTensor ``g`` gathered whole, each rank keeping its
+    block of the result (``fn`` runs alike on every rank)."""
+    from repro_torch.distributed.sharding import placed
+    return placed(fn(g.full_tensor()), g.device_mesh, g.placements)
 
 
 def _compress_leaf_int8(g: torch.Tensor, block: int) -> torch.Tensor:
+    if is_sharded(g):
+        if not blocks_whole(tuple(g.shape), g.placements,
+                            tuple(g.device_mesh.shape), block):
+            return _whole_then_local(
+                g, lambda x: _compress_leaf_int8(x, block))
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(
+            _compress_leaf_int8(g.to_local(), block), g.device_mesh,
+            g.placements, run_check=False, shape=g.shape, stride=g.stride())
     q, s, shape = q8.quantize(g, block)
     return q8.dequantize(q, s, shape, block, torch.float32)
 
 
 def _compress_leaf_topk(g: torch.Tensor, frac: float) -> torch.Tensor:
+    if is_sharded(g):
+        return _whole_then_local(g, lambda x: _compress_leaf_topk(x, frac))
     flat = g.reshape(-1).float()
     k = max(1, int(flat.shape[0] * frac))
     thresh = torch.topk(flat.abs(), k).values[-1]

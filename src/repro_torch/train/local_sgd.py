@@ -53,8 +53,23 @@ leaf: the loop never holds a second fp32 copy of the whole model beyond
 the accumulator.  Per round the host syncs with the device once (the loss
 fetch), unless an ``EnergyMonitor`` asks for one per step.
 ``LocalSGDResult.phase_s`` adds up the device time of the inner steps,
-the pseudo-gradients with their compression, and the outer updates,
-taken with CUDA events on the card (host clock on the CPU).
+the pseudo-gradients with their compression, the outer updates and the
+checkpoints, taken with CUDA events on the card (host clock on the CPU).
+
+Under an ambient ``(data, model)`` mesh (``act_sharding.use_mesh``, on
+every rank of it: ``distributed.spmd.local_sgd``) the same loops run
+with every piece of state a DTensor placed as its parameter
+(``sharding.param_shardings``): the global parameters, the working copy,
+the outer momentum, the accumulator, each replica's AdamW moments and
+error feedback.  The replicas still take turns, now on the one mesh (the
+JAX loop keeps them host-side as independent copies on whatever mesh is
+ambient); the inner steps are ``make_train_step`` on DTensors, the
+pseudo-gradients are compressed on each rank's blocks
+(``optim.compress``), and the outer update is elementwise on the local
+blocks, with no collective.  The wire bytes, the modelled sync and the
+virtual clock come from the global shapes and the losses, which every
+rank holds whole and alike, so every rank takes every branch (quorum,
+staleness, fault plan, health) the same way.
 """
 
 from __future__ import annotations
@@ -75,6 +90,7 @@ from repro_torch.core.net import sync_cost
 from repro_torch.core.placement import PlacementSpec
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.act_sharding import zeros_beside
 from repro_torch.models import params as PM
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.health import HealthMonitor
@@ -84,7 +100,8 @@ from repro_torch.optim import adamw
 from repro_torch.optim.compress import (CompressConfig, compress_leaf,
                                         wire_bytes)
 from repro_torch.train.step import make_train_step
-from repro_torch.train.trainer import TrainerConfig, _to_device
+from repro_torch.train.trainer import (TrainerConfig, _placed, _say,
+                                       _to_device)
 
 PyTree = Any
 Leaves = List[torch.Tensor]
@@ -143,7 +160,8 @@ class LocalSGDResult:
                                              # straggler (quorum shrunk)
     health_summary: Optional[Dict[str, Any]] = None
     # ---- the port's own ------------------------------------------------
-    # device seconds over the run: "inner", "pseudograd", "outer"
+    # device seconds over the run: "inner", "pseudograd", "outer" and,
+    # when it saved, "checkpoint"
     phase_s: Dict[str, float] = field(default_factory=dict)
     # the final {"params", "outer_m"}: what a checkpoint of it holds
     outer_state: Optional[Dict[str, PyTree]] = None
@@ -290,15 +308,17 @@ def _restore_outer_state(ls: LocalSGDConfig, global_params: PyTree,
     state = ckpt.restore(ls.checkpoint_dir,
                          {"params": global_params, "outer_m": momentum},
                          step=found)
-    print(f"[local_sgd] resumed from round {found} ({ls.checkpoint_dir})")
+    _say(f"[local_sgd] resumed from round {found} ({ls.checkpoint_dir})")
     return state["params"], state["outer_m"], found
 
 
 def _write_checkpoint(ls: LocalSGDConfig,
                       placement: Optional[PlacementSpec],
-                      state: Dict[str, PyTree], round_no: int, tr) -> None:
-    with tr.span("checkpoint", "local_sgd",
-                 metric="local_sgd/checkpoint_s", round=round_no):
+                      state: Dict[str, PyTree], round_no: int, tr,
+                      clock: "_PhaseClock") -> None:
+    with clock.phase("checkpoint"), \
+            tr.span("checkpoint", "local_sgd",
+                    metric="local_sgd/checkpoint_s", round=round_no):
         if placement is not None:
             # stage slots shard the outer state by the spec's boundaries
             # (each slot's nodes hold its layer range; replication adds
@@ -323,9 +343,10 @@ class _Fleet:
             params = PM.init_params(cfg, device=dev, seed=tc.seed)
         elif any(p.device != dev for p in PM.tree_leaves(params)):
             raise ValueError(f"params must live on {dev}")
+        params = _placed(cfg, params)
         self.like = PM.tree_map(lambda _: None, params)   # structure only
-        momentum = PM.tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        momentum = PM.tree_map(
+            lambda p: zeros_beside(p, torch.float32), params)
         params, momentum, self.start_round = _restore_outer_state(
             ls, params, momentum)
         self.glob: Leaves = [p.detach() for p in PM.tree_leaves(params)]
@@ -570,7 +591,7 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         if ls.checkpoint_dir and ls.checkpoint_every_rounds \
                 and (rnd + 1) % ls.checkpoint_every_rounds == 0:
             _write_checkpoint(ls, placement, fleet.state(),
-                              start_round + rnd + 1, tr)
+                              start_round + rnd + 1, tr, fleet.clock)
         # one host sync per round: replica-0 per-step losses + fleet mean
         with tr.span("metrics_drain", "local_sgd"):
             fetched = fetch_scalars(r0_losses + [round_loss_dev])
@@ -588,7 +609,7 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         round_span.__exit__(None, None, None)
         if tc.log_every and rnd % max(1, tc.log_every
                                       // ls.inner_steps) == 0:
-            print(f"round {rnd:4d}  mean loss {round_loss / R:.4f}")
+            _say(f"round {rnd:4d}  mean loss {round_loss / R:.4f}")
 
     wall = time.perf_counter() - t0
     res.rounds = rounds
@@ -800,7 +821,7 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         if ls.checkpoint_dir and ls.checkpoint_every_rounds \
                 and version % ls.checkpoint_every_rounds == 0:
             _write_checkpoint(ls, placement, fleet.state(),
-                              start_round + version, tr)
+                              start_round + version, tr, fleet.clock)
         for i in range(R):
             if reps[i].idle:
                 _start_round(i, t_up)

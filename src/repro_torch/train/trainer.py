@@ -20,13 +20,23 @@ format (``repro_torch.checkpoint``): the leaf-modulo layout, or with
 placement's stage boundaries with ``checkpoint_replication`` neighbour
 copies.  ``resume`` restores the newest complete checkpoint, written by
 either package under any layout and boundaries, first.
+
+Under an ambient ``(data, model)`` mesh (``act_sharding.use_mesh``, on
+every rank of it: ``distributed.spmd.train``) the same loop trains on
+DTensors: the weights are placed by ``sharding.shard_params`` (each rank
+keeps its block of the full tensors it was given, so the caller's
+tensors are not updated), the AdamW moments with them, and every batch by
+``shard_batch``; the metrics come back whole (``plain``), the same on
+every rank.  Checkpoints are saved one leaf-modulo shard a rank and
+restored into each rank's blocks (``repro_torch.checkpoint``); only rank
+0 prints.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ from repro_torch.core import flops as F
 from repro_torch.core.energy.monitor import EnergyMonitor
 from repro_torch.data.pipeline import make_batch_fn
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.act_sharding import current_mesh, mesh_rank
 from repro_torch.models import params as PM
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import (DeviceAccumulator, MetricsRegistry,
@@ -83,14 +94,35 @@ class TrainerResult:
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device
                ) -> Dict[str, torch.Tensor]:
     """numpy batch -> device tensors; through pinned memory and an
-    asynchronous copy when the device is a card."""
+    asynchronous copy when the device is a card.  Under an ambient mesh,
+    DTensors placed by ``sharding.shard_batch`` (every rank holds the
+    same whole batch and keeps its rows)."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.distributed.sharding import shard_batch
+        out = shard_batch(out, mesh)
     return out
+
+
+def _placed(cfg: ModelConfig, params: PyTree) -> PyTree:
+    """``params`` placed by ``sharding.shard_params`` under an ambient
+    mesh; as they are without one."""
+    mesh = current_mesh()
+    if mesh is None:
+        return params
+    from repro_torch.distributed.sharding import shard_params
+    return shard_params(params, cfg, mesh)
+
+
+def _say(msg: str) -> None:
+    if mesh_rank()[0] == 0:
+        print(msg)
 
 
 def train(cfg: ModelConfig, tc: TrainerConfig,
@@ -98,15 +130,22 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
           monitor: Optional[EnergyMonitor] = None,
           metrics: Optional[MetricsRegistry] = None, health=None, *,
           params: Optional[PyTree] = None,
-          device: DeviceLike = None) -> TrainerResult:
+          device: DeviceLike = None,
+          step_hook: Optional[Callable[[Callable], Callable]] = None
+          ) -> TrainerResult:
     """Train ``cfg`` for ``tc.steps`` steps on ``device`` (the card unless
     ``"cpu"`` is asked for).  ``params`` are the initial weights (for
-    example bridged from the JAX package), updated in place; by default
-    they are drawn with ``init_params(seed=tc.seed)``.  ``metrics`` opts
+    example bridged from the JAX package), updated in place (placed
+    copies under a mesh); by default they are drawn with
+    ``init_params(seed=tc.seed)``.  ``metrics`` opts
     into loss / grad-norm histograms, batched in a
     :class:`DeviceAccumulator` and drained at the log-window syncs.
     ``health`` (a :class:`repro_torch.obs.HealthMonitor`) receives every
-    loss the loop fetches, at the same sync points, never adding one."""
+    loss the loop fetches, at the same sync points, never adding one.
+    ``step_hook`` wraps the train step: ``spmd.train`` times each step
+    and counts its collectives there, which the tracer's spans cannot do,
+    since they neither synchronise the card at the step's bounds nor mark
+    its start for resetting the count."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or adamw.OptConfig(
         learning_rate=3e-4, warmup_steps=max(10, tc.steps // 20),
@@ -115,6 +154,7 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
         params = PM.init_params(cfg, device=dev, seed=tc.seed)
     elif any(p.device != dev for p in PM.tree_leaves(params)):
         raise ValueError(f"params must live on {dev}")
+    params = _placed(cfg, params)
     opt_state = adamw.init_opt_state(params, opt_cfg)
     start_step = 0
     if tc.resume and tc.checkpoint_dir:
@@ -128,11 +168,13 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
                     dst.copy_(src)
             del saved
             start_step = found
-            print(f"[trainer] resumed from step {found} "
-                  f"({tc.checkpoint_dir})")
+            _say(f"[trainer] resumed from step {found} "
+                 f"({tc.checkpoint_dir})")
     step_fn = make_train_step(cfg, opt_cfg, remat=tc.remat,
                               attn_impl=tc.attn_impl,
                               microbatches=tc.microbatches)
+    if step_hook is not None:
+        step_fn = step_hook(step_fn)
     data: Iterator = make_batch_fn(cfg, tc.batch, tc.seq_len, tc.seed)
 
     step_flops = F.train_flops(cfg, tc.batch, tc.seq_len,
@@ -206,9 +248,9 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
                             health.observe_loss(m["loss"])
                     host = fetched[-1]
                     pending.clear()
-                print(f"step {step:5d}  loss {host['loss']:.4f}  "
-                      f"gnorm {host['grad_norm']:.3f}  "
-                      f"lr {host['lr']:.2e}")
+                _say(f"step {step:5d}  loss {host['loss']:.4f}  "
+                     f"gnorm {host['grad_norm']:.3f}  "
+                     f"lr {host['lr']:.2e}")
             if tc.checkpoint_every and tc.checkpoint_dir \
                     and (step + 1) % tc.checkpoint_every == 0:
                 with tr.span("checkpoint", "train",

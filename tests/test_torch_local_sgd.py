@@ -237,15 +237,24 @@ def test_launcher_runs_local_sgd_on_the_cpu(mode, capsys):
     out = capsys.readouterr().out
     assert "[train] final loss" in out
     assert ("[train] async:" in out) == (mode != "sync")
-    # --mesh runs (one CPU rank here); with local SGD it raises, naming
-    # the queued ROADMAP item
+    # --mesh runs the trainer and the same local-SGD loop (one CPU rank
+    # here), printing the same final lines
     if mode == "sync":
         res = train.main(["--torch-device", "cpu", "--mesh", "1,1",
                           "--steps", "2", "--batch", "2", "--seq", "16"])
         assert len(res.values[0][0].losses) == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        train.main(["--torch-device", "cpu", "--mesh", "1,1",
-                     *argv[2:]])
+        capsys.readouterr()
+    res = train.main(["--torch-device", "cpu", "--mesh", "1,1", *argv[2:]])
+    mesh_out = capsys.readouterr().out
+
+    def final(text, prefix):
+        return [line.split("  ")[0] for line in text.splitlines()
+                if line.startswith(prefix)]
+    assert final(mesh_out, "[train] final loss") == \
+        final(out, "[train] final loss")
+    assert final(mesh_out, "[train] async:") == final(out, "[train] async:")
+    assert res.values[0][0].result.mode == ("sync" if mode == "sync"
+                                            else "async")
     # --health-out and --slo are ported: the record passes the validator
     import tempfile
     from repro_torch.obs.validate import validate
