@@ -47,9 +47,15 @@ one-line verdict summary at the end of the run.  Check the record with
 ``python -m repro_torch.obs.analyze alerts health.jsonl``.
 
 Telemetry: ``--trace-out trace.json`` writes a Chrome-trace / Perfetto
-timeline of the step phases (data / fwd_bwd_opt / metrics drain);
+timeline: the host spans (``step``, ``data``, ``metrics_drain``,
+``checkpoint``; local SGD's ``round``, ``replica``, ``inner_step``,
+``pseudograd``, ``outer_sync``) and, on a ``device`` track, the device
+time of the phases (``step`` / ``inner_step``, ``fwd_bwd``,
+``accumulate``, ``compress``, ``adamw``, ``outer_sync``), each event
+carrying its span's ``id`` and ``parent``;
 ``--metrics-out metrics.jsonl`` writes the metrics registry (per-phase
-step-time histograms, loss and grad-norm distributions).
+histograms, ``train/step_s`` in device seconds, loss and grad-norm
+distributions).
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --torch-device cpu

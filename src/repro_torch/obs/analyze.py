@@ -158,24 +158,61 @@ def top_spans(events: List[Dict[str, Any]], k: int = 10
     return rows
 
 
+def _ancestors(e: Dict[str, Any], up: Dict[tuple, Optional[int]]
+               ) -> Optional[set]:
+    """Ids of the spans that caused ``e`` (its host span's too, for a
+    phase on the device track), each with its process: None for an event
+    without span ids."""
+    a, pid = e.get("args") or {}, e.get("pid")
+    if "span" in a:
+        i = a["span"]
+    elif "id" in a:
+        i = a.get("parent")
+    else:
+        return None
+    out = set()
+    while i is not None and (pid, i) not in out:
+        out.add((pid, i))
+        i = up.get((pid, i))
+    return out
+
+
 def critical_path(events: List[Dict[str, Any]], parent: str = "round"
                   ) -> List[Dict[str, Any]]:
     """For each span named ``parent``, break its wall time into child
-    phases (spans fully inside its [ts, ts+dur) on any track) plus the
-    uncovered gap.  With concurrent children the per-phase sums can
-    exceed wall time — that is signal (parallelism), not error."""
+    phases plus the uncovered gap.  A child is a span that the parent
+    caused, by the span ids the port's tracer records (a device-track
+    phase counts as ``<name>@device``, and covers only the part of it
+    inside the parent's wall), or, for events without ids, a span fully
+    inside its [ts, ts+dur) on any track.  With concurrent children the per-phase sums can exceed
+    wall time — that is signal (parallelism), not error."""
     spans = complete_spans(events)
-    parents = [e for e in spans if e.get("name") == parent]
+    up = {(e.get("pid"), e["args"]["id"]): e["args"].get("parent")
+          for e in spans if "id" in (e.get("args") or {})}
+    causes = [_ancestors(e, up) for e in spans]
+    parents = [e for e in spans if e.get("name") == parent
+               and "span" not in (e.get("args") or {})]
     parents.sort(key=lambda e: e.get("ts", 0))
     rows = []
     for i, p in enumerate(parents):
         t0, t1 = p["ts"], p["ts"] + p["dur"]
+        pid = (p.get("args") or {}).get("id")
+        pid = None if pid is None else (p.get("pid"), pid)
         phases: Dict[str, float] = defaultdict(float)
         covered: List[Tuple[float, float]] = []
-        for e in spans:
-            if e is p or e.get("name") == parent:
+        for e, cause in zip(spans, causes):
+            device = "span" in (e.get("args") or {})
+            if e is p or (e.get("name") == parent and not device):
                 continue
-            if e["ts"] >= t0 and e["ts"] + e["dur"] <= t1:
+            if pid is not None and cause is not None:
+                if pid not in cause:
+                    continue
+                a, b = max(e["ts"], t0), min(e["ts"] + e["dur"], t1)
+                name = e.get("name", "?") + ("@device" if device else "")
+                phases[name] += e["dur"] / 1e6
+                if b > a:
+                    covered.append((a, b))
+            elif e["ts"] >= t0 and e["ts"] + e["dur"] <= t1:
                 phases[e.get("name", "?")] += e["dur"] / 1e6
                 covered.append((e["ts"], e["ts"] + e["dur"]))
         # merged coverage → uncovered gap on the parent's wall

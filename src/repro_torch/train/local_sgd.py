@@ -54,7 +54,11 @@ the accumulator.  Per round the host syncs with the device once (the loss
 fetch), unless an ``EnergyMonitor`` asks for one per step.
 ``LocalSGDResult.phase_s`` adds up the device time of the inner steps,
 the pseudo-gradients with their compression, the outer updates and the
-checkpoints, taken with CUDA events on the card (host clock on the CPU).
+checkpoints, taken with CUDA events on the card (host clock on the CPU)
+by an always-on ``obs.trace.PhaseClock``, folded at each loss fetch.
+With the global tracer on, ``inner_step`` (``local_sgd/inner_step_s``),
+each leaf's ``compress`` and ``outer_sync`` are device phases of the
+tracer, and ``data`` a host span around each inner step's batch.
 
 Under an ambient ``(data, model)`` mesh (``act_sharding.use_mesh``, on
 every rank of it: ``distributed.spmd.local_sgd``) the same loops run
@@ -76,9 +80,8 @@ from __future__ import annotations
 
 import heapq
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -95,7 +98,7 @@ from repro_torch.models import params as PM
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.health import HealthMonitor
 from repro_torch.obs.metrics import MetricsRegistry, fetch_scalars
-from repro_torch.obs.trace import get_tracer
+from repro_torch.obs.trace import PhaseClock, get_tracer
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import (CompressConfig, compress_leaf,
                                         wire_bytes)
@@ -165,39 +168,6 @@ class LocalSGDResult:
     phase_s: Dict[str, float] = field(default_factory=dict)
     # the final {"params", "outer_m"}: what a checkpoint of it holds
     outer_state: Optional[Dict[str, PyTree]] = None
-
-
-class _PhaseClock:
-    """Adds up phase times on the device's own clock: CUDA events on the
-    card (read once, at the end), the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: List[Tuple[str, Any, Any]] = []
-
-    @contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        if self.cuda:
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            yield
-            b.record()
-        else:
-            a = time.perf_counter()
-            yield
-            b = time.perf_counter()
-        self.marks.append((name, a, b))
-
-    def totals(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for name, a, b in self.marks:
-            if self.cuda:
-                b.synchronize()
-                s = a.elapsed_time(b) / 1e3
-            else:
-                s = b - a
-            out[name] = out.get(name, 0.0) + s
-        return out
 
 
 @torch.no_grad()
@@ -315,7 +285,7 @@ def _restore_outer_state(ls: LocalSGDConfig, global_params: PyTree,
 def _write_checkpoint(ls: LocalSGDConfig,
                       placement: Optional[PlacementSpec],
                       state: Dict[str, PyTree], round_no: int, tr,
-                      clock: "_PhaseClock") -> None:
+                      clock: PhaseClock) -> None:
     with clock.phase("checkpoint"), \
             tr.span("checkpoint", "local_sgd",
                     metric="local_sgd/checkpoint_s", round=round_no):
@@ -365,7 +335,7 @@ class _Fleet:
                                       tc.seed + 1000 * r) for r in range(R)]
         self.wire_b = wire_bytes(self.glob,
                                  ls.compress or CompressConfig("none"))
-        self.clock = _PhaseClock(dev)
+        self.clock = PhaseClock(dev)
 
     def tree(self, leaves: Leaves) -> PyTree:
         return PM.tree_unflatten(self.like, leaves)
@@ -388,9 +358,12 @@ class _Fleet:
             s = self.opt_states[r]
             t_prev = time.perf_counter()
             for _ in range(k):
-                with tr.span("inner_step", "local_sgd",
-                             metric="local_sgd/inner_step_s"):
-                    batch = _to_device(next(self.streams[r]), self.dev)
+                with tr.device_phase("inner_step", "local_sgd",
+                                     device=self.dev,
+                                     metric="local_sgd/inner_step_s"):
+                    with tr.span("data", "local_sgd",
+                                 metric="local_sgd/data_s"):
+                        batch = _to_device(next(self.streams[r]), self.dev)
                     _, s, mx = self.step_fn(self.work, s, batch)
                 losses.append(mx["loss"])
                 if monitor is not None:
@@ -416,12 +389,16 @@ class _Fleet:
         on = comp is not None and comp.method != "none"
         if on and comp.error_feedback and self.errors[r] is None:
             self.errors[r] = [None] * len(start)
+        tr = get_tracer()
         out = []
         for i, (g, l) in enumerate(zip(start, local)):
             d = g.float() - l.float()
             if on:
                 e = self.errors[r][i] if comp.error_feedback else None
-                d, e = compress_leaf(d, e, comp)
+                with tr.device_phase("compress", "local_sgd",
+                                     device=self.dev,
+                                     metric="local_sgd/compress_s", leaf=i):
+                    d, e = compress_leaf(d, e, comp)
                 if comp.error_feedback:
                     self.errors[r][i] = e
             if acc is None:
@@ -433,6 +410,13 @@ class _Fleet:
 
     def outer(self, mean_delta: Leaves) -> None:
         self.glob = _outer_update(self.glob, mean_delta, self.mom, self.ls)
+
+    def read_clocks(self) -> None:
+        """Read the finished phases of the loop's clock and the tracer's;
+        called right after a loss fetch, where the host has already
+        waited for the card."""
+        self.clock.fold()
+        get_tracer().resolve()
 
     def state(self) -> Dict[str, PyTree]:
         return {"params": self.tree(self.glob),
@@ -576,9 +560,9 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
             round_dur = max(round_dur, dur_r)
 
         with fleet.clock.phase("outer"), \
-                tr.span("outer_sync", "local_sgd",
-                        metric="local_sgd/outer_sync_s",
-                        wire_bytes_per_replica=wire_b, replicas=R):
+                tr.device_phase("outer_sync", "local_sgd", device=dev,
+                                metric="local_sgd/outer_sync_s",
+                                wire_bytes_per_replica=wire_b, replicas=R):
             with torch.no_grad():
                 for d in deltas:
                     d.div_(float(R))
@@ -595,6 +579,7 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         # one host sync per round: replica-0 per-step losses + fleet mean
         with tr.span("metrics_drain", "local_sgd"):
             fetched = fetch_scalars(r0_losses + [round_loss_dev])
+        fleet.read_clocks()
         res.losses.extend(fetched[:-1])
         round_loss = fetched[-1]
         res.round_losses.append(round_loss / R)
@@ -637,6 +622,7 @@ def train_local_sgd(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         res.replica_regions = replica_regions
         res.comm_time_s_per_step = comm_round_s / ls.inner_steps
     res.phase_s = fleet.clock.totals()
+    tr.resolve()
     res.outer_state = fleet.state()
     return res
 
@@ -757,10 +743,10 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
             wsum = float(len(order)) if uniform else sum(weights)
             for a in acc:
                 a.div_(wsum)
-            with tr.span("outer_sync", "local_sgd",
-                         metric="local_sgd/outer_sync_s",
-                         wire_bytes_per_replica=wire_b, reports=len(order),
-                         version=version):
+            with tr.device_phase("outer_sync", "local_sgd", device=dev,
+                                 metric="local_sgd/outer_sync_s",
+                                 wire_bytes_per_replica=wire_b,
+                                 reports=len(order), version=version):
                 fleet.outer(acc)
         del acc
         version += 1
@@ -769,6 +755,7 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         for r in order:
             loss_dev = loss_dev + reports[r][2]
         round_loss = fetch_scalars([loss_dev])[0] / len(order)
+        fleet.read_clocks()
         res.round_losses.append(round_loss)
         if health is not None:
             health.observe_loss(round_loss, ts_s=t)
@@ -861,6 +848,7 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         res.inner_steps_total += ks[r]
         if r == 0:
             fetched = fetch_scalars(losses)
+            fleet.read_clocks()
             res.losses.extend(fetched)
             if metrics is not None:
                 for x in fetched:
@@ -927,5 +915,6 @@ def _train_async(cfg: ModelConfig, tc: TrainerConfig, ls: LocalSGDConfig,
         res.replica_regions = replica_regions
         res.comm_time_s_per_step = comm_round_s / ls.inner_steps
     res.phase_s = fleet.clock.totals()
+    tr.resolve()
     res.outer_state = fleet.state()
     return res

@@ -12,6 +12,13 @@ parameters and moments are DTensors placed by
 tensors the model makes on the way (positions, masks, the rotary
 frequencies) count as replicated, and each gradient comes back with its
 parameter's placements before the update.
+
+Each part of the step is a device phase of the global tracer
+(``obs.trace``): ``fwd_bwd`` for each microbatch's forward and backward,
+``accumulate`` for the fp32 gradient sums and their division,
+``compress`` for the step's compressor and ``adamw`` for the update
+(the global-norm clip included).  With the tracer off each is the
+tracer's shared no-op span.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from repro_torch.distributed.act_sharding import is_sharded, mesh_ops, plain
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves
+from repro_torch.obs.trace import get_tracer
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import CompressConfig, compress_grads
 
@@ -97,26 +105,38 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, *,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[PyTree, Dict[str, Any], Dict[str, torch.Tensor]]:
         leaves = _trainable(params)
+        tr, dev = get_tracer(), leaves[0].device
+
+        def phase(name: str, **attrs):
+            return tr.device_phase(name, "train", device=dev,
+                                   metric=f"train/{name}_s", **attrs)
+
         if microbatches > 1:
             gsum: Optional[List[torch.Tensor]] = None
-            for mb in _split_microbatches(batch, microbatches):
-                loss, _, g = loss_and_grads(leaves, params, mb)
-                if gsum is None:
-                    gsum, lsum = [x.float() for x in g], loss
-                else:
-                    for a, b in zip(gsum, g):
-                        a.add_(b.float())
-                    lsum = lsum + loss
+            for i, mb in enumerate(_split_microbatches(batch, microbatches)):
+                with phase("fwd_bwd", microbatch=i):
+                    loss, _, g = loss_and_grads(leaves, params, mb)
+                with phase("accumulate"):
+                    if gsum is None:
+                        gsum, lsum = [x.float() for x in g], loss
+                    else:
+                        for a, b in zip(gsum, g):
+                            a.add_(b.float())
+                        lsum = lsum + loss
                 del g
-            grads = [g.div_(microbatches) for g in gsum]
-            loss = lsum / microbatches
+            with phase("accumulate"):
+                grads = [g.div_(microbatches) for g in gsum]
+                loss = lsum / microbatches
             metrics: Dict[str, torch.Tensor] = {}
         else:
-            loss, metrics, grads = loss_and_grads(leaves, params, batch)
+            with phase("fwd_bwd"):
+                loss, metrics, grads = loss_and_grads(leaves, params, batch)
         if compress is not None and compress.method != "none":
-            grads, _ = compress_grads(grads, None, compress)
-        params, opt_state, opt_metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg)
+            with phase("compress"):
+                grads, _ = compress_grads(grads, None, compress)
+        with phase("adamw"):
+            params, opt_state, opt_metrics = adamw.apply_updates(
+                params, grads, opt_state, opt_cfg)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics
 

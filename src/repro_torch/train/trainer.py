@@ -13,7 +13,14 @@ The hot loop never waits for the card unless asked to:
   data generation and transfer overlap the card's compute.
 
 Passing an ``EnergyMonitor`` opts back into one sync per step: energy
-accounting needs each step's true wall-clock time.  ``checkpoint_dir`` /
+accounting needs each step's true wall-clock time.
+
+With the global tracer on, each ``step`` is a device phase (its
+``train/step_s`` histogram holds device seconds, as do the train step's
+own ``fwd_bwd`` / ``accumulate`` / ``compress`` / ``adamw`` phases), and
+``data`` is a host span: the loop's wait for its next batch (generation,
+pinning and the copy's enqueue).  The phases are read where the loop
+already syncs: the metrics drain and the end.  ``checkpoint_dir`` /
 ``checkpoint_every`` save ``{"params", "opt"}`` in the JAX package's
 format (``repro_torch.checkpoint``): the leaf-modulo layout, or with
 ``checkpoint_placement`` the elastic layer-sliced one, sharded by the
@@ -192,20 +199,19 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
         return [dict(zip(keys, flat[i:i + 3]))
                 for i in range(0, len(flat), 3)]
 
-    batch = _to_device(next(data), dev) if tc.prefetch else None
+    batch = None
+    if tc.prefetch:
+        with tr.span("data", "train", metric="train/data_s"):
+            batch = _to_device(next(data), dev)
     t0 = time.perf_counter()
     t_prev = t0
     for step in range(tc.steps):
-        with tr.span("step", "train", metric="train/step_s",
-                     step=start_step + step):
+        with tr.device_phase("step", "train", device=dev,
+                             metric="train/step_s", step=start_step + step):
             if not tc.prefetch:
                 with tr.span("data", "train", metric="train/data_s"):
                     batch = _to_device(next(data), dev)
-            # the span times host-side queueing under the async loop and
-            # the true step time under the sync loop
-            with tr.span("fwd_bwd_opt", "train",
-                         metric="train/fwd_bwd_opt_s"):
-                params, opt_state, mx = step_fn(params, opt_state, batch)
+            params, opt_state, mx = step_fn(params, opt_state, batch)
             if tc.prefetch and step + 1 < tc.steps:
                 with tr.span("data", "train", metric="train/data_s"):
                     batch = _to_device(next(data), dev)
@@ -213,6 +219,7 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
             host: Optional[Dict[str, float]] = None
             if sync_every_step:
                 host = fetch([mx])[0]                # one sync per step
+                tr.resolve()
                 result.losses.append(host["loss"])
                 if health is not None:
                     health.observe_loss(host["loss"])
@@ -242,6 +249,7 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
                         fetched = fetch(pending)
                         if acc is not None:
                             acc.drain()
+                    tr.resolve()
                     result.losses.extend(m["loss"] for m in fetched)
                     if health is not None:
                         for m in fetched:
@@ -277,6 +285,7 @@ def train(cfg: ModelConfig, tc: TrainerConfig,
         acc.drain()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    tr.resolve()
     if metrics is not None:
         metrics.counter("train/steps").inc(tc.steps)
         metrics.counter("train/tokens").inc(tc.steps * tc.batch * tc.seq_len)

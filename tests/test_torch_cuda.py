@@ -1157,3 +1157,37 @@ def test_cuda_mesh_on_four_gloo_ranks_equals_forward_train(cuda, arch,
     assert res.launches[0] == {"flash_attention_fwd": n,
                                "flash_attention_bwd_dq": n,
                                "flash_attention_bwd_dkdv": n}
+
+
+@pytest.mark.cuda
+def test_cuda_device_phases_time_the_card_without_waiting(cuda, monkeypatch):
+    """A device phase on the card is two CUDA events on the current
+    stream: ``resolve`` reads a pair only once the card has passed it and
+    never waits, the device time covers the queued work (not its
+    enqueue), and a phase begun after a resolve at a wait is placed on
+    the host's clock no earlier than its launch."""
+    import time
+
+    from repro_torch.obs.trace import Tracer
+    waits = []
+    real = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda self: waits.append(1) or real(self))
+    tr = Tracer(enabled=True)
+    x = torch.randn(4096, 4096, device=cuda)
+    torch.cuda.synchronize()
+    tr.resolve()                        # the card has caught up: anchor
+    t = time.perf_counter()
+    with tr.span("step"):
+        with tr.device_phase("mm", device=cuda):
+            for _ in range(50):
+                x = torch.tanh(x @ x)
+    host_s = time.perf_counter() - t
+    tr.resolve()
+    torch.cuda.synchronize()
+    tr.resolve()
+    (dev,) = [e for e in tr.events if "span" in e]
+    host = {e["id"]: e for e in tr.events if "id" in e}[dev["span"]]
+    assert dev["dur"] / 1e6 > host_s
+    assert dev["ts"] >= host["ts"] - 50.0
+    assert not waits

@@ -376,5 +376,6 @@ def test_train_launcher_runs_on_the_cpu(tmp_path, capsys):
     assert "final loss" in text and "gCO2e" in text
     lines = [json.loads(l) for l in mets.read_text().splitlines()]
     names = {l.get("name") for l in lines}
-    assert {"train/step_s", "train/loss", "train/fwd_bwd_opt_s"} <= names
+    assert {"train/step_s", "train/loss", "train/data_s", "train/fwd_bwd_s",
+            "train/adamw_s"} <= names
     assert json.loads(trace.read_text())["traceEvents"]
