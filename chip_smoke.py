@@ -50,8 +50,9 @@ Phases (any failure exits nonzero):
    tensor cores);
 4. train opt-1.3b at full width and depth in bf16 (4 x 2048 tokens, random
    weights from a seed) through ``repro_torch.train.trainer.train`` with
-   the kernels for 8 steps, check the losses and that every attention
-   layer of every step launched each kernel once, compare one step's loss
+   the kernels for 8 steps, check the losses, that every attention
+   layer of every step launched each FA-2 kernel once and every leaf of
+   every step each AdamW kernel once, compare one step's loss
    and gradient norm between the kernels and the plain chunked path (bf16
    and fp32 compute), and profile one step;
 5. hold the int8 quantize/dequantize kernels against their plain
@@ -274,10 +275,27 @@ Phases (any failure exits nonzero):
    launcher's ``--mesh 2,2 --local-sgd`` rank call with int8 sync, a
    round-2 checkpoint and the trace, metrics, health and SLO records:
    losses within phase 4's bf16 bars of phase 6's, the same wire bytes,
-   192 launches of each FA-2 kernel a rank (all bf16 tensor-core) and 68
-   of each quant8 kernel a rank, every record valid, the checkpoint
+   192 launches of each FA-2 kernel a rank (all bf16 tensor-core), 68
+   of each quant8 kernel a rank and one of each AdamW kernel a rank's
+   block of a leaf an inner step, every record valid, the checkpoint
    restored by one process equal to the joined final state bit for bit,
    each rank's ms a round by part and its peak memory.
+
+25. hold the AdamW kernels (``kernels/adamw``: the clipping norm's sum of
+   squares and the fused update) against the plain loop on every dtype
+   grid point (fp32/bf16 parameters, gradients and moments) at ragged 1-D
+   and 2-D lengths: the moments and parameters equal or one unit in the
+   last place apart (the count of unequal elements is printed), the
+   norm within fp32 round-off and the same bits twice; then, at each of
+   two full-size leaves, one step of the kernels against the plain loop
+   on clones of the same tensors (the same bars), and the update and the
+   norm timed, kernel and plain version, against the bound
+   (22 bytes a parameter with bf16 gradients, 24 with fp32 ones, at 3.35
+   TB/s) at opt-1.3b's fc1 leaf (402,653,184 parameters, bf16 p and g)
+   and at granite-3-2b's largest leaf (671,088,640, bf16 p, fp32 g, the
+   sum of microbatches).  It runs after phase 5, with its timer; phases
+   4, 6 and 24 (b) count the two kernels' launches (one each a leaf a
+   step).
 
 ``--phases 3,11`` runs only those phases (after the build) and prints no
 kernels line and no final line.  The last line is ``{"ok": true,
@@ -1340,6 +1358,7 @@ def phase_train(torch, np, device):
     from repro_torch.configs import get_config
     from repro_torch.core import flops as F
     from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels.adamw import kernel as AK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models import model as M
     from repro_torch.models.params import init_params, tree_map
@@ -1356,13 +1375,14 @@ def phase_train(torch, np, device):
         f"{Bt} x {St} tokens a step")
     kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
                FK.flash_attention_bwd_dkdv)
+    optimizer = (AK.square_sums, AK.adamw_update)
     torch.cuda.reset_peak_memory_stats()
-    for f in kernels:
+    for f in kernels + optimizer:
         f.launches = 0
     res = train(cfg, TrainerConfig(steps=steps, batch=Bt, seq_len=St,
                                    attn_impl="kernel", seed=0),
                 device=device)
-    launches = {f.__name__: f.launches for f in kernels}
+    launches = {f.__name__: f.launches for f in kernels + optimizer}
     peak = torch.cuda.max_memory_allocated()
     step_s = 1.0 / res.steady_steps_per_s
     tflops = F.train_flops(cfg, Bt, St, remat=False) / step_s / 1e12
@@ -1374,12 +1394,16 @@ def phase_train(torch, np, device):
         f"{tflops:.1f} TFLOP/s = {100 * tflops * 1e12 / BF16_FLOP_PER_S:.1f}"
         f"% of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s")
     n = cfg.num_layers * steps
-    log(f"FA-2 launches {launches}, expected {cfg.num_layers} x {steps} = "
-        f"{n} each")
+    n_opt = len(opt_leaf_sizes()) * steps
+    log(f"launches {launches}, expected FA-2 {cfg.num_layers} x {steps} = "
+        f"{n} each, AdamW norm and update {len(opt_leaf_sizes())} leaves x "
+        f"{steps} = {n_opt} each")
     if len(res.losses) != steps or not all(np.isfinite(res.losses)):
         fail(f"non-finite or missing losses: {res.losses}")
-    if any(v != n for v in launches.values()):
-        fail(f"FA-2 kernel launches {launches} != {n} each")
+    if any(launches[f.__name__] != n for f in kernels) or any(
+            launches[f.__name__] != n_opt for f in optimizer):
+        fail(f"launches {launches} are not {n} (FA-2) and {n_opt} (AdamW) "
+             "each")
     del res
     torch.cuda.empty_cache()
 
@@ -1586,6 +1610,167 @@ def phase_quant8(torch, device, timer):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 25: the AdamW kernels
+# --------------------------------------------------------------------------- #
+
+ADAMW_SHAPES = [(1_000_003,), (333, 77), (2, 3, 129)]
+# (label, parameters, gradient dtype): opt-1.3b's fc1 leaf as local SGD's
+# inner steps update it, granite-3-2b's largest leaf after the fp32 sum of
+# its microbatches
+ADAMW_LEAVES = [("opt-1.3b fc1", 24 * 2048 * 8192, "bfloat16"),
+                ("granite-3-2b wg", 40 * 2048 * 8192, "float32")]
+
+
+def ulps(torch, a, b):
+    """The largest distance between a and b in units in the last place
+    of their dtype (fp32 or bf16)."""
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int16
+    sign = -(1 << (8 * ints.itemsize - 1))
+
+    def ordered(t):
+        i = t.contiguous().view(ints).long()
+        return torch.where(i < 0, sign - i, i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def adamw_hyper(torch, device, step=2, clip=0.37):
+    t = torch.tensor(step, device=device)
+    return dict(lr=torch.tensor(3e-3, device=device),
+                clip=torch.tensor(clip, device=device),
+                bc1=1.0 - torch.pow(0.9, t.float()),
+                bc2=1.0 - torch.pow(0.95, t.float()), b1=0.9, b2=0.95,
+                eps=1e-8, weight_decay=0.1)
+
+
+def adamw_check(torch, device):
+    """The update kernel against the plain loop over the dtype grid, 3
+    steps a leaf, and the norm kernel against the plain sum; returns
+    (worst ulps, unequal elements, elements compared, worst relative
+    norm difference)."""
+    from repro_torch.kernels.adamw import kernel as AK
+    from repro_torch.kernels.adamw import ref as AR
+    g = torch.Generator(device=device).manual_seed(25)
+    dts = (torch.float32, torch.bfloat16)
+    worst, unequal, seen = 0, 0, 0
+    for pd in dts:
+        for gd in dts:
+            for md in dts:
+                for shape in ADAMW_SHAPES:
+                    p = torch.randn(shape, generator=g, device=device).to(pd)
+                    mu = torch.zeros(shape, device=device, dtype=md)
+                    nu = torch.zeros(shape, device=device, dtype=md)
+                    want = [t.clone() for t in (p, mu, nu)]
+                    for step in (1, 2, 3):
+                        grad = torch.randn(shape, generator=g,
+                                           device=device).to(gd)
+                        hyper = adamw_hyper(torch, device, step)
+                        decay = len(shape) >= 2
+                        AK.adamw_update(p, grad, mu, nu, decay=decay,
+                                        **hyper)
+                        AR.adamw_update_reference(
+                            want[0], grad, want[1], want[2], decay=decay,
+                            **hyper)
+                    for got, ref in zip((p, mu, nu), want):
+                        worst = max(worst, ulps(torch, got, ref))
+                        unequal += int((got != ref).sum())
+                        seen += got.numel()
+    if worst > 1:
+        fail(f"the AdamW update kernel is {worst} units in the last place "
+             "from the plain loop (at most 1 allowed)")
+    xs = [torch.randn(n, generator=g, device=device).to(dt)
+          for n in (7, 4099, 1_000_003) for dt in dts]
+    got, again = AK.square_sums(xs), AK.square_sums(xs)
+    want = torch.stack([AR.square_sum_reference(x) for x in xs])
+    rel = float(((got - want).abs() / want).max())
+    if not torch.equal(got, again) or rel > 1e-5:
+        fail(f"the AdamW norm kernel: relative difference {rel:.3e} from "
+             f"the plain sum, or two calls differ")
+    return worst, unequal, seen, rel
+
+
+def time_adamw(torch, device, timer, label, n, g_dtype):
+    """Update and norm at one leaf: kernel, plain version and bound."""
+    from repro_torch.kernels.adamw import kernel as AK
+    from repro_torch.kernels.adamw import ref as AR
+    gd = getattr(torch, g_dtype)
+    gen = torch.Generator(device=device).manual_seed(26)
+    p = torch.randn(n, generator=gen, device=device).bfloat16()
+    grad = (torch.randn(n, generator=gen, device=device) * 1e-3).to(gd)
+    mu = torch.randn(n, generator=gen, device=device) * 1e-4
+    nu = torch.rand(n, generator=gen, device=device) * 1e-8
+    hyper = adamw_hyper(torch, device)
+
+    # first held to the plain loop at this size, on clones of the same
+    # tensors: the 64-bit offsets, the grid-stride trips of a leaf this
+    # long and the norm's fixed NORM_BLOCKS partials
+    want = [t.clone() for t in (p, mu, nu)]
+    AK.adamw_update(p, grad, mu, nu, decay=True, **hyper)
+    AR.adamw_update_reference(want[0], grad, want[1], want[2], decay=True,
+                              **hyper)
+    chunk = 1 << 26            # ulps() makes int64 copies of what it reads
+    worst = max(ulps(torch, a[i:i + chunk], b[i:i + chunk])
+                for a, b in zip((p, mu, nu), want)
+                for i in range(0, n, chunk))
+    unequal = sum(int((a != b).sum()) for a, b in zip((p, mu, nu), want))
+    del want
+    norm, norm_want = AK.square_sums([grad])[0], AR.square_sum_reference(grad)
+    norm_rel = float((norm - norm_want).abs() / norm_want)
+    log(f"AdamW at {label}, one step against the plain loop: worst {worst} "
+        f"units in the last place, {unequal} of {3 * n} elements unequal; "
+        f"norm kernel within {norm_rel:.3e} of the plain sum")
+    if worst > 1:
+        fail(f"the AdamW update kernel at {label} is {worst} units in the "
+             "last place from the plain loop (at most 1 allowed)")
+    if not norm_rel <= 1e-5:
+        fail(f"the AdamW norm kernel at {label}: relative difference "
+             f"{norm_rel:.3e} from the plain sum (at most 1e-5)")
+
+    def update():
+        AK.adamw_update(p, grad, mu, nu, decay=True, **hyper)
+    ms = timer.ms(update)
+    spread = timer.spread
+    dev_ms = timer.device_ms(update, ["adamw_update_kernel"])
+    plain_ms = timer.ms(lambda: AR.adamw_update_reference(
+        p, grad, mu, nu, decay=True, **hyper), iters=5)
+    nbytes = n * (2 * 2 + gd.itemsize + 2 * 4 * 2)
+    norm_ms = timer.ms(lambda: AK.square_sums([grad]))
+    norm_plain_ms = timer.ms(lambda: AR.square_sum_reference(grad), iters=5)
+    norm_bytes = n * gd.itemsize
+    out = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "max_ulps": worst, "unequal": unequal,
+           "norm": {"ms": norm_ms, "plain_ms": norm_plain_ms,
+                    "bound_ms": norm_bytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes"}}
+    log(f"timing AdamW update at {label} ({n} parameters, bf16 p, "
+        f"{g_dtype} g, fp32 moments): kernel_ms {ms:.4f} (min "
+        f"{spread[0]:.4f} max {spread[1]:.4f}; device_ms {dev_ms:.4f}) "
+        f"plain_ms {plain_ms:.4f} library_ms none (torch._fused_adamw_ "
+        f"keeps the moments in the parameter's dtype and does not clip) "
+        f"bound_ms {out['bound_ms']:.4f} ({nbytes / 1e9:.3f} GB, "
+        f"{nbytes // n} B a parameter, bound by bytes); "
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved")
+    log(f"timing AdamW norm at {label}: kernel_ms {norm_ms:.4f} plain_ms "
+        f"{norm_plain_ms:.4f} bound_ms {out['norm']['bound_ms']:.4f} "
+        f"({norm_bytes / 1e9:.3f} GB read); "
+        f"{norm_bytes / norm_ms / 1e6:.0f} GB/s achieved")
+    return out
+
+
+def phase_adamw(torch, device, timer):
+    worst, unequal, seen, rel = adamw_check(torch, device)
+    log(f"AdamW update kernel vs the plain loop over {len(ADAMW_SHAPES)} "
+        f"leaves x 8 dtype triples x 3 steps: worst {worst} units in the "
+        f"last place, {unequal} of {seen} elements unequal; norm kernel "
+        f"within {rel:.3e} of the plain sum, the same bits twice")
+    timing = {}
+    for label, n, g_dtype in ADAMW_LEAVES:
+        timing[label] = time_adamw(torch, device, timer, label, n, g_dtype)
+        torch.cuda.empty_cache()
+    return worst, unequal, timing
+
+
+# --------------------------------------------------------------------------- #
 # Phase 6: local SGD at full width
 # --------------------------------------------------------------------------- #
 
@@ -1681,6 +1866,7 @@ def local_sgd_configs(seq=None, **ls_kw):
 
 def phase_local_sgd(torch, np, device):
     from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import kernel as AK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.quant8.kernel import (dequantize_blocks,
                                                    quantize_blocks)
@@ -1700,16 +1886,17 @@ def phase_local_sgd(torch, np, device):
     kernels = (FK.flash_attention_fwd, FK.flash_attention_bwd_dq,
                FK.flash_attention_bwd_dkdv, quantize_blocks,
                dequantize_blocks)
+    optimizer = (AK.square_sums, AK.adamw_update)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for f in kernels:
+    for f in kernels + optimizer:
         f.launches = 0
     t0 = time.perf_counter()
     res = train_local_sgd(cfg, tc, ls, opt_cfg, topology=edge_topology(),
                           sync_algorithm="hierarchical", device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {f.__name__: f.launches for f in kernels}
+    launches = {f.__name__: f.launches for f in kernels + optimizer}
     peak = torch.cuda.max_memory_allocated()
     per_round = {k: 1e3 * v / rounds for k, v in res.phase_s.items()}
     round_ms = 1e3 * R * K / res.steps_per_s
@@ -1729,17 +1916,20 @@ def phase_local_sgd(torch, np, device):
         f"peak memory {peak / 1e9:.2f} GB")
     n_q = len(sizes) * R * rounds
     n_fa = cfg.num_layers * R * K * rounds
+    n_opt = len(sizes) * R * K * rounds
     log(f"launches {launches}; expected quant8 {len(sizes)} x {R} x "
         f"{rounds} = {n_q} each, FA-2 {cfg.num_layers} x {R} x {K} x "
-        f"{rounds} = {n_fa} each")
+        f"{rounds} = {n_fa} each, AdamW norm and update {len(sizes)} x "
+        f"{R} x {K} x {rounds} = {n_opt} each")
     if len(res.losses) != K * rounds or not all(
             np.isfinite(res.losses + res.round_losses)):
         fail(f"non-finite or missing losses: {res.losses} "
              f"{res.round_losses}")
     if any(launches[f.__name__] != n_q for f in kernels[3:]) or any(
-            launches[f.__name__] != n_fa for f in kernels[:3]):
-        fail(f"launches {launches} are not {n_q} (quant8) and {n_fa} "
-             "(FA-2) each")
+            launches[f.__name__] != n_fa for f in kernels[:3]) or any(
+            launches[f.__name__] != n_opt for f in optimizer):
+        fail(f"launches {launches} are not {n_q} (quant8), {n_fa} "
+             f"(FA-2) and {n_opt} (AdamW) each")
     if res.sync_wire_bytes_per_round != wire:
         fail(f"sync wire bytes {res.sync_wire_bytes_per_round} != {wire}")
     ref = dict(losses=res.losses, round_losses=res.round_losses,
@@ -5555,8 +5745,10 @@ def mesh_ls_train(torch, np, device, ref):
         runs = res.values[0]
         got = runs[0].result
         launches, kernels, q8 = res.launches[0], res.kernels[0], res.quant8[0]
+        opt = res.adamw[0]
         n_fa = cfg.num_layers * c["R"] * c["K"] * rounds
         n_q = len(opt_leaf_sizes()) * c["R"] * rounds
+        n_opt = len(opt_leaf_sizes()) * c["R"] * c["K"] * rounds
         diffs = [abs(a - b) for a, b in zip(got.losses + got.round_losses,
                                             ref["losses"]
                                             + ref["round_losses"])]
@@ -5566,7 +5758,9 @@ def mesh_ls_train(torch, np, device, ref):
             f"round {got.sync_wire_bytes_per_round:,} (phase 6 "
             f"{ref['wire']:,}); FA-2 launches {launches} (predicted "
             f"{n_fa} a rank, {n_fa * ranks} in all), by instantiation "
-            f"{kernels}; int8 launches by rank {q8} (predicted {n_q} each)")
+            f"{kernels}; int8 launches by rank {q8} (predicted {n_q} each); "
+            f"AdamW launches by rank {opt} (predicted {n_opt} each, one a "
+            "rank's block of a leaf an inner step)")
         if len(got.losses) != len(ref["losses"]) or not all(
                 np.isfinite(got.losses)) or max(diffs) > tol["loss"]:
             fail("(b) losses disagree with phase 6's single process")
@@ -5581,6 +5775,9 @@ def mesh_ls_train(torch, np, device, ref):
         if any(v != {"quantize_blocks": n_q, "dequantize_blocks": n_q}
                for v in q8):
             fail(f"(b) int8 launches by rank {q8}, predicted {n_q} each")
+        if any(v != {"square_sums": n_opt, "adamw_update": n_opt}
+               for v in opt):
+            fail(f"(b) AdamW launches by rank {opt}, predicted {n_opt} each")
         if any((r.result.losses, r.result.round_losses)
                != (got.losses, got.round_losses) for r in runs):
             fail("(b) ranks report different losses")
@@ -5625,7 +5822,7 @@ def mesh_ls_train(torch, np, device, ref):
         f"6's {ref['round_ms']:.1f} ms for one process (four processes "
         "time-share one card, their collectives staged through host "
         "memory)")
-    return launches, per_rank, q8
+    return launches, per_rank, q8, opt
 
 
 def phase_mesh_local_sgd(torch, np, device, ref):
@@ -5683,7 +5880,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi[0]})")
-    wanted = (set(range(1, 25)) if args.phases is None
+    wanted = (set(range(1, 26)) if args.phases is None
               else {int(x) for x in args.phases.split(",")})
 
     t0 = time.perf_counter()
@@ -5710,6 +5907,7 @@ def main(argv=None) -> int:
     run(2, phase_engine, torch, np, device)
     run(3, phase_fa, torch, device, timer)
     run(5, phase_quant8, torch, device, timer)
+    run(25, phase_adamw, torch, device, timer)
     del timer
     torch.cuda.empty_cache()
     run(4, phase_train, torch, np, device)
@@ -5741,7 +5939,7 @@ def main(argv=None) -> int:
     log("wall time by phase (s): " + ", ".join(
         f"{n} {walls[n]:.1f}" for n in sorted(walls)))
     log(f"phases took {sum(walls.values()):.1f} s in all")
-    if wanted != set(range(1, 25)):
+    if wanted != set(range(1, 26)):
         log(f"partial run: phases {sorted(wanted)} passed")
         return 0
 
@@ -5767,7 +5965,7 @@ def main(argv=None) -> int:
     fleet = got[20]
     pipe_launches, _ = got[21]
     mesh_launches, _ = got[22]
-    mesh_ls_launches, _, mesh_ls_q8 = got[24]
+    mesh_ls_launches, _, mesh_ls_q8, mesh_ls_opt = got[24]
     mesh_ls_path = "opt-1.3b DiLoCo on the 2 x 2 mesh (phase 24 (b))"
     fleet_path = {"(a) quickstart": "opt-1.3b quickstart twin (phase 20)",
                   "(b) diloco": "opt-1.3b DiLoCo twin (phase 20)",
@@ -5888,6 +6086,32 @@ def main(argv=None) -> int:
                          "opt-1.3b edge fleet, async local SGD (phase 19)":
                          edge[name],
                          "opt-1.3b local SGD (phase 6)": ls_launches[name]}})
+    adamw_worst, adamw_unequal, adamw_timing = got[25]
+    opt_leaf, granite_leaf = (adamw_timing[label] for label, _, _ in
+                              ADAMW_LEAVES)
+    rows.append({"name": "adamw_update", "route": "cuda",
+                 "source": "src/repro_torch/csrc/adamw.cu",
+                 "replaces": None,
+                 "launches": ls_launches["adamw_update"],
+                 **opt_leaf,
+                 "max_ulps": max(adamw_worst, opt_leaf["max_ulps"]),
+                 "unequal": adamw_unequal + opt_leaf["unequal"],
+                 "shape": f"opt-1.3b's fc1 leaf, {ADAMW_LEAVES[0][1]} "
+                          "parameters, bf16 p and g, fp32 moments",
+                 "at_granite_3_2b_largest_leaf": {
+                     "shape": f"{ADAMW_LEAVES[1][1]} parameters, bf16 p, "
+                              "fp32 g, fp32 moments", **granite_leaf},
+                 "launches_by_path": {
+                     mesh_ls_path:
+                     sum(r["adamw_update"] for r in mesh_ls_opt),
+                     "... of it by rank, update and norm": mesh_ls_opt,
+                     "opt-1.3b local SGD (phase 6)":
+                     ls_launches["adamw_update"],
+                     "... its norm kernel": ls_launches["square_sums"],
+                     "opt-1.3b train, 8 steps (phase 4)":
+                     got[4]["adamw_update"],
+                     "... its norm kernel (phase 4)":
+                     got[4]["square_sums"]}})
     mamba = {k: v for k, v in ssd_timing.items() if k != "jamba"}
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -72,11 +72,14 @@ class SpawnResult:
     ``launches[c]``: the FA-2 wrappers' launches in call ``c`` by wrapper
     name, summed over the ranks; ``kernels[c]``: the same by the kernel
     instantiation the library reports; ``quant8[c][r]``: the int8
-    quantize and dequantize wrappers' launches on rank ``r``."""
+    quantize and dequantize wrappers' launches on rank ``r``;
+    ``adamw[c][r]``: the AdamW norm and update wrappers' launches on rank
+    ``r``."""
     values: List[List[Any]]
     launches: List[Dict[str, int]]
     kernels: List[Dict[str, int]]
     quant8: Optional[List[List[Dict[str, int]]]] = None
+    adamw: Optional[List[List[Dict[str, int]]]] = None
 
 
 def _fa_wrappers():
@@ -88,6 +91,11 @@ def _fa_wrappers():
 def _quant8_wrappers():
     from repro_torch.kernels.quant8 import kernel as QK
     return (QK.quantize_blocks, QK.dequantize_blocks)
+
+
+def _adamw_wrappers():
+    from repro_torch.kernels.adamw import kernel as AK
+    return (AK.square_sums, AK.adamw_update)
 
 
 # the functional collectives DTensor issues, each taking its tensor first,
@@ -340,7 +348,7 @@ def _rank_main(rank: int, world: int, tmp: str, edge: bool,
             for f in wrappers:
                 f.launches = 0
                 f.kernels.clear()
-            for f in _quant8_wrappers():
+            for f in _quant8_wrappers() + _adamw_wrappers():
                 f.launches = 0
             if edge:
                 value = call(mesh, device=device)
@@ -356,7 +364,8 @@ def _rank_main(rank: int, world: int, tmp: str, edge: bool,
                 by_kernel.update(f.kernels)
             out.append((value, {f.__name__: f.launches for f in wrappers},
                         dict(by_kernel),
-                        {f.__name__: f.launches for f in _quant8_wrappers()}))
+                        {f.__name__: f.launches for f in _quant8_wrappers()},
+                        {f.__name__: f.launches for f in _adamw_wrappers()}))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
                 torch.cuda.empty_cache()
@@ -423,6 +432,9 @@ def spawn(calls: Sequence[Callable], *, data: int = 1,
             by_kernel.update(ranks[r][c][2])
         launches.append(dict(total))
         kernels.append(dict(by_kernel))
-    return SpawnResult(values, launches, kernels,
-                       [[ranks[r][c][3] for r in range(world)]
-                        for c in range(len(calls))])
+
+    def by_rank(i):
+        return [[ranks[r][c][i] for r in range(world)]
+                for c in range(len(calls))]
+    return SpawnResult(values, launches, kernels, quant8=by_rank(3),
+                       adamw=by_rank(4))

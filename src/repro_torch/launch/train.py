@@ -401,7 +401,7 @@ def train_on_mesh(args: argparse.Namespace, *, ls=None, opt_cfg=None):
         print(f"[train] rank {r} {tuple(run.coordinate)}: "
               f"{spmd.summary(run)}")
     print(f"[train] FA-2 launches {res.launches[0]}, int8 launches by rank "
-          f"{res.quant8[0]}")
+          f"{res.quant8[0]}, AdamW launches by rank {res.adamw[0]}")
     report(args, cfg, runs[0].result, runs[0].records,
            [run.records.tracer for run in runs if run.records.tracer],
            dev)

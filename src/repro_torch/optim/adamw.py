@@ -12,6 +12,15 @@ model)`` mesh the parameters, gradients and moments are DTensors placed
 alike: the clipping norm is reduced over the whole model and each leaf's
 update runs on the rank's own shards, so no optimizer state is ever
 gathered.
+
+The norm's sums of squares and each leaf's update go through the
+wrappers of ``kernels/adamw``: on the card their hand-written kernels
+(one launch a leaf each, the plain loop's math bit for bit, no host
+sync; a card tensor they cannot read raises), on the CPU the plain loop
+of ``kernels/adamw/ref.py``.  A ``meta`` or fake leaf (the dry run's
+trace) has no data for a kernel to read and takes the plain loop here.
+With the tracer on, the counter ``adamw/fused_share`` records each
+step's share of elements the update kernel took.
 """
 
 from __future__ import annotations
@@ -23,7 +32,10 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.distributed.act_sharding import is_sharded, zeros_beside
+from repro_torch.kernels.adamw import kernel as K
+from repro_torch.kernels.adamw import ref as R
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.obs.trace import get_tracer
 
 PyTree = Any
 
@@ -76,15 +88,27 @@ def global_norm(leaves: Union[PyTree, List[torch.Tensor]]) -> torch.Tensor:
         leaves = tree_leaves(leaves)
     if leaves and is_sharded(leaves[0]):
         return _sharded_norm(leaves)
-    return torch.stack([x.float().square().sum() for x in leaves]).sum() \
-        .sqrt()
+    return torch.stack(_square_sums(leaves)).sum().sqrt()
+
+
+def _abstract(t: torch.Tensor) -> bool:
+    """A ``meta`` or fake tensor: a trace, with no data to read."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.device.type == "meta" or is_fake(t)
+
+
+def _square_sums(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Σ x² of each leaf, fp32 (0-d each)."""
+    if _abstract(xs[0]):
+        return [R.square_sum_reference(x) for x in xs]
+    return list(K.square_sums(xs).unbind())
 
 
 def _sharded_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = leaves[0].device_mesh
     parts = []
-    for x in leaves:
+    for x, sq in zip(leaves, _square_sums([x.to_local() for x in leaves])):
         copies = 1
         for i, p in enumerate(x.placements):
             if isinstance(p, Partial):
@@ -93,7 +117,7 @@ def _sharded_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
                                  "partial sums")
             if isinstance(p, Replicate):
                 copies *= mesh.size(i)
-        parts.append(x.to_local().float().square().sum() / copies)
+        parts.append(sq / copies)
     local = torch.stack(parts).sum()
     total = DTensor.from_local(local, mesh, [Partial()] * mesh.ndim,
                                run_check=False)
@@ -123,24 +147,26 @@ def apply_updates(params: PyTree, grads: Union[PyTree, List[torch.Tensor]],
     clip = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
             if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - torch.pow(b1, step.float())
-    bc2 = 1.0 - torch.pow(b2, step.float())
+    bc1 = 1.0 - torch.pow(cfg.b1, step.float())
+    bc2 = 1.0 - torch.pow(cfg.b2, step.float())
+    hyper = dict(lr=lr, clip=clip, bc1=bc1, bc2=bc2, b1=cfg.b1, b2=cfg.b2,
+                 eps=cfg.eps, weight_decay=cfg.weight_decay)
+    fused = total = 0
     for p, g, mu, nu in zip(tree_leaves(params), flat_g,
                             tree_leaves(state["mu"]),
                             tree_leaves(state["nu"])):
-        ndim = p.dim()
+        decay = p.dim() >= 2      # decoupled decay on >= 2-D weights only
         if is_sharded(p):               # elementwise: the local shards
             g = g.redistribute(p.device_mesh, p.placements)
             p, g, mu, nu = (_local(t) for t in (p, g, mu, nu))
-        g = g.float() * clip
-        mu_f = mu.float() * b1 + (1 - b1) * g
-        nu_f = nu.float() * b2 + (1 - b2) * g.square()
-        delta = (mu_f / bc1) / ((nu_f / bc2).sqrt() + cfg.eps)
-        if ndim >= 2:             # decoupled decay on >= 2-D weights only
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        mu.copy_(mu_f)
-        nu.copy_(nu_f)
+        if _abstract(p):
+            R.adamw_update_reference(p, g, mu, nu, decay=decay, **hyper)
+        else:
+            K.adamw_update(p, g, mu, nu, decay=decay, **hyper)
+            fused += p.numel() if p.device.type == "cuda" else 0
+        total += p.numel()
+    tracer = get_tracer()
+    if tracer.enabled:
+        tracer.counter("adamw/fused_share", fused / max(total, 1))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -13,7 +13,8 @@ gate, a layer-sliced checkpoint of card tensors restored onto another
 stage split, and async local SGD whose health monitor excludes the same
 straggler on the card as on the CPU, the DT-FM pipeline on two gloo
 ranks sharing the card against the single-process loss and gradients,
-and the production mesh (FSDP + tensor parallelism) on four.
+the production mesh (FSDP + tensor parallelism) on four, and the AdamW
+norm and update kernels against the plain loop.
 Every test here skips without CUDA.
 
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -29,6 +30,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.adamw import kernel as AK  # noqa: E402
+from repro_torch.kernels.adamw import ref as AR  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
     flash_decode_paged, paged_attention_reference)
@@ -1191,3 +1194,198 @@ def test_cuda_device_phases_time_the_card_without_waiting(cuda, monkeypatch):
     assert dev["dur"] / 1e6 > host_s
     assert dev["ts"] >= host["ts"] - 50.0
     assert not waits
+
+
+# AdamW: (param, gradient, moment) dtypes, and leaves of 1 and more dims
+# whose lengths are no multiple of a 4-element group or a 16-byte load
+ADAMW_DTYPES = [(p, g, m) for p in (torch.float32, torch.bfloat16)
+                for g in (torch.float32, torch.bfloat16)
+                for m in (torch.float32, torch.bfloat16)]
+ADAMW_DTYPE_IDS = ["-".join(str(t).split(".")[1].replace("float", "f")
+                            for t in c) for c in ADAMW_DTYPES]
+ADAMW_SHAPES = [(1_000_003,), (333, 77), (5,), (2, 3, 129), (4096, 8)]
+
+
+def ulps(a, b):
+    """The largest distance between a and b in units in the last place
+    of their (common) dtype, fp32 or bf16."""
+    assert a.dtype == b.dtype
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int16
+    sign = -(1 << (8 * ints.itemsize - 1))
+
+    def ordered(t):
+        i = t.contiguous().view(ints).long()
+        return torch.where(i < 0, sign - i, i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def adamw_hyper(step, clip, device):
+    t = torch.tensor(step, device=device)
+    return dict(lr=torch.tensor(3e-3, device=device),
+                clip=torch.tensor(clip, device=device),
+                bc1=1.0 - torch.pow(0.9, t.float()),
+                bc2=1.0 - torch.pow(0.95, t.float()), b1=0.9, b2=0.95,
+                eps=1e-8, weight_decay=0.1)
+
+
+def adamw_leaf(shape, dtypes, device, seed):
+    pd, _, md = dtypes
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device).to(pd),
+            (torch.randn(shape, generator=g, device=device) * 1e-2).to(md),
+            (torch.rand(shape, generator=g, device=device) * 1e-4).to(md))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [1.0, 0.37], ids=["no-clip", "clipped"])
+@pytest.mark.parametrize("dtypes", ADAMW_DTYPES, ids=ADAMW_DTYPE_IDS)
+def test_cuda_adamw_update_equals_plain_loop(dtypes, clip, cuda):
+    """Three steps of each leaf: the moments within fp32 round-off (one
+    unit in the last place of their dtype) and the parameters equal or
+    one unit apart."""
+    before = AK.adamw_update.launches
+    for i, shape in enumerate(ADAMW_SHAPES):
+        p, mu, nu = adamw_leaf(shape, dtypes, cuda, seed=i)
+        want = [t.clone() for t in (p, mu, nu)]
+        for step in (1, 2, 3):
+            g = torch.randn(shape, device=cuda).to(dtypes[1])
+            hyper = adamw_hyper(step, clip, cuda)
+            decay = len(shape) >= 2
+            AK.adamw_update(p, g, mu, nu, decay=decay, **hyper)
+            AR.adamw_update_reference(*want[:1], g, *want[1:], decay=decay,
+                                      **hyper)
+        for got, ref in zip((p, mu, nu), want):
+            assert ulps(got, ref) <= 1, (shape, got.dtype)
+    assert AK.adamw_update.launches - before == 3 * len(ADAMW_SHAPES)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_update_past_two_gib(cuda):
+    """An fp32 leaf of more than 2**31 bytes: every offset past the
+    32-bit range is computed in 64 bits."""
+    n = (1 << 29) + 7
+    dtypes = (torch.float32,) * 3
+    p, mu, nu = adamw_leaf((n,), dtypes, cuda, seed=3)
+    g = torch.randn(n, device=cuda)
+    want = [t.clone() for t in (p, mu, nu)]
+    hyper = adamw_hyper(2, 0.5, cuda)
+    AK.adamw_update(p, g, mu, nu, decay=False, **hyper)
+    chunk = 1 << 26
+    for a in range(0, n, chunk):
+        AR.adamw_update_reference(*(t[a:a + chunk] for t in want[:1]),
+                                  g[a:a + chunk],
+                                  *(t[a:a + chunk] for t in want[1:]),
+                                  decay=False, **hyper)
+    for got, ref in zip((p, mu, nu), want):
+        assert ulps(got, ref) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_norm_kernel_equals_plain_sum_and_repeats(dtype, cuda):
+    """Σ x² of each leaf within fp32 round-off of ``x.float().square()
+    .sum()``, and the same bits on a second call (no atomics)."""
+    xs = [torch.randn(n, device=cuda).to(dtype) * 3
+          for n in (1, 7, 9, 4099, 1_000_003, (1 << 27) + 5)]
+    before = AK.square_sums.launches
+    got = AK.square_sums(xs)
+    again = AK.square_sums(xs)
+    want = torch.stack([AR.square_sum_reference(x) for x in xs])
+    assert AK.square_sums.launches - before == 2 * len(xs)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _card_tree(device, dtype=torch.bfloat16):
+    g = torch.Generator(device=device).manual_seed(0)
+    return {k: torch.randn(s, generator=g, device=device).to(dtype)
+            for k, s in (("w", (64, 48)), ("b", (33,)), ("stack", (3, 5, 7)),
+                         ("emb", (1000, 64)))}
+
+
+def _plain_adamw(params, grads, state, cfg):
+    """``apply_updates`` with every leaf through the plain loop."""
+    from repro_torch.optim import adamw
+    real = AK.adamw_update, AK.square_sums
+    AK.adamw_update = AR.adamw_update_reference
+    AK.square_sums = lambda xs: torch.stack(
+        [AR.square_sum_reference(x) for x in xs])
+    try:
+        return adamw.apply_updates(params, grads, state, cfg)
+    finally:
+        AK.adamw_update, AK.square_sums = real
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_apply_updates_one_launch_a_leaf_without_a_sync(cuda):
+    """Each step launches the norm kernel and the update kernel once a
+    leaf, never waits for the card (sync debug mode "error"), and gives
+    the plain loop's leaves; the tracer's fused share reads 1.0."""
+    from repro_torch.obs import trace
+    from repro_torch.optim import adamw
+    cfg = adamw.OptConfig(learning_rate=1e-2, warmup_steps=1,
+                          clip_norm=1e6)            # clip reads exactly 1
+    params, want = _card_tree(cuda), _card_tree(cuda)
+    state, want_state = (adamw.init_opt_state(t, cfg) for t in (params, want))
+    launches, shares = [0, 0], []
+    for i in range(3):
+        grads = {k: torch.randn_like(v) for k, v in params.items()}
+        torch.cuda.synchronize()
+        tr = trace.Tracer(enabled=True)
+        old = trace.set_tracer(tr)
+        before = AK.square_sums.launches, AK.adamw_update.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            adamw.apply_updates(params, grads, state, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            trace.set_tracer(old)
+        launches[0] += AK.square_sums.launches - before[0]
+        launches[1] += AK.adamw_update.launches - before[1]
+        shares += [e["args"]["value"] for e in tr.events
+                   if e["name"] == "adamw/fused_share"]
+        _plain_adamw(want, grads, want_state, cfg)
+    assert launches == [3 * len(params)] * 2
+    assert shares == [1.0] * 3
+    for k in params:
+        assert ulps(params[k], want[k]) <= 1
+        assert ulps(state["mu"][k], want_state["mu"][k]) <= 1
+        assert ulps(state["nu"][k], want_state["nu"][k]) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", ["strided", "fp16"])
+def test_cuda_adamw_leaf_the_kernel_cannot_read_is_refused(leaf, cuda):
+    """A card leaf the kernels cannot read (a transposed view, fp16) makes
+    ``apply_updates`` raise: it never gives way to the plain loop on the
+    card."""
+    from repro_torch.optim import adamw
+    cfg = adamw.OptConfig(learning_rate=1e-2, warmup_steps=1, clip_norm=0.0)
+    params = _card_tree(cuda)
+    params["w"] = (params["w"].t() if leaf == "strided"
+                   else params["w"].half())
+    state = adamw.init_opt_state(params, cfg)
+    grads = {k: torch.randn_like(v) for k, v in params.items()}  # v's strides
+    assert grads["w"].stride() == params["w"].stride()
+    plain = AR.adamw_update_reference
+
+    def refused(*a, **kw):
+        raise AssertionError("the plain loop ran on the card")
+    AR.adamw_update_reference = refused
+    try:
+        with pytest.raises(ValueError, match="contiguous"):
+            adamw.apply_updates(params, grads, state, cfg)
+        with pytest.raises(ValueError, match="contiguous"):
+            adamw.global_norm(list(grads.values()))
+    finally:
+        AR.adamw_update_reference = plain
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_refuses_what_the_kernel_does_not_take(cuda):
+    hyper = adamw_hyper(1, 1.0, cuda)
+    x = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        AK.adamw_update(x[::2], x[:32], x[:32], x[:32], decay=False, **hyper)
+    with pytest.raises(ValueError, match="contiguous"):
+        AK.square_sums([x.half()])

@@ -72,12 +72,14 @@ class _FakeLibrary:
 def _wrapper_entry_points(monkeypatch):
     """{entry point name: the object its wrapper set argtypes on}, from
     every wrapper's library getter run against a fake library."""
+    from repro_torch.kernels.adamw import kernel as aw
     from repro_torch.kernels.quant8 import kernel as q8
     seen = {}
-    for mod in (q8, decode, fa, ssd):
+    for mod in (q8, decode, fa, ssd, aw):
         monkeypatch.setattr(mod, "load_library",
                             lambda name: _FakeLibrary(seen))
     q8._launchers.__wrapped__()
+    aw._launchers.__wrapped__()
     decode._library.__wrapped__()
     fa._lib.__wrapped__()
     ssd._launcher.__wrapped__()
@@ -127,7 +129,8 @@ def test_every_c_launcher_is_checked():
     assert sorted(names) == sorted(
         ["quant8_quantize_launch", "quant8_dequantize_launch",
          "flash_decode_paged_launch", "fa_fwd_launch", "fa_bwd_dq_launch",
-         "fa_bwd_dkdv_launch", "ssd_scan_launch"])
+         "fa_bwd_dkdv_launch", "ssd_scan_launch", "adamw_update_launch",
+         "adamw_sqsum_launch", "adamw_sqsum_finish_launch"])
 
 
 def c_reporters():

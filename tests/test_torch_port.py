@@ -250,7 +250,7 @@ def test_kernel_build_helpers(monkeypatch, tmp_path):
         "flash_decode-")
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
         "flash_decode", "flash_attn_fwd", "flash_attn_bwd", "quant8",
-        "ssd_scan"}
+        "ssd_scan", "adamw"}
     header = build.CSRC / "flash_attn.cuh"
     assert header.is_file()
     # the shared header is part of every library's name
